@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It imports only ``tpufem_torch``, needs a CUDA device (it exits non-zero
+without one: nothing here runs on the CPU instead) and no network, and
+prints one JSON line per phase:
+
+1. ``device``      the card as ``nvidia-smi`` names it, torch/CUDA versions
+2. ``build``       the kernel library built from ``tpufem_torch/csrc/*.cu``
+3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
+                   card, at the shapes of the n = 1024 polycrystal plan
+                   (float32/float64 values, int8/int32 indices, both modes
+                   of the pass kernel), with times and the byte bound
+4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
+                   diagonal against the flat Assembler, copies == owners
+5. ``solve_small`` polycrystal n = 256, Jacobi, staged, to convergence
+6. ``solve_full``  polycrystal n = 1024 (about 2.1 M dofs), 200 grains, a few
+                   Newton steps, twice: the kernels' launch counts, the phase
+                   table, and a bitwise equal residual trajectory
+
+then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
+so the script exits non-zero and prints no result line.
+
+``--until PHASE`` stops after that phase (a short first check of newly
+written kernels); it then prints no result line either.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+          file=sys.stderr)
+    sys.exit(2)
+
+from tpufem_torch.assemble import Assembler  # noqa: E402
+from tpufem_torch.cases import polycrystal  # noqa: E402
+from tpufem_torch.config import SolverConfig  # noqa: E402
+from tpufem_torch.forms import EnergyFunctional, asym_damage_psi  # noqa: E402
+from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
+from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
+from tpufem_torch.lane import kernels as K  # noqa: E402
+from tpufem_torch.mesh import unit_square  # noqa: E402
+from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
+from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
+# caps of the full-width solve (it shows the path and its reproducibility,
+# not convergence): 2 Newton steps of at most 300 CG iterations each
+FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
+T_START = time.perf_counter()
+PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full")
+_ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+_ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
+                 help="stop after this phase (default: run everything)")
+UNTIL = _ap.parse_args().until
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+    if phase == UNTIL and phase != PHASES[-1]:
+        print(json.dumps({"stopped_after": phase}), flush=True)
+        sys.exit(0)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# -- 1. device ----------------------------------------------------------------
+
+smi = subprocess.run(
+    ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    capture_output=True, text=True, check=True,
+).stdout.strip().splitlines()[0]
+emit("device", nvidia_smi=smi, torch=torch.__version__,
+     cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+     count=torch.cuda.device_count())
+
+# -- 2. build -----------------------------------------------------------------
+
+_build.load(verbose=True)
+emit("build", seconds=_build.build_seconds, library=_build.LIB_PATH,
+     sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
+     ptxas=[ln for ln in _build.build_log.splitlines()
+            if "registers" in ln or "spill" in ln][:24])
+
+# -- 3. kernels at the shapes of the n = 1024 plan ------------------------------
+
+NU = 0.3
+
+
+def damage_problem(mesh, dtype, with_E):
+    """Asymmetric elasto-damage functional + the case's Dirichlet BCs."""
+    V = FunctionSpace.create(mesh, 1, bs=2)
+    DS = FunctionSpace.create(mesh, 1, bs=1)
+    coeffs = [Coefficient("d", DS)]
+    if with_E:
+        coeffs.append(Coefficient("E", FunctionSpace.create(mesh, 0, bs=1)))
+        integrand = lambda qp: asym_damage_psi(
+            qp.eps, qp.coeff("d"), qp.coeff("E"), NU)
+    else:
+        integrand = lambda qp: asym_damage_psi(
+            qp.eps, qp.coeff("d"), 1.0e6, NU)
+    F = EnergyFunctional(V, [Term(integrand, 1)], coeffs, device=DEV,
+                         dtype=dtype)
+    left = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    bcs = [DirichletBC(V, left, [0.0, 0.0]),
+           DirichletBC(V, right, [0.01, 0.0])]
+    return F, bcs, V, DS
+
+
+t0 = time.perf_counter()
+mesh_full = polycrystal.generate_polycrystal(N_FULL, n_grains=200)
+F_full, bcs_full, V_full, _ = damage_problem(mesh_full, torch.float32, True)
+eng_full = LaneEngine(F_full, bcs_full, wg_own=16, device=DEV,
+                      dtype=torch.float32)
+p = eng_full.plan
+C, V_, G, kc, wg = eng_full.bs, p.nv, p.G, p.kc, p.wg
+shapes = dict(C=C, V=V_, G=G, kc=kc, wg=wg, wg_own=p.wg_own, R=p.R,
+              n_dofs=V_full.n_dofs, n_cells=int(mesh_full.n_cells),
+              owner_passes=len(eng_full.owner_shifts),
+              refresh_passes=len(eng_full.refresh_shifts),
+              owner_wrs=list(eng_full.owner_wrs),
+              refresh_wrs=list(eng_full.refresh_wrs),
+              tail_copies=0 if eng_full._tail_copy is None
+              else int(len(eng_full._tail_copy)),
+              idx_dtype=str(eng_full.gather_idx.dtype),
+              host_setup_seconds=time.perf_counter() - t0)
+check(eng_full._owner_idx is not None and eng_full._refresh_idx is not None,
+      "the n=1024 plan has no owner/refresh passes")
+
+gen = torch.Generator(device=DEV)
+gen.manual_seed(1234)
+results = {}
+
+
+def record(name, err, ms, plain_ms, bound_bytes, library_ms, **extra):
+    r = results.setdefault(name, dict(max_abs_err=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if ms is not None:  # the main-path variant carries the times
+        r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+                 bound_bytes=bound_bytes, **extra)
+
+
+for vdt in (torch.float32, torch.float64):
+    for idt in (torch.int8, torch.int32):
+        main = vdt == torch.float32 and idt == eng_full.gather_idx.dtype
+        gidx = eng_full.gather_idx.to(idt)
+        starts = eng_full.gather_starts
+
+        # K1 lane_gather_cm: exactly equal (values are moved, not computed)
+        values = torch.randn((C, p.R, 128), dtype=vdt, device=DEV,
+                             generator=gen)
+        out = K.lane_gather_cm(values, starts, gidx, wr=wg, n_ch=C * V_)
+        torch.cuda.synchronize()
+        ref = K.lane_gather_cm_plain(values, starts, gidx, wr=wg,
+                                     n_ch=C * V_)
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), f"lane_gather_cm {vdt} {idt}: {err}")
+        if main:
+            ms = time_ms(lambda: K.lane_gather_cm(
+                values, starts, gidx, wr=wg, n_ch=C * V_), 20)
+            pms = time_ms(lambda: K.lane_gather_cm_plain(
+                values, starts, gidx, wr=wg, n_ch=C * V_), 3)
+            # library yardstick: one torch.gather over int64 global
+            # indices (expanded outside the timing; -1 -> an appended 0)
+            ii = gidx.to(torch.int64)
+            lane = torch.arange(128, device=DEV)
+            flat = (starts.to(torch.int64).view(G, 1, 1, 1) + ii) * 128 + lane
+            flat = torch.where(ii >= 0, flat, torch.full_like(flat, p.R * 128))
+            flat = flat.permute(1, 0, 2, 3).reshape(1, -1).expand(C, -1)
+            vext = torch.cat([values.reshape(C, -1),
+                              values.new_zeros((C, 1))], dim=1)
+            lib = torch.gather(vext, 1, flat).reshape(C, V_, G, kc, 128) \
+                .permute(1, 0, 2, 3, 4).reshape(V_ * C, G, kc, 128)
+            check(torch.equal(lib, ref), "gather yardstick disagrees")
+            lms = time_ms(lambda: torch.gather(vext, 1, flat), 10)
+            record("lane_gather_cm", err, ms, pms,
+                   nbytes(values, starts, gidx, out), lms)
+            del flat, vext, lib, ii
+        else:
+            record("lane_gather_cm", err, None, None, None, None)
+
+        # K2 lane_scatter_cm: the kernel keeps the plain version's order of
+        # additions (v-outer, k-inner), so the tolerance is 0: exactly equal
+        src = torch.randn((V_ * C, G, kc, 128), dtype=vdt, device=DEV,
+                          generator=gen)
+        out = K.lane_scatter_cm(src, gidx, k_out=wg, n_ch=C)
+        torch.cuda.synchronize()
+        ref = K.lane_scatter_cm_plain(src, gidx, k_out=wg, n_ch=C)
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), f"lane_scatter_cm {vdt} {idt}: {err}")
+        if main:
+            ms = time_ms(lambda: K.lane_scatter_cm(
+                src, gidx, k_out=wg, n_ch=C), 20)
+            pms = time_ms(lambda: K.lane_scatter_cm_plain(
+                src, gidx, k_out=wg, n_ch=C), 2)
+            # library yardstick: one index_add_ (float atomics, so only
+            # close to the kernel, not equal) over int64 global indices
+            ii = gidx.to(torch.int64)
+            lane = torch.arange(128, device=DEV)
+            tt = torch.arange(G, device=DEV).view(G, 1, 1, 1)
+            dest = (tt * wg + ii) * 128 + lane
+            dest = torch.where(ii >= 0, dest, torch.full_like(dest, p.R * 128))
+            dest = dest.permute(1, 0, 2, 3).reshape(-1)  # (V*G*kc*128,)
+            s2 = src.reshape(V_, C, -1).permute(0, 2, 1).reshape(-1, C) \
+                .contiguous()
+            acc = torch.zeros((p.R * 128 + 1, C), dtype=vdt, device=DEV)
+            acc.index_add_(0, dest, s2)
+            lib = acc[:-1].T.reshape(C, G, wg, 128)
+            check(float((lib - ref).abs().max()) <= 1e-4 * float(
+                ref.abs().max()), "index_add_ yardstick disagrees")
+            lms = time_ms(lambda: acc.index_add_(0, dest, s2), 10)
+            record("lane_scatter_cm", err, ms, pms, nbytes(src, gidx, out),
+                   lms)
+            del dest, s2, acc, lib, ii
+        else:
+            record("lane_scatter_cm", err, None, None, None, None)
+        del src
+
+        # K3 lane_pass_update: owner-sum (head, +shifts) and refresh (tail
+        # rows SET, negated shifts); exactly equal (sum in pass order)
+        for head in (True, False):
+            if head:
+                st, ix = eng_full._owner_starts, eng_full._owner_idx.to(idt)
+                wrs, sh = eng_full.owner_wrs, eng_full.owner_shifts
+            else:
+                st, ix = eng_full._refresh_starts, eng_full._refresh_idx.to(idt)
+                wrs = eng_full.refresh_wrs
+                sh = tuple(-s for s in eng_full.refresh_shifts)
+            kw = dict(wrs=wrs, wg=wg, shifts=sh, head=head)
+            out = K.lane_pass_update(values, st, ix, **kw)
+            torch.cuda.synchronize()
+            ref = K.lane_pass_update_plain(values, st, ix, **kw)
+            err = float((out - ref).abs().max())
+            check(torch.equal(out, ref),
+                  f"lane_pass_update head={head} {vdt} {idt}: {err}")
+            if main:
+                ms = time_ms(lambda: K.lane_pass_update(values, st, ix, **kw),
+                             20)
+                pms = time_ms(lambda: K.lane_pass_update_plain(
+                    values, st, ix, **kw), 3)
+                b = nbytes(values, st, ix, out)
+                if head:
+                    record("lane_pass_update", err, ms, pms, b, None)
+                else:
+                    results["lane_pass_update"].update(
+                        refresh_ms=ms, refresh_plain_ms=pms,
+                        refresh_bound_ms=b / HBM_BYTES_PER_S * 1e3)
+                    record("lane_pass_update", err, None, None, None, None)
+            else:
+                record("lane_pass_update", err, None, None, None, None)
+        del values, out, ref
+
+emit("kernels", shapes=shapes, kernels=results,
+     tolerance="exactly equal (0) for all three kernels")
+del eng_full, F_full
+torch.cuda.empty_cache()
+
+# -- 4. engine against the flat assembler (n = 64, float64) ---------------------
+
+mesh_e = unit_square(N_ENGINE)
+F_e, bcs_e, V_e, DS_e = damage_problem(mesh_e, torch.float64, False)
+d_e = np.zeros(DS_e.n_dofs)
+d_e[(DS_e.dof_coords[:, 1] > 0.45) & (DS_e.dof_coords[:, 1] < 0.55)] = 0.8
+rng = np.random.default_rng(0)
+u_e = 1e-3 * rng.standard_normal(V_e.n_dofs)
+v_e = rng.standard_normal(V_e.n_dofs)
+eng_e = LaneEngine(F_e, bcs_e, wg_own=8, device=DEV, dtype=torch.float64)
+asm_e = Assembler(F_e, bcs_e)
+cc_e = eng_e.prepare_coeffs({"d": d_e})
+ct_e = {"d": torch.as_tensor(d_e, device=DEV)}
+ut, vt = torch.as_tensor(u_e, device=DEV), torch.as_tensor(v_e, device=DEV)
+ul, vl = eng_e.to_lane(u_e), eng_e.to_lane(v_e)
+# Assembler.diagonal puts 1.0 on constrained dofs; compare the raw scatter
+ed_flat = asm_e._r_plan.apply(torch.diagonal(
+    asm_e.element_matrices(ut, ct_e), dim1=0, dim2=1).T.contiguous())
+pairs = {
+    "residual": (eng_e.residual(ul, cc_e), asm_e.residual(ut, ct_e)),
+    "tangent_action": (eng_e.tangent_action(ul, cc_e, vl),
+                       asm_e.tangent_action(ut, ct_e, vt)),
+    "tangent_linearized": (eng_e.make_tangent(ul, cc_e)(vl),
+                           asm_e.tangent_action(ut, ct_e, vt)),
+    "diagonal": (eng_e.diagonal(ul, cc_e), ed_flat),
+}
+engine_out = {}
+for name, (lane_val, flat_val) in pairs.items():
+    got = eng_e.from_lane_dev(lane_val)
+    rel = float((got - flat_val).abs().max() / flat_val.abs().max())
+    check(rel <= 1e-12, f"engine {name}: rel {rel}")
+    check(torch.equal(eng_e.refresh_copies(lane_val), lane_val),
+          f"engine {name}: copy slots differ from their owners")
+    check(torch.equal(eng_e.to_lane_dev(got), lane_val),
+          f"engine {name}: lane state is not owner-consistent")
+    engine_out[name] = rel
+emit("engine", n=N_ENGINE, dtype="float64", rel_err=engine_out,
+     tolerance=1e-12)
+del eng_e, asm_e
+
+# -- 5. small solve to convergence ----------------------------------------------
+
+t0 = time.perf_counter()
+# newton_rtol = 1e-5: in float32 the residual norm of this problem stops
+# falling near 1e-6 * r0, so a tolerance at that floor is met or missed by
+# rounding; one decade above it is met with room to spare
+res_s = polycrystal.run(N_SMALL, fused=False, device=DEV,
+                        solver=SolverConfig(
+                            cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
+                            newton_maxit=10, preconditioner="jacobi"))
+st = res_s.stats
+emit("solve_small", n=N_SMALL, n_dofs=res_s.n_dofs, dtype="float32",
+     converged=st["converged"], newton_iters=st["newton_iters"],
+     cg_iters=st["cg_iters"], residuals=st["residuals"],
+     final_residual=st["final_residual"], energy=res_s.energy,
+     ms_per_cg_iter=1e3 * st["cg_seconds"] / max(st["total_cg_iters"], 1),
+     seconds=time.perf_counter() - t0, timings=res_s.timings)
+check(st["converged"], "solve_small did not converge")
+check(np.isfinite(res_s.energy) and np.isfinite(res_s.u_flat).all()
+      and np.isfinite(res_s.stress).all(), "solve_small: non-finite output")
+check(res_s.u_flat.shape == (res_s.n_dofs,), "solve_small: bad shape")
+uu = res_s.u_flat.reshape(-1, 2)
+check(np.allclose(uu[np.abs(res_s.mesh.x[:, 0] - 1) < 1e-9, 0], 0.01,
+                  atol=1e-6), "solve_small: Dirichlet values lost")
+del res_s
+
+# -- 6. full-width solve, twice -------------------------------------------------
+
+cfg_full = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6,
+                        cg_maxit=FULL_CG_MAXIT,
+                        newton_maxit=FULL_NEWTON_MAXIT,
+                        preconditioner="jacobi")
+runs = []
+for i in range(2):
+    if i == 0:
+        K.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    r = polycrystal.run(N_FULL, n_grains=200, fused=False, device=DEV,
+                        mesh=mesh_full, solver=cfg_full,
+                        postprocess_fields=(i == 0))
+    secs = time.perf_counter() - t0
+    if i == 0:
+        launches = K.launch_counts()
+    runs.append((r, secs, torch.cuda.max_memory_allocated()))
+
+r0, r1 = runs[0][0], runs[1][0]
+s0 = r0.stats
+check(all(v > 0 for v in launches.values()),
+      f"a kernel was not launched on the main path: {launches}")
+check(s0["residuals"] == r1.stats["residuals"]
+      and s0["final_residual"] == r1.stats["final_residual"]
+      and s0["cg_iters"] == r1.stats["cg_iters"],
+      "solve_full: residual trajectory differs between two runs")
+check(np.array_equal(r0.u_flat, r1.u_flat),
+      "solve_full: solution differs bitwise between two runs")
+check(np.isfinite(r0.u_flat).all() and np.isfinite(r0.energy)
+      and np.isfinite(r0.stress).all(), "solve_full: non-finite output")
+check(r0.u_flat.shape == (2 * (N_FULL + 1) ** 2,), "solve_full: bad shape")
+check(s0["residuals"][-1] < s0["residuals"][0]
+      or s0["final_residual"] < s0["residuals"][0],
+      "solve_full: the residual did not decrease")
+emit("solve_full", n=N_FULL, n_grains=200, n_dofs=r0.n_dofs, dtype="float32",
+     caps=dict(newton_maxit=FULL_NEWTON_MAXIT, cg_maxit=FULL_CG_MAXIT),
+     newton_iters=s0["newton_iters"], cg_iters=s0["cg_iters"],
+     residuals=s0["residuals"], final_residual=s0["final_residual"],
+     converged=s0["converged"], energy=r0.energy,
+     ms_per_cg_iter=1e3 * s0["cg_seconds"] / max(s0["total_cg_iters"], 1),
+     launches=launches, bitwise_equal_runs=True,
+     seconds=[runs[0][1], runs[1][1]],
+     peak_device_bytes=runs[0][2], timings=r0.timings)
+
+# -- summary ------------------------------------------------------------------
+
+REPLACES = {
+    "lane_gather_cm": "tpufem/lane/kernels.py:198",
+    "lane_scatter_cm": "tpufem/lane/kernels.py:258",
+    "lane_pass_update": "tpufem/lane/kernels.py:356",
+}
+summary = []
+for name, r in results.items():
+    entry = dict(
+        name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by="bytes",
+        library_ms=r["library_ms"],
+    )
+    for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms"):
+        if k in r:
+            entry[k] = r[k]
+    summary.append(entry)
+print(json.dumps({"kernels": summary}), flush=True)
+print(smi, flush=True)
+print(json.dumps({"total_seconds": time.perf_counter() - T_START}),
+      flush=True)
+print(json.dumps({"ok": True, "device": {
+    "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,63 @@
+"""tpufem_torch.cases.polycrystal.run and the CLI on the CPU (float64):
+the port's own entry points end to end at a tiny size, what they refuse
+for now, and that nothing runs on the CPU unless it was asked to."""
+
+import numpy as np
+import pytest
+import torch
+
+import tpufem_torch.cases.polycrystal as t_poly
+from tpufem_torch.config import SolverConfig as TSolverConfig
+
+torch.set_num_threads(1)
+
+F64 = dict(device="cpu", dtype=torch.float64)
+
+
+def test_run_entry_point_small():
+    """The port's own ``run`` end to end on the CPU: converges, fields are
+    finite, and sum(sigma:eps * area) = 2 * strain energy (the law is
+    positively homogeneous of degree 2)."""
+    res = t_poly.run(
+        12, n_grains=6, smooth_iters=4, use_volume=False,
+        solver=TSolverConfig(cg_rtol=1e-10, cg_maxit=2000), **F64)
+    assert res.stats["converged"]
+    assert np.isfinite(res.energy) and res.energy_stiff > 0
+    v = res.mesh.x[res.mesh.cells]
+    area = 0.5 * np.abs(
+        (v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
+        - (v[:, 2, 0] - v[:, 0, 0]) * (v[:, 1, 1] - v[:, 0, 1]))
+    assert res.strain.shape == (len(res.mesh.cells), 3)
+    assert np.isfinite(res.stress).all()
+    np.testing.assert_allclose(float(res.energy_density @ area),
+                               2.0 * res.energy_stiff, rtol=1e-6)
+    uu = res.u_flat.reshape(-1, 2)
+    right = np.abs(res.mesh.x[:, 0] - 1) < 1e-9
+    np.testing.assert_allclose(uu[right, 0], 0.01, atol=1e-12)
+    np.testing.assert_allclose(uu[np.abs(res.mesh.x[:, 0]) < 1e-9], 0.0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused=True), dict(mixed=True), dict(gmsh_roundtrip=True),
+    dict(output_path="x"), dict(checkpoint_path="x"),
+    dict(solver=TSolverConfig(preconditioner="twolevel")),
+], ids=["fused", "mixed", "gmsh_roundtrip", "output_path",
+        "checkpoint_path", "twolevel"])
+def test_run_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_poly.run(8, n_grains=4, smooth_iters=2, use_volume=False,
+                   postprocess_fields=False, **F64, **kw)
+
+
+def test_cli_runs_on_cpu_and_refuses_missing_cuda(capsys):
+    from tpufem_torch.cli import main
+
+    rc = main(["--device", "cpu", "--x64", "polycrystal", "-n", "8",
+               "--grains", "4", "--smooth-iters", "2", "--cg-rtol", "1e-8",
+               "--rel", "1e-6"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "7.3 nonlinear resolution" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["polycrystal", "-n", "8"])

@@ -1,0 +1,79 @@
+"""Gather-based scatter-reduction plans -- the deterministic assembly
+primitive.
+
+``index_add_`` on a CUDA tensor accumulates with float atomics, so its
+result changes from run to run. The fix is to transpose the reduction at
+plan time: for every target row (dof) precompute the fixed list of
+source entries that feed it, padded to the max count K. The reduction
+then is K dense gathers added in a fixed order -- no atomics,
+bit-deterministic (unlike MatSetValues(ADD_VALUES) whose epoch ordering
+the reference has to manage,
+FEniCSx/mechanic2d/asym_elasto_damage_model.cc:853-859).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpufem_torch.config import INDEX_DTYPE, resolve_device
+
+
+@dataclasses.dataclass
+class GatherSumPlan:
+    """Precomputed transpose of a scatter-add.
+
+    ``apply(values)`` computes out[i] = sum_k values[idx[k, i]] for the
+    (K, n_targets) index table, where padded slots point one past the
+    end of ``values`` (a zero is appended before the gather). The K
+    terms are added left to right.
+    """
+
+    n_targets: int
+    n_sources: int
+    idx: torch.Tensor  # (K, n_targets) int64, pad == n_sources
+
+    @staticmethod
+    def build_table(targets: np.ndarray, n_targets: int) -> np.ndarray:
+        """Host table (K, n_targets) int32 for ``targets[e]`` = target
+        row of source entry e; pad == len(targets)."""
+        flat = np.asarray(targets).ravel()
+        n_src = flat.shape[0]
+        from tpufem_torch import native
+
+        if n_src:
+            idx_t = native.gather_plan(flat, n_targets)
+            if idx_t is not None:
+                return idx_t
+        order = np.argsort(flat, kind="stable")
+        sorted_t = flat[order]
+        counts = np.bincount(flat, minlength=n_targets)
+        K = int(counts.max()) if n_src else 1
+        row_start = np.zeros(n_targets + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_start[1:])
+        idx = np.full((n_targets, max(K, 1)), n_src, dtype=INDEX_DTYPE)
+        within = np.arange(n_src, dtype=np.int64) - row_start[sorted_t]
+        idx[sorted_t, within] = order.astype(INDEX_DTYPE)
+        return np.ascontiguousarray(idx.T)
+
+    @staticmethod
+    def build(targets: np.ndarray, n_targets: int, *,
+              device=None) -> "GatherSumPlan":
+        table = GatherSumPlan.build_table(targets, n_targets)
+        return GatherSumPlan(
+            n_targets=n_targets,
+            n_sources=int(np.asarray(targets).size),
+            idx=torch.as_tensor(table, dtype=torch.int64,
+                                device=resolve_device(device)),
+        )
+
+    def apply(self, values: torch.Tensor) -> torch.Tensor:
+        ext = torch.cat(
+            [values.reshape(-1), values.new_zeros(1)]
+        )
+        acc = ext[self.idx[0]]
+        for k in range(1, self.idx.shape[0]):
+            acc = acc + ext[self.idx[k]]
+        return acc

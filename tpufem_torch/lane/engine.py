@@ -1,0 +1,784 @@
+"""LaneEngine: unstructured residual / tangent-action / solve on the
+lane-partitioned layout.
+
+The staged pipeline per evaluation (all static shapes):
+
+  u (bs, R, 128)
+    -> lane_gather_cm (per-cell dof values, window = one bin)      [CUDA]
+    -> reduced-variable physics: torch.func.grad of the summed cell
+       energy w.r.t. the per-cell gradient components, chained back
+       to the dof rows (flat (M,) tensors, no per-cell vmap)        [torch]
+    -> lane_scatter_cm (cell contributions -> bin-partial sums)     [CUDA]
+    -> lane_pass_update head=True  (copy partials -> home slots)    [CUDA]
+    -> lane_pass_update head=False (home totals -> copy slots)      [CUDA]
+  r (bs, R, 128), consistent at every slot
+
+The tangent action runs the identical movement around the element-level
+tangent (gathers/scatters are linear, so differentiating the physics alone
+is exact); the physics is linearized once per Newton step
+(``linearize``) and applied with multiply-adds in every CG iteration.
+This is the staged P1 path of ``tpufem.lane.engine``; the
+fused element kernel (``fused=True``), the multi-quadrature-point
+specialization, facet terms, the two-level preconditioner and the
+mixed-precision solver are not ported yet and raise
+``NotImplementedError`` -- nothing falls back silently to another path.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import grad, jvp
+
+from tpufem_torch.config import DEFAULT_DTYPE, SolverConfig, resolve_device
+from tpufem_torch.forms.form import QP, EnergyFunctional
+from tpufem_torch.forms.smat import SMat, SVec
+from tpufem_torch.lane.kernels import (lane_gather_cm, lane_pass_update,
+                                       lane_scatter_cm)
+from tpufem_torch.lane.plan import LanePlan, N_LANES, build_lane_plan
+from tpufem_torch.mesh.mesh import CellType
+from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
+
+
+class LaneEngine:
+    def __init__(
+        self,
+        functional: EnergyFunctional,
+        bcs: Sequence[DirichletBC] = (),
+        *,
+        wg_own: int = 32,
+        plan: Optional[LanePlan] = None,
+        fused: bool = False,
+        device=None,
+        dtype: torch.dtype = DEFAULT_DTYPE,
+    ):
+        if fused:
+            raise NotImplementedError(
+                "LaneEngine(fused=True) needs the lane_fused_elem kernel, "
+                "which is not ported yet (ROADMAP.md: slice 2, K4)"
+            )
+        space = functional.space
+        if space.element.degree < 1:
+            raise NotImplementedError("lane engine needs degree >= 1")
+        self.functional = functional
+        self.space = space
+        self.bs = space.bs
+        self.device = resolve_device(device)
+        self.dtype = dtype  # of the float device state (geometry, masks)
+        # plan over scalar-dof "nodes" (P1: the mesh vertices); a pure
+        # function of (dof coords, dofmap, wg_own)
+        if plan is not None:
+            self.plan = plan
+        else:
+            self.plan = build_lane_plan(
+                space.dof_coords, np.asarray(space.dofmap), wg_own=wg_own
+            )
+        p = self.plan
+
+        # padded lane cells get cell 0's data -- their contributions are
+        # dropped by the idx = -1 sentinel, so they only need to be
+        # NaN-free
+        order = np.asarray(p.cell_order)
+        self._safe_order = np.where(order >= 0, order, 0)
+        self._coeff_dofmaps = {
+            c.name: c.space.vector_dofmap() for c in functional.coefficients
+        }
+
+        # specialized P1-simplex 1-point-quadrature physics: physical
+        # gradients and weights precomputed on host (f64)
+        self.geom_dN = self.geom_w = self.geom_xq = None
+        if not self._try_specialize_p1():
+            raise NotImplementedError(
+                "only the P1-simplex single-term specialization is ported; "
+                "the multi-quadrature-point path (_try_specialize_multiqp) "
+                "is queued in ROADMAP.md (remaining lane engine paths)"
+            )
+        (self._red_res, self._red_energy, self._red_linearize,
+         self._red_apply) = self._make_reduced_fns()
+
+        # device plans; index streams in int8 when the window allows --
+        # the gather/scatter kernels are partly index-bandwidth-bound
+        idt = np.int8 if p.wg < 127 else np.int32
+        dev = self.device
+        self.gather_idx = torch.as_tensor(
+            np.ascontiguousarray(p.gather_idx.astype(idt)), device=dev
+        )  # (G, nv, kc, 128)
+        self.gather_starts = torch.as_tensor(
+            np.asarray(p.gather_starts, dtype=np.int32), device=dev
+        )
+
+        def pass_tables(passes):
+            if not passes:
+                return (), (), None, None
+            shifts = tuple(int(s[0]) for s in passes)
+            wrs = tuple(int(s[4]) for s in passes)
+            starts = torch.as_tensor(
+                np.stack([s[3] for s in passes]).astype(np.int32),
+                device=dev,
+            )  # (P, G)
+            idx = torch.as_tensor(
+                np.ascontiguousarray(
+                    np.stack([s[2][:, 0] for s in passes]).astype(idt)
+                ),
+                device=dev,
+            )  # (P, G, K, 128)
+            return shifts, wrs, starts, idx
+
+        (self.owner_shifts, self.owner_wrs, self._owner_starts,
+         self._owner_idx) = pass_tables(p.owner_passes)
+        (self.refresh_shifts, self.refresh_wrs, self._refresh_starts,
+         self._refresh_idx) = pass_tables(p.refresh_passes)
+        self._build_tail_tables()
+
+        # BCs
+        self.bcs = list(bcs)
+        if self.bcs:
+            bc_dofs, bc_vals, bc_mask = combine_bcs(self.bcs, space.n_dofs)
+        else:
+            bc_dofs = np.zeros(0, dtype=np.int64)
+            bc_vals = np.zeros(0)
+            bc_mask = np.zeros(space.n_dofs, dtype=bool)
+        self.free_lane = self._store(
+            p.to_lane((~bc_mask).astype(np.float64), self.bs)
+        )
+        bcv = np.zeros(space.n_dofs)
+        bcv[bc_dofs] = bc_vals
+        self.bc_lane = self._store(p.to_lane(bcv, self.bs))
+        self.owned_w = self._store(
+            p.owned_mask.astype(np.float64)[None, :, :]
+        )  # (1, R, 128) dot weights
+        self._lmaps = None
+
+    def _build_tail_tables(self):
+        """Rare-copy tail (copies left out of the dense pass kernels, see
+        plan.py pass_min_frac) as deterministic device tables.
+
+        Owner-sum: several tail copies may feed one owner slot. A
+        scatter-add on the device would use float atomics and change
+        from run to run, so the sum is transposed on the host into a
+        padded gather table (the GatherSumPlan idiom): for every distinct
+        owner slot the list of its copy slots, padded with the index of
+        an appended zero. Refresh: copy slots are distinct, a plain
+        indexed store."""
+        p = self.plan
+        self._tail_copy = self._tail_owner = None
+        self._tail_owner_u = self._tail_sum_idx = None
+        if p.tail_copy_slot is None or not len(p.tail_copy_slot):
+            return
+        tc = np.asarray(p.tail_copy_slot, dtype=np.int64)
+        to = np.asarray(p.tail_owner_slot, dtype=np.int64)
+        keep = (tc >= 0) & (to >= 0)  # -1 entries are padding
+        tc, to = tc[keep], to[keep]
+        if not len(tc):
+            return
+        from tpufem_torch.assemble.scatter import GatherSumPlan
+
+        FL = p.R * N_LANES
+        owners, inv = np.unique(to, return_inverse=True)
+        table = GatherSumPlan.build_table(inv, len(owners))  # (K, n_u)
+        pad = table == len(tc)
+        table = np.where(pad, FL, tc[np.where(pad, 0, table)])
+        dev = self.device
+        self._tail_copy = torch.as_tensor(tc, device=dev)
+        self._tail_owner = torch.as_tensor(to, device=dev)
+        self._tail_owner_u = torch.as_tensor(owners, device=dev)
+        self._tail_sum_idx = torch.as_tensor(
+            np.ascontiguousarray(table), dtype=torch.int64, device=dev
+        )
+
+    def _store(self, a) -> torch.Tensor:
+        """Upload a host float array at the engine dtype."""
+        return torch.as_tensor(
+            np.asarray(a), dtype=self.dtype, device=self.device
+        )
+
+    def _try_specialize_p1(self):
+        """If the functional is a single degree-1 cell term on a simplex
+        with P1/P0 coefficients and no coefficient gradients, precompute
+        the per-cell geometry of the elementwise fast path (physical
+        basis gradients, quadrature weight, centroid) and return True;
+        else False."""
+        f = self.functional
+        mesh = self.space.mesh
+        if mesh.cell_type not in (CellType.triangle, CellType.tetra):
+            return False
+        if self.space.element.degree != 1:
+            return False
+        if len(f.terms) != 1:
+            return False
+        term = f.terms[0]
+        if term.degree != 1 or term.needs_coeff_grads:
+            return False
+        for c in f.coefficients:
+            if c.space.element.degree > 1:
+                return False
+
+        # host f64 geometry: physical gradients + weight + centroid,
+        # computed per scalar component (1-D gathers + 1-D arithmetic,
+        # results written straight into the final cells-minor layouts)
+        p = self.plan
+        x = mesh.x.astype(np.float64)
+        cells = np.asarray(self.space.dofmap)[self._safe_order]  # (M, nv)
+        nv = p.nv
+        gdim = x.shape[1]
+        dim = nv - 1
+        M = len(cells)
+
+        # per-component vertex coords and edge vectors (J columns)
+        xv = [[x[cells[:, v], d] for d in range(gdim)] for v in range(nv)]
+        E = [[xv[v + 1][d] - xv[0][d] for d in range(gdim)]
+             for v in range(dim)]
+        # adjugate inverse, rows Ji[i][j] = Jinv[i, j] as 1-D arrays
+        if dim == 2:
+            a, b = E[0][0], E[1][0]
+            c, dd = E[0][1], E[1][1]
+            detJ = a * dd - b * c
+            r = 1.0 / detJ
+            Ji = [[dd * r, -b * r], [-c * r, a * r]]
+        else:
+            a, b, c = E[0][0], E[1][0], E[2][0]
+            d3, e3, f3 = E[0][1], E[1][1], E[2][1]
+            g, h, i = E[0][2], E[1][2], E[2][2]
+            A = e3 * i - f3 * h
+            B = f3 * g - d3 * i
+            C = d3 * h - e3 * g
+            detJ = a * A + b * B + c * C
+            r = 1.0 / detJ
+            Ji = [
+                [A * r, (c * h - b * i) * r, (b * f3 - c * e3) * r],
+                [B * r, (a * i - c * g) * r, (c * d3 - a * f3) * r],
+                [C * r, (b * g - a * h) * r, (a * e3 - b * d3) * r],
+            ]
+        # dN_ref = [-1...; eye] -> dN[0] = -sum_i Jinv[i], dN[v>0] = Jinv[v-1]
+        dN_t = np.empty((nv, gdim, M))  # final (nv, gdim, M) layout
+        for j in range(gdim):
+            s = Ji[0][j].copy()
+            for i_ in range(1, dim):
+                s += Ji[i_][j]
+            dN_t[0, j] = -s
+            for v in range(1, nv):
+                dN_t[v, j] = Ji[v - 1][j]
+        w = np.abs(detJ) / math.factorial(dim)  # (M,)
+        xq_t = np.empty((gdim, M))  # final (gdim, M) layout
+        for d in range(gdim):
+            s = xv[0][d].copy()
+            for v in range(1, nv):
+                s += xv[v][d]
+            xq_t[d] = s / nv
+        self.geom_dN = self._store(dN_t)
+        self.geom_w = self._store(w)
+        self.geom_xq = self._store(xq_t)
+        return True
+
+    def _make_reduced_fns(self):
+        """Residual / energy / linearization element kernels via
+        reduced-variable AD.
+
+        E(u) = sum_cells w * psi(grad_u, u_q, x_q, coeffs) with grad_u
+        an affine function of the dofs; differentiate w.r.t. the bs*gd
+        gradient components + bs value components (all (M,) tensors,
+        SMat/SVec carry the matrix structure), then chain back to the
+        nd dof rows through the known linear maps. Exact same math as
+        grad of the element energy; every operand is a flat (M,) tensor,
+        so ``torch.func.grad`` of the summed energy needs no ``vmap``."""
+        p = self.plan
+        mesh = self.space.mesh
+        bs = self.bs
+        nv, gd = p.nv, mesh.gdim
+        integrand = self.functional.terms[0].integrand
+        coeff_meta = []  # (name, ndofc, cb)
+        for c in self.functional.coefficients:
+            n = self._coeff_dofmaps[c.name].shape[1]
+            cb = c.space.bs
+            coeff_meta.append((c.name, n // cb, cb))
+        nG = bs * gd
+        inv_nv = 1.0 / nv
+
+        def make_cell_energy(cvals, xq, w):
+            def cell_energy(*a):
+                grad_u = SMat(
+                    [[a[c * gd + d] for d in range(gd)]
+                     for c in range(bs)]
+                )
+                uq = a[nG] if bs == 1 else SVec(a[nG: nG + bs])
+                qp = QP(grad_u, uq, SVec([xq[d] for d in range(gd)]),
+                        cvals, {})
+                return integrand(qp) * w
+
+            return cell_energy
+
+        # multiply-adds go through torch.addcmul: one kernel (and one
+        # pass over memory) instead of a multiply and an add
+        def reduced_args(u_cells, dN):
+            a = []
+            for c in range(bs):
+                for d in range(gd):
+                    acc = u_cells[c] * dN[0, d]
+                    for v in range(1, nv):
+                        acc = torch.addcmul(acc, u_cells[v * bs + c],
+                                            dN[v, d])
+                    a.append(acc)
+            for c in range(bs):
+                acc = None
+                for v in range(nv):
+                    t = u_cells[v * bs + c]
+                    acc = t if acc is None else acc + t
+                a.append(acc * inv_nv)
+            return tuple(a)
+
+        def cell_cvals(coeffs):
+            cvals = {}
+            for nm, ndofc, cb in coeff_meta:
+                ce = coeffs[nm]  # (ndofc*cb, M)
+                comps = []
+                for j in range(cb):
+                    if ndofc == 1:
+                        comps.append(ce[j])
+                    else:
+                        acc = None
+                        for i in range(ndofc):
+                            t = ce[i * cb + j]
+                            acc = t if acc is None else acc + t
+                        comps.append(acc / ndofc)
+                cvals[nm] = comps[0] if cb == 1 else SVec(comps)
+            return cvals
+
+        argnums = tuple(range(nG + bs))
+
+        def chain_back(g, dN):
+            rows = []
+            for v in range(nv):
+                for c in range(bs):
+                    acc = g[nG + c] * inv_nv
+                    for d in range(gd):
+                        acc = torch.addcmul(acc, g[c * gd + d], dN[v, d])
+                    rows.append(acc)
+            return torch.stack(rows)
+
+        def grad_fn(coeffs, w, xq):
+            ce = make_cell_energy(cell_cvals(coeffs), xq, w)
+            return grad(lambda *a: torch.sum(ce(*a)), argnums=argnums)
+
+        def red_residual(u_cells, coeffs, dN, w, xq):
+            g = grad_fn(coeffs, w, xq)(*reduced_args(u_cells, dN))
+            return chain_back(g, dN)
+
+        def red_energy(u_cells, coeffs, dN, w, xq):
+            ce = make_cell_energy(cell_cvals(coeffs), xq, w)
+            return ce(*reduced_args(u_cells, dN))  # (M,)
+
+        nR = nG + bs
+
+        def red_linearize(u_cells, coeffs, dN, w, xq):
+            """Per-cell Hessian of the cell energy w.r.t. the reduced
+            variables at a frozen state, as an nR x nR table of (M,)
+            tensors: column j is the JVP of the reduced gradient along
+            the j-th unit direction."""
+            gfn = grad_fn(coeffs, w, xq)
+            a = reduced_args(u_cells, dN)
+            one, zero = torch.ones_like(a[0]), torch.zeros_like(a[0])
+            cols = [
+                jvp(gfn, a, tuple(one if i == j else zero
+                                  for i in range(nR)))[1]
+                for j in range(nR)
+            ]
+            return [[cols[j][i] for j in range(nR)] for i in range(nR)]
+
+        def red_apply(H, v_cells, dN):
+            """Tangent element vectors from a stored linearization:
+            chain_back(H . reduced_args(v)) -- multiply-adds only."""
+            da = reduced_args(v_cells, dN)
+            dg = []
+            for i in range(nR):
+                acc = H[i][0] * da[0]
+                for j in range(1, nR):
+                    acc = torch.addcmul(acc, H[i][j], da[j])
+                dg.append(acc)
+            return chain_back(dg, dN)
+
+        return red_residual, red_energy, red_linearize, red_apply
+
+    # -- layout ---------------------------------------------------------------
+
+    def to_lane(self, u_flat):
+        """Flat byVDIM host vector -> (bs, R, 128) device tensor with
+        copies filled (host layout conversion + one upload)."""
+        if isinstance(u_flat, torch.Tensor):
+            u_flat = u_flat.detach().cpu().numpy()
+        return torch.as_tensor(
+            self.plan.to_lane(np.asarray(u_flat), self.bs),
+            dtype=self.dtype, device=self.device,
+        )
+
+    def from_lane(self, u_lane) -> np.ndarray:
+        return self.plan.from_lane(
+            u_lane.detach().cpu().numpy(), self.bs
+        )
+
+    def _lane_maps_dev(self):
+        """Device-resident plan.to_lane/from_lane index tables (lazy)."""
+        if self._lmaps is None:
+            p = self.plan
+
+            def ix(a):
+                return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                       device=self.device)
+
+            maps = dict(row=ix(p.node_row), lane=ix(p.node_lane))
+            if p.copy_dst_rows is not None and len(p.copy_dst_rows):
+                maps.update(
+                    cdr=ix(p.copy_dst_rows), cdl=ix(p.copy_dst_lanes),
+                    csr=ix(p.copy_src_rows), csl=ix(p.copy_src_lanes),
+                )
+            self._lmaps = maps
+        return self._lmaps
+
+    def to_lane_dev(self, u_flat: torch.Tensor) -> torch.Tensor:
+        """plan.to_lane, device-side (flat byVDIM -> (bs, R, 128) with
+        copies filled) -- no host roundtrip."""
+        m = self._lane_maps_dev()
+        u = u_flat.reshape(self.plan.n_nodes, self.bs).T
+        out = torch.zeros((self.bs, self.plan.R, N_LANES), dtype=u.dtype,
+                          device=u.device)
+        out[:, m["row"], m["lane"]] = u
+        if "cdr" in m:
+            out[:, m["cdr"], m["cdl"]] = out[:, m["csr"], m["csl"]]
+        return out
+
+    def from_lane_dev(self, u_lane: torch.Tensor) -> torch.Tensor:
+        """plan.from_lane, device-side ((bs, R, 128) -> flat byVDIM)."""
+        m = self._lane_maps_dev()
+        return u_lane[:, m["row"], m["lane"]].T.reshape(-1)
+
+    def prepare_coeffs(self, coeffs: Dict[str, np.ndarray]):
+        """Pre-gather coefficient values per cell in lane-cell order
+        (frozen during a solve -- the quadrature cache of MFEM/...cc:
+        1317-1324). The gather runs on the host; values may be numpy
+        arrays or tensors."""
+        out = {}
+        for name, dm in self._coeff_dofmaps.items():
+            c = coeffs[name]
+            if isinstance(c, torch.Tensor):
+                c = c.detach().cpu().numpy()
+            per_cell = np.asarray(c)[dm]  # (nc, ndc)
+            out[name] = self._store(
+                np.ascontiguousarray(per_cell[self._safe_order].T)
+            )  # (ndc, M)
+        return out
+
+    # -- movement pieces --------------------------------------------------------
+
+    def _gather_cells(self, u_lane):
+        """(bs, R, 128) -> per-cell dof values (nd, M) cells-minor."""
+        p = self.plan
+        g = lane_gather_cm(
+            u_lane, self.gather_starts, self.gather_idx, wr=p.wg,
+            n_ch=p.nv * self.bs,
+        )  # (nd, G, kc, 128) -- dof row v*bs+c, free reshape to (nd, M)
+        return g.reshape(p.nv * self.bs, p.G * p.kc * N_LANES)
+
+    def _scatter_cells(self, ev):
+        """Element vectors (nd, M) -> consistent nodal (bs, R, 128)."""
+        p = self.plan
+        bs = self.bs
+        src = ev.reshape(p.nv * bs, p.G, p.kc, N_LANES).contiguous()
+        part = lane_scatter_cm(
+            src, self.gather_idx, k_out=p.wg, n_ch=bs,
+        )  # (bs, G, wg, 128)
+        return self._owner_refresh(part)
+
+    def _owner_refresh(self, part):
+        """Bin partials (bs, G, wg, 128) -> consistent nodal state:
+        owner-sum the copy partials, then refresh copy slots. Both
+        stages run as ONE multi-pass kernel each. ``part`` is consumed
+        (the tail update may write into it)."""
+        p = self.plan
+        bs = part.shape[0]
+        flat = part.reshape(bs, p.R, N_LANES)
+        if self._owner_idx is not None:
+            flat = lane_pass_update(
+                flat, self._owner_starts, self._owner_idx,
+                wrs=self.owner_wrs, wg=p.wg, shifts=self.owner_shifts,
+                head=True,
+            ).reshape(bs, p.R, N_LANES)
+        if self._tail_copy is not None:
+            # tail owner-sum: copy partials (untouched by the dense
+            # kernel) added into their owner slots, in table order
+            f2 = flat.reshape(bs, p.R * N_LANES)
+            ext = torch.cat([f2, f2.new_zeros((bs, 1))], dim=1)
+            add = ext[:, self._tail_sum_idx[0]]
+            for k in range(1, self._tail_sum_idx.shape[0]):
+                add = add + ext[:, self._tail_sum_idx[k]]
+            f2[:, self._tail_owner_u] = f2[:, self._tail_owner_u] + add
+        return self.refresh_copies(flat)
+
+    def refresh_copies(self, total):
+        """Overwrite copy slots with home-slot totals (scatter_fwd within
+        the chip). Returns a new tensor."""
+        p = self.plan
+        bs = total.shape[0]
+        fresh = False
+        if self._refresh_idx is not None:
+            total = lane_pass_update(
+                total, self._refresh_starts, self._refresh_idx,
+                wrs=self.refresh_wrs, wg=p.wg,
+                shifts=tuple(-s for s in self.refresh_shifts),
+                head=False,
+            ).reshape(bs, p.R, N_LANES)
+            fresh = True
+        if self._tail_copy is not None:
+            # tail refresh: copy slots (zeroed by the dense kernel's
+            # full-tail write) set from their owner slots
+            if not fresh:
+                total = total.clone()
+            f2 = total.reshape(bs, p.R * N_LANES)
+            f2[:, self._tail_copy] = f2[:, self._tail_owner]
+        return total
+
+    # -- assembled quantities ------------------------------------------------------
+
+    def _geom(self, dtype):
+        return (self.geom_dN.to(dtype), self.geom_w.to(dtype),
+                self.geom_xq.to(dtype))
+
+    def residual(self, u_lane, coeff_cells) -> torch.Tensor:
+        u_cells = self._gather_cells(u_lane)
+        ev = self._red_res(u_cells, coeff_cells, *self._geom(u_lane.dtype))
+        return self._scatter_cells(ev)
+
+    def linearize_cells(self, u_cells, coeff_cells):
+        """The physics linearized at an already gathered state: the
+        per-cell Hessian of the cell energy w.r.t. the reduced variables
+        (a table of (M,) tensors). Everything linear in the state --
+        tangent actions, the diagonal -- is multiply-adds on it.
+
+        The reference re-differentiates per application (a JVP under
+        ``jit`` costs nothing extra there); in eager PyTorch a JVP per CG
+        iteration replays the whole AD machinery on the host, so the
+        differentiation is hoisted out of the iteration."""
+        return self._red_linearize(u_cells, coeff_cells,
+                                   *self._geom(u_cells.dtype))
+
+    def linearize(self, u_lane, coeff_cells):
+        return self.linearize_cells(self._gather_cells(u_lane), coeff_cells)
+
+    def tangent_action(self, u_lane, coeff_cells, v_lane) -> torch.Tensor:
+        """J(u) v -- element-level tangent between the (linear) movements."""
+        return self.make_tangent(u_lane, coeff_cells)(v_lane)
+
+    def make_tangent(self, u_lane, coeff_cells, lin=None):
+        """v -> J(u) v closure for a frozen linearization state (``lin``:
+        a ``linearize`` result to reuse): every application is gather ->
+        multiply-adds -> scatter."""
+        H = self.linearize(u_lane, coeff_cells) if lin is None else lin
+        dN = self.geom_dN.to(u_lane.dtype)
+
+        def apply(v_lane):
+            v_cells = self._gather_cells(v_lane)
+            return self._scatter_cells(self._red_apply(H, v_cells, dN))
+
+        return apply
+
+    def tangent_from_cells(self, u_cells, coeff_cells, v_lane):
+        """J(u) v with the linearization state already gathered."""
+        H = self.linearize_cells(u_cells, coeff_cells)
+        ev = self._red_apply(H, self._gather_cells(v_lane),
+                             self.geom_dN.to(v_lane.dtype))
+        return self._scatter_cells(ev)
+
+    def diagonal(self, u_lane, coeff_cells, lin=None) -> torch.Tensor:
+        """Jacobian diagonal (Jacobi PC) in lane layout: the diagonals of
+        the per-cell element matrices (row i of the tangent applied to
+        the i-th unit element vector), scattered like a residual."""
+        H = self.linearize(u_lane, coeff_cells) if lin is None else lin
+        dN = self.geom_dN.to(u_lane.dtype)
+        nd = self.plan.nv * self.bs
+        rows = []
+        for i in range(nd):
+            e_i = torch.zeros((nd, dN.shape[-1]), dtype=dN.dtype,
+                              device=dN.device)
+            e_i[i] = 1.0
+            rows.append(self._red_apply(H, e_i, dN)[i])
+        return self._scatter_cells(torch.stack(rows))
+
+    def cell_energies(self, u_lane, coeff_cells) -> torch.Tensor:
+        """Per-lane-cell energies (M,), zero at padded cells."""
+        u_cells = self._gather_cells(u_lane)
+        e = self._red_energy(u_cells, coeff_cells,
+                             *self._geom(u_lane.dtype))
+        valid = torch.as_tensor(np.asarray(self.plan.cell_valid),
+                                device=e.device)
+        return torch.where(valid, e, torch.zeros_like(e))
+
+    def dot(self, a, b) -> torch.Tensor:
+        """Inner product counting every node once (copies weighted 0)."""
+        return torch.sum(a * b * self.owned_w.to(a.dtype))
+
+    # -- solver -------------------------------------------------------------------
+
+    def make_solver(self, cfg: Optional[SolverConfig] = None, *,
+                    cg_chunk: int = 100, const_residual=None):
+        """Chunked Newton-Krylov on the lane layout, Jacobi-preconditioned.
+
+        ``cg_chunk`` CG iterations are enqueued between two reads of the
+        device state; the tolerance is tested EVERY iteration on the
+        device (a flag that freezes the state once it is met, and a
+        device iteration counter), so the exit iteration is set by the
+        math and does not depend on ``cg_chunk``.
+
+        ``cfg.preconditioner == 'twolevel'`` is not ported yet."""
+        cfg = cfg or SolverConfig()
+        eng = self
+        if cfg.preconditioner == "twolevel":
+            raise NotImplementedError(
+                "preconditioner='twolevel' needs lane_gather_weighted and "
+                "lane/twolevel.py, not ported yet (ROADMAP.md: slice 3, K5)"
+            )
+        if cfg.preconditioner != "jacobi":
+            raise NotImplementedError(
+                f"lane solver preconditioner {cfg.preconditioner!r}; "
+                "'jacobi' is the one ported so far"
+            )
+        _cr = None if const_residual is None else torch.as_tensor(
+            const_residual, device=eng.device
+        )
+
+        def rhs(u, coeffs, free):
+            r = eng.residual(u, coeffs)
+            if _cr is not None:
+                r = r + _cr.to(u.dtype)
+            b = -r * free
+            return b, torch.sqrt(eng.dot(b, b))
+
+        def diag_fn(u, coeffs, free, lin):
+            d = eng.diagonal(u, coeffs, lin)
+            d = d * free + (1.0 - free)
+            one = torch.ones_like(d)
+            return torch.where(d != 0, 1.0 / torch.where(d == 0, one, d),
+                               one)
+
+        def cg_chunk_fn(nsteps, A, dinv, state, tol2):
+            """``nsteps`` preconditioned CG iterations, all enqueued
+            without a host read. Once rr2 <= tol2 the step coefficients
+            become (alpha, beta, c) = (0, 1, 0), which leaves x, r, z, p
+            bitwise unchanged and stops the counter."""
+            x, r, z, pvec, rz, rr2, k = state
+            zero = torch.zeros_like(rz)
+            one = torch.ones_like(rz)
+            for _ in range(nsteps):
+                active = rr2 > tol2
+                Ap = A(pvec)
+                alpha = torch.where(active, rz / eng.dot(pvec, Ap), zero)
+                x = x + alpha * pvec
+                r = r - alpha * Ap
+                z = dinv * r
+                rz_new = eng.dot(r, z)
+                beta = torch.where(active, rz_new / rz, one)
+                pvec = torch.where(active, one, zero) * z + beta * pvec
+                rz = torch.where(active, rz_new, rz)
+                rr2 = torch.where(active, eng.dot(r, r), rr2)
+                k = k + active
+            return (x, r, z, pvec, rz, rr2, k)
+
+        def solve(u0_lane, coeff_cells):
+            free = eng.free_lane.to(u0_lane.dtype)
+            u = torch.where(free > 0, u0_lane,
+                            eng.bc_lane.to(u0_lane.dtype))
+            r0 = None
+            total_cg = 0
+            cg_seconds = 0.0  # wall time of the CG loops (device included)
+            cg_iters = []  # per-Newton MATHEMATICAL exit iterations
+            residuals = []  # |b| at every Newton residual check
+            it = 0
+            for it in range(1, cfg.newton_maxit + 1):
+                b, bnorm = rhs(u, coeff_cells, free)
+                bnorm = float(bnorm)
+                residuals.append(bnorm)
+                if r0 is None:
+                    r0 = bnorm
+                if bnorm < max(cfg.newton_rtol * r0, cfg.newton_atol):
+                    it -= 1
+                    break
+                lin = eng.linearize(u, coeff_cells)
+                dinv = diag_fn(u, coeff_cells, free, lin)
+                Araw = eng.make_tangent(u, coeff_cells, lin)
+
+                def A(v):
+                    av = Araw(v * free)
+                    return av * free + v * (1.0 - free)
+
+                z0 = dinv * b
+                state = (torch.zeros_like(b), b, z0, z0,
+                         eng.dot(b, z0), eng.dot(b, b),
+                         torch.zeros((), dtype=torch.int64,
+                                     device=b.device))
+                tol = max(cfg.cg_rtol * bnorm, cfg.cg_atol)
+                tol2 = torch.as_tensor(tol * tol, dtype=b.dtype,
+                                       device=b.device)
+                k = 0
+                stall = 0
+                best_rr = float("inf")
+                if b.is_cuda:  # the set-up above must not count as CG time
+                    torch.cuda.synchronize(b.device)
+                t_cg = time.perf_counter()
+                while k < cfg.cg_maxit:
+                    nsteps = min(cg_chunk, cfg.cg_maxit - k)
+                    state = cg_chunk_fn(nsteps, A, dinv, state, tol2)
+                    rr = math.sqrt(float(state[5]))  # blocks on the device
+                    kd = int(state[6]) - k  # iterations run this chunk
+                    k += kd
+                    if rr < tol or kd < nsteps:
+                        break
+                    # stall guard: CG on a branch-switched tangent can
+                    # plateau -- take the partial step (Newton is
+                    # self-correcting) instead of burning cg_maxit
+                    if rr > 0.9 * best_rr:
+                        stall += 1
+                        if stall >= 4:
+                            break
+                    else:
+                        stall = 0
+                    best_rr = min(best_rr, rr)
+                cg_seconds += time.perf_counter() - t_cg
+                # backtracking damping: the asym damage law is only
+                # piecewise-smooth (branch flips on eigenvalue signs),
+                # and full Newton steps can overshoot; halve until the
+                # residual norm does not increase (<=6 halvings)
+                step = state[0] * free
+                alpha = 1.0
+                for _ in range(6):
+                    _, bn_new = rhs(u + alpha * step, coeff_cells, free)
+                    if float(bn_new) <= bnorm * (1.0 + 1e-12):
+                        break
+                    alpha *= 0.5
+                u = u + alpha * step
+                total_cg += k
+                cg_iters.append(k)
+                if cfg.verbose:
+                    print(
+                        f"lane Newton {it}: |r| = {bnorm:.6e} (cg {k}"
+                        + (f", damping {alpha}" if alpha < 1.0 else "")
+                        + ")", flush=True
+                    )
+            b, bnorm = rhs(u, coeff_cells, free)
+            bnorm = float(bnorm)
+            converged = bnorm < max(cfg.newton_rtol * (r0 or bnorm or 1.0),
+                                    cfg.newton_atol)
+            return u, dict(
+                newton_iters=it, total_cg_iters=total_cg,
+                cg_iters=cg_iters, residuals=residuals,
+                cg_seconds=cg_seconds,
+                final_residual=bnorm, r0=r0 or bnorm, converged=converged,
+            )
+
+        return solve
+
+    def make_mixed_solver(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the mixed-precision defect-correction solver is not ported "
+            "yet (ROADMAP.md: slice 4, make_mixed_solver)"
+        )

@@ -1,0 +1,13 @@
+"""Function spaces, dofmaps, Dirichlet BCs. A dofmap is a static
+(n_cells, ndof_cell) int32 array; vector fields use block size ``bs``
+with byVDIM interleaving (dof = node * bs + component)."""
+
+from tpufem_torch.spaces.space import FunctionSpace
+from tpufem_torch.spaces.bc import (
+    DirichletBC, locate_dofs_topological, locate_dofs_geometrical,
+)
+
+__all__ = [
+    "FunctionSpace", "DirichletBC", "locate_dofs_topological",
+    "locate_dofs_geometrical",
+]
