@@ -14,13 +14,20 @@ prints one JSON line per phase:
 3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
                    card, at the shapes of the n = 1024 polycrystal plan
                    (float32/float64 values, int8/int32 indices, both modes
-                   of the pass kernel), with times and the byte bound
+                   of the pass kernel; the fused element kernel in both
+                   modes and both laws), with times and the bound
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
-                   diagonal against the flat Assembler, copies == owners
-5. ``solve_small`` polycrystal n = 256, Jacobi, staged, to convergence
+                   diagonal against the flat Assembler, copies == owners;
+                   the fused engine against the staged one and the Assembler
+5. ``solve_small`` polycrystal n = 256, Jacobi, to convergence, staged and
+                   fused (same Newton count)
 6. ``solve_full``  polycrystal n = 1024 (about 2.1 M dofs), 200 grains, a few
-                   Newton steps, twice: the kernels' launch counts, the phase
-                   table, and a bitwise equal residual trajectory
+                   Newton steps, staged, twice: the kernels' launch counts,
+                   the phase table, and a bitwise equal residual trajectory
+7. ``solve_full_fused`` the same solve through ``LaneEngine(fused=True)``,
+                   twice: launch counts of the fused path, a bitwise equal
+                   residual trajectory, and one CG iteration of either
+                   engine under the profiler (launches and device time)
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -51,18 +58,21 @@ from tpufem_torch.forms import EnergyFunctional, asym_damage_psi  # noqa: E402
 from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
 from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
+from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.mesh import unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
 from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12  # same sheet, float32 outside the tensor cores
 N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 # caps of the full-width solve (it shows the path and its reproducibility,
 # not convergence): 2 Newton steps of at most 300 CG iterations each
 FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
-PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full")
+PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
+          "solve_full_fused")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -112,10 +122,21 @@ emit("device", nvidia_smi=smi, torch=torch.__version__,
 # -- 2. build -----------------------------------------------------------------
 
 _build.load(verbose=True)
+# what ptxas says of every kernel instance: registers per thread and spills
+ptxas, entry = {}, None
+for ln in _build.build_log.splitlines():
+    if "Compiling entry function" in ln:
+        entry = ln.split("'")[1][:56]
+    elif entry and "registers" in ln:
+        ptxas.setdefault(entry, {})["registers"] = int(
+            ln.split("Used ")[1].split(" registers")[0])
+    elif entry and "spill stores" in ln:
+        ptxas.setdefault(entry, {})["spill_bytes"] = sum(
+            int(part.split(" bytes")[0].split()[-1])
+            for part in ln.split(",")[1:])
 emit("build", seconds=_build.build_seconds, library=_build.LIB_PATH,
      sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
-     ptxas=[ln for ln in _build.build_log.splitlines()
-            if "registers" in ln or "spill" in ln][:24])
+     ptxas=ptxas)
 
 # -- 3. kernels at the shapes of the n = 1024 plan ------------------------------
 
@@ -146,8 +167,12 @@ def damage_problem(mesh, dtype, with_E):
 t0 = time.perf_counter()
 mesh_full = polycrystal.generate_polycrystal(N_FULL, n_grains=200)
 F_full, bcs_full, V_full, _ = damage_problem(mesh_full, torch.float32, True)
-eng_full = LaneEngine(F_full, bcs_full, wg_own=16, device=DEV,
+# fused: the engine then carries the geometry rows and the coefficient
+# block the fused kernel streams; its plan serves every n = 1024 solve below
+eng_full = LaneEngine(F_full, bcs_full, wg_own=16, fused=True, device=DEV,
                       dtype=torch.float32)
+E_full, d_full = cg_profile.case_inputs(mesh_full)
+cc_full = eng_full.prepare_coeffs({"d": d_full, "E": E_full})
 p = eng_full.plan
 C, V_, G, kc, wg = eng_full.bs, p.nv, p.G, p.kc, p.wg
 shapes = dict(C=C, V=V_, G=G, kc=kc, wg=wg, wg_own=p.wg_own, R=p.R,
@@ -159,6 +184,9 @@ shapes = dict(C=C, V=V_, G=G, kc=kc, wg=wg, wg_own=p.wg_own, R=p.R,
               tail_copies=0 if eng_full._tail_copy is None
               else int(len(eng_full._tail_copy)),
               idx_dtype=str(eng_full.gather_idx.dtype),
+              fused_geom=list(eng_full.fused_geom.shape),
+              fused_cd=list(cc_full["_cd"].shape),
+              fused_law=str(eng_full.fused_law),
               host_setup_seconds=time.perf_counter() - t0)
 check(eng_full._owner_idx is not None and eng_full._refresh_idx is not None,
       "the n=1024 plan has no owner/refresh passes")
@@ -169,12 +197,21 @@ results = {}
 
 
 def record(name, err, ms, plain_ms, bound_bytes, library_ms, **extra):
-    r = results.setdefault(name, dict(max_abs_err=0.0))
+    r = results.setdefault(name, dict(max_abs_err=0.0, bound_by="bytes"))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if ms is not None:  # the main-path variant carries the times
         r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
                  bound_bytes=bound_bytes, **extra)
+
+
+# K4's arithmetic per cell slot, counted by hand from the kernel source
+# (strain, Lame factors, stress or its directional derivative, six element
+# vector rows, six accumulator adds): far below what its bytes cost
+K4_FLOPS_PER_CELL = {1: 120, 2: 180}
+K4_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # of max |plain|
+LAW_ELASTIC = K.FusedLaw("linear_elastic", NU, E=eng_full.fused_law.E)
+k4_rel = {}
 
 
 for vdt in (torch.float32, torch.float64):
@@ -285,11 +322,69 @@ for vdt in (torch.float32, torch.float64):
                     record("lane_pass_update", err, None, None, None, None)
             else:
                 record("lane_pass_update", err, None, None, None, None)
-        del values, out, ref
+        del out, ref
 
-emit("kernels", shapes=shapes, kernels=results,
-     tolerance="exactly equal (0) for all three kernels")
-del eng_full, F_full
+        # K4 lane_fused_elem: one state (element gradient) and two states
+        # (Hessian-vector product), both hand-written laws, on the engine's
+        # own geometry and coefficient rows. The state is of the size of a
+        # displacement; its first rows are zero, so whole bins sit on the
+        # degenerate branch (zero strain), as at the start of a solve.
+        # Tolerance: max |kernel - plain| <= K4_TOL * max |plain|. Both
+        # spell the same operations in the same order and the library is
+        # built without fused multiply-adds, so the difference is expected
+        # to be 0 or a few units in the last place.
+        u4 = 1e-3 * values
+        u4[:, : p.R // 8] = 0.0
+        v4 = torch.randn((C, p.R, 128), dtype=vdt, device=DEV, generator=gen)
+        geom4 = eng_full.fused_geom.to(vdt)
+        cd4 = cc_full["_cd"].to(vdt)
+        for law in (eng_full.fused_law, LAW_ELASTIC):
+            for states in ((u4,), (u4, v4)):
+                kw = dict(wr=wg, nv=V_)
+                args = (states, starts, gidx, (geom4, cd4), law)
+                out = K.lane_fused_elem(*args, **kw)
+                torch.cuda.synchronize()
+                ref = K.lane_fused_elem_plain(*args, **kw)
+                check(out.shape == (G, C, wg, 128)
+                      and out.permute(1, 0, 2, 3).is_contiguous(),
+                      "lane_fused_elem: output layout")
+                check(bool(torch.isfinite(out).all()),
+                      "lane_fused_elem: non-finite output")
+                err = float((out - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                tag = f"{law.name}/{len(states)}/{vdt}/{idt}"
+                k4_rel[tag] = rel
+                check(rel <= K4_TOL[vdt], f"lane_fused_elem {tag}: rel {rel}")
+                if main and law is eng_full.fused_law:
+                    ms = time_ms(lambda: K.lane_fused_elem(*args, **kw), 20)
+                    pms = time_ms(
+                        lambda: K.lane_fused_elem_plain(*args, **kw), 2)
+                    b = nbytes(*states, starts, gidx, geom4, cd4, out)
+                    flops = K4_FLOPS_PER_CELL[len(states)] * G * kc * 128
+                    b_ms = b / HBM_BYTES_PER_S * 1e3
+                    f_ms = flops / F32_FLOPS_PER_S * 1e3
+                    if len(states) == 1:
+                        record("lane_fused_elem", err, ms, pms, b, None,
+                               flops=flops, ops_bound_ms=f_ms)
+                        results["lane_fused_elem"].update(
+                            bound_ms=max(b_ms, f_ms),
+                            bound_by="bytes" if b_ms >= f_ms
+                            else "operations")
+                    else:
+                        results["lane_fused_elem"].update(
+                            jvp_ms=ms, jvp_plain_ms=pms,
+                            jvp_bound_ms=max(b_ms, f_ms), jvp_bound_bytes=b,
+                            jvp_flops=flops)
+                        record("lane_fused_elem", err, None, None, None, None)
+                else:
+                    record("lane_fused_elem", err, None, None, None, None)
+                del out, ref
+        del values, u4, v4, geom4, cd4
+
+emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
+     tolerance="exactly equal (0) for lane_gather_cm, lane_scatter_cm and "
+               "lane_pass_update; lane_fused_elem max |kernel - plain| <= "
+               "1e-12 (float64) / 1e-5 (float32) of max |plain|")
 torch.cuda.empty_cache()
 
 # -- 4. engine against the flat assembler (n = 64, float64) ---------------------
@@ -328,81 +423,183 @@ for name, (lane_val, flat_val) in pairs.items():
     check(torch.equal(eng_e.to_lane_dev(got), lane_val),
           f"engine {name}: lane state is not owner-consistent")
     engine_out[name] = rel
+# the fused engine (same plan): residual and tangent action against the
+# staged engine and the flat assembler, copies consistent
+eng_f = LaneEngine(F_e, bcs_e, plan=eng_e.plan, fused=True, device=DEV,
+                   dtype=torch.float64)
+cf_e = eng_f.prepare_coeffs({"d": d_e})
+K.reset_launch_counts()
+fused_pairs = {
+    "fused_residual": (eng_f.residual(ul, cf_e), pairs["residual"]),
+    "fused_tangent_action": (eng_f.tangent_action(ul, cf_e, vl),
+                             pairs["tangent_action"]),
+    "fused_make_tangent": (eng_f.make_tangent(ul, cf_e)(vl),
+                           pairs["tangent_action"]),
+}
+check(K.launch_counts()["lane_fused_elem"] == 3
+      and K.launch_counts()["lane_gather_cm"] == 0,
+      f"the fused engine did not run on the fused kernel alone: "
+      f"{K.launch_counts()}")
+for name, (lane_val, (staged_val, flat_val)) in fused_pairs.items():
+    got = eng_f.from_lane_dev(lane_val)
+    for other, ref in (("flat", flat_val),
+                       ("staged", eng_e.from_lane_dev(staged_val))):
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        check(rel <= 1e-12, f"engine {name} vs {other}: rel {rel}")
+        engine_out[f"{name}_vs_{other}"] = rel
+    check(torch.equal(eng_f.refresh_copies(lane_val), lane_val),
+          f"engine {name}: copy slots differ from their owners")
 emit("engine", n=N_ENGINE, dtype="float64", rel_err=engine_out,
-     tolerance=1e-12)
-del eng_e, asm_e
+     fused_law=str(eng_f.fused_law), tolerance=1e-12)
+del eng_e, eng_f, asm_e
 
-# -- 5. small solve to convergence ----------------------------------------------
+# -- 5. small solve to convergence, staged and fused ------------------------------
 
-t0 = time.perf_counter()
 # newton_rtol = 1e-5: in float32 the residual norm of this problem stops
 # falling near 1e-6 * r0, so a tolerance at that floor is met or missed by
 # rounding; one decade above it is met with room to spare
-res_s = polycrystal.run(N_SMALL, fused=False, device=DEV,
-                        solver=SolverConfig(
-                            cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
-                            newton_maxit=10, preconditioner="jacobi"))
-st = res_s.stats
+cfg_small = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
+                         newton_maxit=10, preconditioner="jacobi")
+mesh_small = polycrystal.generate_polycrystal(N_SMALL, n_grains=200)
+small = {}
+for fused in (False, True):
+    t0 = time.perf_counter()
+    res_s = polycrystal.run(N_SMALL, fused=fused, device=DEV, mesh=mesh_small,
+                            solver=cfg_small)
+    st = res_s.stats
+    tag = "fused" if fused else "staged"
+    small[tag] = dict(
+        converged=st["converged"], newton_iters=st["newton_iters"],
+        cg_iters=st["cg_iters"], residuals=st["residuals"],
+        final_residual=st["final_residual"], energy=res_s.energy,
+        ms_per_cg_iter=1e3 * st["cg_seconds"] / max(st["total_cg_iters"], 1),
+        seconds=time.perf_counter() - t0, timings=res_s.timings)
+    check(st["converged"], f"solve_small {tag} did not converge")
+    check(np.isfinite(res_s.energy) and np.isfinite(res_s.u_flat).all()
+          and np.isfinite(res_s.stress).all(),
+          f"solve_small {tag}: non-finite output")
+    check(res_s.u_flat.shape == (res_s.n_dofs,), "solve_small: bad shape")
+    uu = res_s.u_flat.reshape(-1, 2)
+    check(np.allclose(uu[np.abs(res_s.mesh.x[:, 0] - 1) < 1e-9, 0], 0.01,
+                      atol=1e-6), f"solve_small {tag}: Dirichlet values lost")
+    small[tag]["u"] = res_s.u_flat
+check(small["fused"]["newton_iters"] == small["staged"]["newton_iters"],
+      "solve_small: fused and staged take different Newton counts")
+u_st, u_fu = small["staged"].pop("u"), small["fused"].pop("u")
+# both stop at newton_rtol = 1e-5 in float32: they agree to that order
+u_rel = float(np.abs(u_fu - u_st).max() / np.abs(u_st).max())
+check(u_rel <= 1e-3, f"solve_small: fused vs staged u rel {u_rel}")
+check(abs(small["fused"]["energy"] - small["staged"]["energy"])
+      <= 1e-4 * abs(small["staged"]["energy"]),
+      "solve_small: fused and staged energies differ")
 emit("solve_small", n=N_SMALL, n_dofs=res_s.n_dofs, dtype="float32",
-     converged=st["converged"], newton_iters=st["newton_iters"],
-     cg_iters=st["cg_iters"], residuals=st["residuals"],
-     final_residual=st["final_residual"], energy=res_s.energy,
-     ms_per_cg_iter=1e3 * st["cg_seconds"] / max(st["total_cg_iters"], 1),
-     seconds=time.perf_counter() - t0, timings=res_s.timings)
-check(st["converged"], "solve_small did not converge")
-check(np.isfinite(res_s.energy) and np.isfinite(res_s.u_flat).all()
-      and np.isfinite(res_s.stress).all(), "solve_small: non-finite output")
-check(res_s.u_flat.shape == (res_s.n_dofs,), "solve_small: bad shape")
-uu = res_s.u_flat.reshape(-1, 2)
-check(np.allclose(uu[np.abs(res_s.mesh.x[:, 0] - 1) < 1e-9, 0], 0.01,
-                  atol=1e-6), "solve_small: Dirichlet values lost")
-del res_s
+     fused_vs_staged_u_rel=u_rel, **small)
+del res_s, mesh_small
 
-# -- 6. full-width solve, twice -------------------------------------------------
+# -- 6./7. full-width solve, staged and fused, each twice -------------------------
 
 cfg_full = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6,
                         cg_maxit=FULL_CG_MAXIT,
                         newton_maxit=FULL_NEWTON_MAXIT,
                         preconditioner="jacobi")
-runs = []
-for i in range(2):
-    if i == 0:
-        K.reset_launch_counts()
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    r = polycrystal.run(N_FULL, n_grains=200, fused=False, device=DEV,
-                        mesh=mesh_full, solver=cfg_full,
-                        postprocess_fields=(i == 0))
-    secs = time.perf_counter() - t0
-    if i == 0:
-        launches = K.launch_counts()
-    runs.append((r, secs, torch.cuda.max_memory_allocated()))
 
-r0, r1 = runs[0][0], runs[1][0]
-s0 = r0.stats
-check(all(v > 0 for v in launches.values()),
-      f"a kernel was not launched on the main path: {launches}")
-check(s0["residuals"] == r1.stats["residuals"]
-      and s0["final_residual"] == r1.stats["final_residual"]
-      and s0["cg_iters"] == r1.stats["cg_iters"],
-      "solve_full: residual trajectory differs between two runs")
-check(np.array_equal(r0.u_flat, r1.u_flat),
-      "solve_full: solution differs bitwise between two runs")
-check(np.isfinite(r0.u_flat).all() and np.isfinite(r0.energy)
-      and np.isfinite(r0.stress).all(), "solve_full: non-finite output")
-check(r0.u_flat.shape == (2 * (N_FULL + 1) ** 2,), "solve_full: bad shape")
-check(s0["residuals"][-1] < s0["residuals"][0]
-      or s0["final_residual"] < s0["residuals"][0],
-      "solve_full: the residual did not decrease")
-emit("solve_full", n=N_FULL, n_grains=200, n_dofs=r0.n_dofs, dtype="float32",
-     caps=dict(newton_maxit=FULL_NEWTON_MAXIT, cg_maxit=FULL_CG_MAXIT),
-     newton_iters=s0["newton_iters"], cg_iters=s0["cg_iters"],
-     residuals=s0["residuals"], final_residual=s0["final_residual"],
-     converged=s0["converged"], energy=r0.energy,
-     ms_per_cg_iter=1e3 * s0["cg_seconds"] / max(s0["total_cg_iters"], 1),
-     launches=launches, bitwise_equal_runs=True,
-     seconds=[runs[0][1], runs[1][1]],
-     peak_device_bytes=runs[0][2], timings=r0.timings)
+
+def solve_full_twice(phase, fused, needed):
+    """Two runs of the capped n = 1024 solve on the shared mesh and plan.
+    The launch counts are set to 0 just before the first run and read
+    just after it; every kernel in ``needed`` must have been launched.
+    The second run must repeat the first bit for bit."""
+    runs = []
+    for i in range(2):
+        if i == 0:
+            K.reset_launch_counts()
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        r = polycrystal.run(N_FULL, n_grains=200, fused=fused, device=DEV,
+                            mesh=mesh_full, plan=p, solver=cfg_full,
+                            postprocess_fields=(i == 0))
+        secs = time.perf_counter() - t0
+        if i == 0:
+            launches = K.launch_counts()
+        runs.append((r, secs, torch.cuda.max_memory_allocated()))
+    r0, r1 = runs[0][0], runs[1][0]
+    s0 = r0.stats
+    check(all(launches[k] > 0 for k in needed),
+          f"{phase}: a kernel was not launched on the path: {launches}")
+    check(s0["residuals"] == r1.stats["residuals"]
+          and s0["final_residual"] == r1.stats["final_residual"]
+          and s0["cg_iters"] == r1.stats["cg_iters"],
+          f"{phase}: residual trajectory differs between two runs")
+    check(np.array_equal(r0.u_flat, r1.u_flat),
+          f"{phase}: solution differs bitwise between two runs")
+    check(np.isfinite(r0.u_flat).all() and np.isfinite(r0.energy)
+          and np.isfinite(r0.stress).all(), f"{phase}: non-finite output")
+    check(r0.u_flat.shape == (2 * (N_FULL + 1) ** 2,), f"{phase}: bad shape")
+    check(s0["residuals"][-1] < s0["residuals"][0]
+          or s0["final_residual"] < s0["residuals"][0],
+          f"{phase}: the residual did not decrease")
+    out = dict(
+        n=N_FULL, n_grains=200, n_dofs=r0.n_dofs, dtype="float32",
+        fused=fused,
+        caps=dict(newton_maxit=FULL_NEWTON_MAXIT, cg_maxit=FULL_CG_MAXIT),
+        newton_iters=s0["newton_iters"], cg_iters=s0["cg_iters"],
+        residuals=s0["residuals"], final_residual=s0["final_residual"],
+        converged=s0["converged"], energy=r0.energy,
+        ms_per_cg_iter=1e3 * s0["cg_seconds"] / max(s0["total_cg_iters"], 1),
+        launches=launches, bitwise_equal_runs=True,
+        seconds=[runs[0][1], runs[1][1]],
+        peak_device_bytes=runs[0][2], timings=r0.timings)
+    return r0, launches, out
+
+
+r_staged, launches, out_staged = solve_full_twice(
+    "solve_full", False,
+    ("lane_gather_cm", "lane_scatter_cm", "lane_pass_update"))
+check(launches["lane_fused_elem"] == 0,
+      "solve_full: the staged path launched the fused kernel")
+emit("solve_full", **out_staged)
+
+r_fused, launches_fused, out_fused = solve_full_twice(
+    "solve_full_fused", True, ("lane_fused_elem", "lane_pass_update"))
+total_cg = r_fused.stats["total_cg_iters"]
+# every CG iteration applies the operator through K4 once and K3 twice;
+# residuals and line-search trials add a few more of each. K1 / K2 run
+# only for the Jacobi diagonal, once per Newton step
+check(launches_fused["lane_fused_elem"] >= total_cg > 0
+      and launches_fused["lane_pass_update"] >= 2 * total_cg,
+      f"solve_full_fused: fewer fused launches than CG iterations: "
+      f"{launches_fused} for {total_cg} iterations")
+check(launches_fused["lane_gather_cm"] <= 2 * FULL_NEWTON_MAXIT
+      and launches_fused["lane_scatter_cm"] <= 2 * FULL_NEWTON_MAXIT,
+      f"solve_full_fused: the CG loop ran staged kernels: {launches_fused}")
+# float32, different rounding of the tangent (hand-derived against AD):
+# the two paths solve the same problem and agree to the solve's accuracy
+fs_rel = float(np.abs(r_fused.u_flat - r_staged.u_flat).max()
+               / np.abs(r_staged.u_flat).max())
+check(fs_rel <= 1e-2, f"solve_full_fused: u differs from staged, rel {fs_rel}")
+check(abs(r_fused.stats["r0"] - r_staged.stats["r0"])
+      <= 1e-5 * r_staged.stats["r0"],
+      "solve_full_fused: first residual norm differs from staged")
+del r_staged, r_fused
+
+# one CG iteration of either engine under the profiler, on the shared plan
+eng_staged = LaneEngine(F_full, bcs_full, plan=p, device=DEV,
+                        dtype=torch.float32)
+cc_staged = eng_staged.prepare_coeffs({"d": d_full, "E": E_full})
+prof = {"staged": cg_profile.profile_cg_iteration(eng_staged, cc_staged, 30),
+        "fused": cg_profile.profile_cg_iteration(eng_full, cc_full, 30)}
+check(prof["fused"]["lane_kernel_launches_per_iter"]["lane_fused_elem"] == 1.0
+      and prof["fused"]["lane_kernel_launches_per_iter"]["lane_pass_update"]
+      == 2.0, f"profile: launches per fused CG iteration: {prof['fused']}")
+emit("solve_full_fused", **out_fused,
+     lane_fused_elem_launches_per_cg_iter=(
+         launches_fused["lane_fused_elem"] / total_cg),
+     fused_vs_staged_u_rel=fs_rel,
+     staged=dict(ms_per_cg_iter=out_staged["ms_per_cg_iter"],
+                 cg_iters=out_staged["cg_iters"],
+                 peak_device_bytes=out_staged["peak_device_bytes"]),
+     cg_iteration_profile=prof)
+del eng_staged, eng_full
 
 # -- summary ------------------------------------------------------------------
 
@@ -410,20 +607,30 @@ REPLACES = {
     "lane_gather_cm": "tpufem/lane/kernels.py:198",
     "lane_scatter_cm": "tpufem/lane/kernels.py:258",
     "lane_pass_update": "tpufem/lane/kernels.py:356",
+    "lane_fused_elem": "tpufem/lane/kernels.py:521",
 }
 summary = []
 for name, r in results.items():
+    # launches: on the staged solve for the staged kernels, on the fused
+    # solve for the fused kernel; both counts are listed
+    on_fused = name == "lane_fused_elem"
     entry = dict(
         name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
-        replaces=REPLACES[name], launches=launches[name],
+        replaces=REPLACES[name],
+        launches=(launches_fused if on_fused else launches)[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound_ms"], bound_by="bytes",
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"],
+        launches_staged_solve=launches[name],
+        launches_fused_solve=launches_fused[name],
     )
-    for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms"):
+    for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
+              "jvp_ms", "jvp_plain_ms", "jvp_bound_ms"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)
+check(set(REPLACES) == {e["name"] for e in summary},
+      "the kernels line does not list every kernel")
 print(json.dumps({"kernels": summary}), flush=True)
 print(smi, flush=True)
 print(json.dumps({"total_seconds": time.perf_counter() - T_START}),

@@ -216,9 +216,13 @@ def test_cg_exit_does_not_depend_on_chunk(setup):
 
 def test_unported_paths_raise(setup):
     s = setup
+    # the fused engine is ported: it builds and knows its hand-written law
+    eng = TLaneEngine(s["Ft"], s["bt"], wg_own=8, fused=True, **F64)
+    assert eng.fused_law.name == "asym_damage"
+    import tpufem_torch.cases.polycrystal as t_poly
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLaneEngine(s["Ft"], s["bt"], fused=True, **F64)
-    eng = TLaneEngine(s["Ft"], s["bt"], wg_own=8, **F64)
+        t_poly.run(8, mixed=True, **F64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.make_solver(SolverConfig(preconditioner="twolevel"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.func import grad, hessian
+from torch.func import grad, hessian, jvp
 
 import tpufem.forms as j_forms
 import tpufem_torch.forms as t_forms
@@ -58,6 +58,50 @@ def test_asym_damage_psi_value_grad_hessian(case):
     sm = t_forms.asym_damage_stress_manual(et, d, Ey, NU).numpy()
     gsym = 0.5 * (gt.numpy() + gt.numpy().T)
     assert np.abs(sm - gsym).max() <= 1e-14 * max(np.abs(gsym).max(), 1.0)
+
+
+@pytest.mark.parametrize("d", [0.0, 0.6, 1.0])
+@pytest.mark.parametrize("case", sorted(_STRAINS))
+def test_asym_damage_manual_stress_and_jvp_match_ad(case, d):
+    """The hand-derived stress and its directional derivative (what the
+    fused kernel computes) against ``grad`` / ``jvp(grad)`` of the energy:
+    zero strain, spherical strain (delta == 0), negative eigenvalues,
+    sound, damaged and fully damaged material. Tolerance 1e-13 of the
+    largest entry: same formulas up to the order of a few operations."""
+    Ey = 3.0e7
+    eps = torch.from_numpy(_STRAINS[case].copy())
+    f = lambda e: t_forms.asym_damage_psi(e, d, Ey, NU)
+    rng = np.random.default_rng(4)
+    g = grad(f)(eps)
+    sm = t_forms.asym_damage_stress_manual(eps, d, Ey, NU)
+    assert torch.isfinite(sm).all()
+    assert (sm - 0.5 * (g + g.T)).abs().max() <= 1e-13 * max(
+        float(g.abs().max()), 1.0)
+    for _ in range(3):
+        t = rng.standard_normal((2, 2))
+        t = torch.from_numpy(t + t.T)
+        jg = jvp(grad(f), (eps,), (t,))[1]
+        jm = t_forms.asym_damage_stress_jvp_manual(eps, t, d, Ey, NU)
+        assert torch.isfinite(jm).all()
+        assert (jm - 0.5 * (jg + jg.T)).abs().max() <= 1e-13 * float(
+            jg.abs().max())
+
+
+def test_tagged_energies_record_their_calls():
+    """The fused engine learns an integrand's law from the tags."""
+    from tpufem_torch.forms.potentials import record_fused_laws
+
+    eps = torch.from_numpy(_STRAINS["mixed"].copy())
+    d = torch.tensor(0.5, dtype=torch.float64)
+    t_forms.asym_damage_psi(eps, d, E, NU)  # outside a recording: no trace
+    with record_fused_laws() as calls:
+        t_forms.asym_damage_psi(eps, d, E, NU)
+        t_forms.linear_elastic_psi(eps, E, NU)
+    assert [c[0] for c in calls] == ["asym_damage", "linear_elastic"]
+    assert calls[0][1][1] is d and calls[1][1][1:] == (E, NU)
+    with record_fused_laws() as again:
+        pass
+    assert again == [] and len(calls) == 2
 
 
 def test_linear_elastic_psi_matches():

@@ -113,8 +113,14 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     x = torch.from_numpy(rng.standard_normal((2, 16, L)))
     tk.lane_gather_cm(x, torch.tensor([0, 8], dtype=torch.int32), idx,
                       wr=8, n_ch=6)
+    law = tk.FusedLaw("linear_elastic", 0.3, E=1.0e6)
+    geom = torch.from_numpy(rng.standard_normal((2, 7, 8, L)))
+    out = tk.lane_fused_elem((x,), torch.tensor([0, 8], dtype=torch.int32),
+                             idx, (geom,), law, wr=8, nv=3)
+    assert out.shape == (2, 2, 8, L)
     assert tk.launch_counts() == {
-        "lane_gather_cm": 0, "lane_scatter_cm": 0, "lane_pass_update": 0}
+        "lane_gather_cm": 0, "lane_scatter_cm": 0, "lane_pass_update": 0,
+        "lane_fused_elem": 0}
 
 
 def test_kernel_sources_present():
@@ -125,5 +131,5 @@ def test_kernel_sources_present():
 
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"lane_gather_cm.cu", "lane_scatter_cm.cu",
-            "lane_pass_update.cu"} <= names
+            "lane_pass_update.cu", "lane_fused_elem.cu"} <= names
     assert any("sm_90a" in f for f in _build.ARCH_FLAGS)

@@ -129,6 +129,7 @@ def run(
     smooth_iters: int = 8,
     n_damage_chains: int = 30,
     mesh: Optional[Mesh] = None,
+    plan=None,
     mixed: bool = False,
     postprocess_fields: bool = True,
     output_path: Optional[str] = None,
@@ -156,8 +157,15 @@ def run(
     variant (doc.tex:1583-1586) -- keeping the lane kernels on the
     single-term degree-1 path.
 
-    ``fused`` is forwarded to ``LaneEngine`` (the fused element kernel is
-    not ported yet: ``True`` raises). ``device`` defaults to CUDA and
+    ``mesh`` and ``plan`` (the ``LanePlan`` of an engine built earlier on
+    that mesh with the same ``wg_own``) skip their host set-up when a
+    caller solves on one mesh several times.
+
+    ``fused`` is forwarded to ``LaneEngine``: ``True`` runs residual and
+    CG operator through the fused element kernel ``lane_fused_elem``
+    (the reference's engine; the default stays the staged pipeline until
+    the two-level preconditioner is ported and fused + twolevel becomes
+    the default as in the reference). ``device`` defaults to CUDA and
     ``dtype`` to float32; every device tensor of the run has them.
     ``mixed``, ``gmsh_roundtrip``, ``output_path`` and ``checkpoint_path``
     are not ported yet and raise ``NotImplementedError``.
@@ -256,8 +264,8 @@ def run(
     lap("5.2 neumann/volume setting", t0)
 
     t0 = time.perf_counter()
-    eng = LaneEngine(F, bcs, wg_own=wg_own, fused=fused, device=dev,
-                     dtype=dtype)
+    eng = LaneEngine(F, bcs, wg_own=wg_own, plan=plan, fused=fused,
+                     device=dev, dtype=dtype)
     cc = eng.prepare_coeffs({"d": d, "E": E_cell})
     lap("7.1 lane plan + coeffs", t0)
 

@@ -1,6 +1,6 @@
 """Runtime command-line interface of the port.
 
-    python -m tpufem_torch polycrystal -n 1024 --pc jacobi
+    python -m tpufem_torch polycrystal -n 1024 --pc jacobi [--fused]
 
 Only the ``polycrystal`` subcommand is ported so far. It runs on the GPU
 (``--device cuda``, the default) and exits with an error if there is
@@ -52,7 +52,7 @@ def _cmd_polycrystal(args) -> int:
         args.n, n_grains=args.grains, use_ecst=args.ecst,
         solver=_solver_config(args),
         wg_own=args.wg_own, smooth_iters=args.smooth_iters,
-        n_damage_chains=args.chains, device=args.device,
+        n_damage_chains=args.chains, fused=args.fused, device=args.device,
         dtype=torch.float64 if args.x64 else torch.float32,
     )
     print(f"dofs: {res.n_dofs}  energy = {res.energy:.6e}")
@@ -91,6 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference: 8*(MAX_REFINE+1))")
     p.add_argument("--wg-own", type=int, default=16)
     p.add_argument("--ecst", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="residual and CG operator through the fused element "
+                        "kernel lane_fused_elem instead of the staged "
+                        "gather / physics / scatter pipeline")
     _add_solver_flags(p)
     p.set_defaults(fn=_cmd_polycrystal)
     return ap

@@ -9,6 +9,7 @@ from tpufem_torch.forms.potentials import (
     linear_elastic_psi,
     asym_damage_psi,
     asym_damage_stress_manual,
+    asym_damage_stress_jvp_manual,
     lame_parameters,
 )
 from tpufem_torch.forms.form import EnergyFunctional, Coefficient
@@ -17,6 +18,7 @@ __all__ = [
     "linear_elastic_psi",
     "asym_damage_psi",
     "asym_damage_stress_manual",
+    "asym_damage_stress_jvp_manual",
     "lame_parameters",
     "EnergyFunctional",
     "Coefficient",

@@ -13,7 +13,51 @@ when i1=i2=0 (doc.tex:925-931, ``asym_ufl.py:50-53``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+
 import torch
+
+# -- hand-written laws of the fused element kernel ------------------------------
+#
+# The fused lane kernel (lane/kernels.py:lane_fused_elem) cannot trace an
+# integrand: its physics is written by hand, one law per tagged energy
+# below. While an engine probes an integrand under ``record_fused_laws``
+# every call of a tagged energy notes its name and arguments, which tells
+# the engine WHICH law the integrand evaluates and what it passes for the
+# damage, the modulus and the Poisson ratio. The engine then proves the
+# match numerically; the tag alone decides nothing.
+
+_law_calls = contextvars.ContextVar("tpufem_torch_fused_law_calls",
+                                    default=None)
+
+
+@contextlib.contextmanager
+def record_fused_laws():
+    """Collect ``(law name, positional arguments)`` of every tagged energy
+    called inside the block; yields the list."""
+    calls = []
+    token = _law_calls.set(calls)
+    try:
+        yield calls
+    finally:
+        _law_calls.reset(token)
+
+
+def _fused_law(name):
+    def tag(fn):
+        @functools.wraps(fn)
+        def tagged(*args):
+            calls = _law_calls.get()
+            if calls is not None:
+                calls.append((name, args))
+            return fn(*args)
+
+        tagged.fused_law = name
+        return tagged
+
+    return tag
 
 
 def lame_parameters(E, nu):
@@ -24,6 +68,7 @@ def lame_parameters(E, nu):
     return lam, mu
 
 
+@_fused_law("linear_elastic")
 def linear_elastic_psi(eps, E, nu):
     """Isotropic linear elasticity: psi = lam/2 tr(eps)^2 + mu eps:eps.
 
@@ -48,6 +93,7 @@ def _step(x):
     return 1.0 - (x < 0.0).to(x.dtype)
 
 
+@_fused_law("asym_damage")
 def asym_damage_psi(eps, d, E, nu):
     """Asymmetric traction/compression elasto-damage free energy (2D).
 
@@ -102,42 +148,123 @@ def psi_sym_at_coalescence(lam, mu, i1, sq, d, a):
     return 0.5 * lam * i1 * i1 * (1.0 - a * d) + mu * (1.0 - a * d) * sq
 
 
+def asym_damage_stress_components(e11, e22, e12, d, lam, mu):
+    """Hand-derived spectral stress (s11, s22, s12) = d psi / d eps of
+    :func:`asym_damage_psi`, elementwise on tensors of any one shape.
+
+    The closed-form eigen-decomposition stress of ``asym_manual.py:35-88``
+    and MFEM's hand-coded ``asym_stress`` (MFEM/mechanic2d/
+    asym_elasto_damage_model.cc:205-329), with the branch structure of
+    :func:`asym_damage_psi`: the switches read the signs of the
+    eigenvalues and of the trace, and on the coalescent set
+    ``delta == 0`` (zero or spherical strain) the projectors are I/2 and
+    ``1/r`` is never formed. The CUDA kernel ``csrc/lane_fused_elem.cu``
+    repeats these lines operation by operation."""
+    i1 = e11 + e22
+    diff = e11 - e22
+    delta = diff * diff + 4.0 * e12 * e12
+    degen = delta == 0.0
+    one, zero = torch.ones_like(delta), torch.zeros_like(delta)
+    r = torch.where(degen, zero, torch.sqrt(torch.where(degen, one, delta)))
+    eig1 = 0.5 * (i1 + r)
+    eig2 = 0.5 * (i1 - r)
+    a1 = torch.where(eig1 < 0.0, zero, one)
+    a2 = torch.where(eig2 < 0.0, zero, one)
+    a = torch.where(i1 < 0.0, zero, one)
+    inv_r = torch.where(degen, zero, 1.0 / torch.where(degen, one, r))
+    half = 0.5 * one
+    p11 = torch.where(degen, half, (e11 - eig2) * inv_r)
+    p22 = torch.where(degen, half, (e22 - eig2) * inv_r)
+    p12 = torch.where(degen, zero, e12 * inv_r)
+    vol = lam * i1 * (1.0 - a * d)
+    c1 = 2.0 * mu * (1.0 - a1 * d) * eig1
+    c2 = 2.0 * mu * (1.0 - a2 * d) * eig2
+    s11 = vol + c1 * p11 + c2 * (1.0 - p11)
+    s22 = vol + c1 * p22 + c2 * (1.0 - p22)
+    s12 = c1 * p12 - c2 * p12
+    return s11, s22, s12
+
+
+def asym_damage_stress_jvp_components(e11, e22, e12, t11, t22, t12, d,
+                                      lam, mu):
+    """Directional derivative (ds11, ds22, ds12) = (d sigma / d eps)[t] of
+    :func:`asym_damage_stress_components` -- the hand-derived consistent
+    tangent action (the math MFEM hand-codes at MFEM/...cc:766-871, in
+    forward mode). The switches are piecewise constant (derivative 0
+    almost everywhere); on the coalescent set ``delta == 0`` the
+    smooth-limit isotropic form is used, which is what ``jvp(grad)`` of
+    :func:`asym_damage_psi` gives through its ``where`` structure."""
+    i1 = e11 + e22
+    di1 = t11 + t22
+    diff = e11 - e22
+    ddiff = t11 - t22
+    delta = diff * diff + 4.0 * e12 * e12
+    degen = delta == 0.0
+    one, zero = torch.ones_like(delta), torch.zeros_like(delta)
+    r = torch.sqrt(torch.where(degen, one, delta))
+    inv_r = torch.where(degen, zero, 1.0 / r)
+    r = torch.where(degen, zero, r)
+    dr = (2.0 * diff * ddiff + 8.0 * e12 * t12) * 0.5 * inv_r
+
+    eig1 = 0.5 * (i1 + r)
+    eig2 = 0.5 * (i1 - r)
+    deig1 = 0.5 * (di1 + dr)
+    deig2 = 0.5 * (di1 - dr)
+    a1 = torch.where(eig1 < 0.0, zero, one)
+    a2 = torch.where(eig2 < 0.0, zero, one)
+    a = torch.where(i1 < 0.0, zero, one)
+
+    p11 = (e11 - eig2) * inv_r
+    p22 = (e22 - eig2) * inv_r
+    p12 = e12 * inv_r
+    inv_r2 = inv_r * inv_r
+    dp11 = (t11 - deig2) * inv_r - (e11 - eig2) * dr * inv_r2
+    dp22 = (t22 - deig2) * inv_r - (e22 - eig2) * dr * inv_r2
+    dp12 = t12 * inv_r - e12 * dr * inv_r2
+
+    dvol = lam * di1 * (1.0 - a * d)
+    c1 = 2.0 * mu * (1.0 - a1 * d) * eig1
+    c2 = 2.0 * mu * (1.0 - a2 * d) * eig2
+    dc1 = 2.0 * mu * (1.0 - a1 * d) * deig1
+    dc2 = 2.0 * mu * (1.0 - a2 * d) * deig2
+
+    ds11 = dvol + dc1 * p11 + c1 * dp11 + dc2 * (1.0 - p11) - c2 * dp11
+    ds22 = dvol + dc1 * p22 + c1 * dp22 + dc2 * (1.0 - p22) - c2 * dp22
+    ds12 = (dc1 - dc2) * p12 + (c1 - c2) * dp12
+
+    # coalescent limit: isotropic damaged Hooke on the direction
+    dev = 2.0 * mu * (1.0 - a * d)
+    ds11 = torch.where(degen, dvol + dev * t11, ds11)
+    ds22 = torch.where(degen, dvol + dev * t22, ds22)
+    ds12 = torch.where(degen, dev * t12, ds12)
+    return ds11, ds22, ds12
+
+
+def _sym_components(m):
+    return m[0, 0], m[1, 1], 0.5 * (m[0, 1] + m[1, 0])
+
+
+def _sym_matrix(s11, s22, s12):
+    return torch.stack([torch.stack([s11, s12]), torch.stack([s12, s22])])
+
+
 def asym_damage_stress_manual(eps, d, E, nu):
     """Hand-derived spectral stress sigma = d psi / d eps -- the 'manual'
-    variant.
+    variant, as a (2,2) tensor.
 
-    Mirrors the closed-form eigen-decomposition stress of
-    ``asym_manual.py:35-88`` and MFEM's hand-coded ``asym_stress``
-    (MFEM/mechanic2d/asym_elasto_damage_model.cc:205-329). Kept as an
-    independent derivation for the variant-redundancy test (SURVEY.md
-    section 4.3): it must agree with grad(asym_damage_psi) to machine
-    precision. ``eps``: (2,2) tensor.
+    Kept as an independent derivation for the variant-redundancy test
+    (SURVEY.md section 4.3): it must agree with grad(asym_damage_psi) to
+    machine precision. ``eps``: (2,2) tensor.
     """
     lam, mu = lame_parameters(E, nu)
-    e11, e22 = eps[0, 0], eps[1, 1]
-    e12 = 0.5 * (eps[0, 1] + eps[1, 0])
-    i1 = e11 + e22
-    delta = (e11 - e22) ** 2 + 4.0 * e12 * e12
-    degen = delta == 0.0
-    delta_safe = torch.where(degen, torch.ones_like(delta), delta)
-    r = torch.sqrt(delta_safe)
-    zero = torch.zeros_like(r)
+    return _sym_matrix(*asym_damage_stress_components(
+        *_sym_components(eps), d, lam, mu))
 
-    eig1 = 0.5 * (i1 + torch.where(degen, zero, r))
-    eig2 = 0.5 * (i1 - torch.where(degen, zero, r))
-    a1 = _step(eig1)
-    a2 = _step(eig2)
-    a = _step(i1)
 
-    # eigenvector projectors: P1 = (eps - eig2 I)/(eig1-eig2), P2 = I - P1
-    inv_r = torch.where(degen, zero, 1.0 / r)
-    I2 = torch.eye(2, dtype=eps.dtype, device=eps.device)
-    S = torch.stack([torch.stack([e11, e12]), torch.stack([e12, e22])])
-    P1 = torch.where(degen, 0.5 * I2, (S - eig2 * I2) * inv_r)
-    P2 = I2 - P1
-
-    sig_vol = lam * i1 * (1.0 - a * d) * I2
-    sig_dev = 2.0 * mu * (
-        (1.0 - a1 * d) * eig1 * P1 + (1.0 - a2 * d) * eig2 * P2
-    )
-    return sig_vol + sig_dev
+def asym_damage_stress_jvp_manual(eps, t, d, E, nu):
+    """Hand-derived tangent action (d sigma / d eps)[t] as a (2,2) tensor;
+    must agree with ``jvp(grad(asym_damage_psi))`` along the symmetric
+    direction ``t``, at zero and spherical strain too."""
+    lam, mu = lame_parameters(E, nu)
+    return _sym_matrix(*asym_damage_stress_jvp_components(
+        *_sym_components(eps), *_sym_components(t), d, lam, mu))

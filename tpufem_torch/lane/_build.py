@@ -69,7 +69,12 @@ def build(verbose: bool = False) -> float:
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    # -fmad=false: products and sums round separately, as they do in the
+    # plain PyTorch versions the kernels are held against, so the fused
+    # element kernel can be bit-equal to its plain version (the other
+    # kernels do no multiply-adds; all are bound by bytes, not arithmetic)
+    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+              "-Xcompiler", "-fPIC"]
     if verbose:
         common += ["-Xptxas", "-v"]
     procs = []
@@ -125,5 +130,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.lane_pass_update.restype = ci
         lib.lane_pass_update.argtypes = [
             ci, ci, vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, vp]
+        cd = ctypes.c_double
+        lib.lane_fused_elem.restype = ci
+        lib.lane_fused_elem.argtypes = [
+            ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+            ci, ci, cd, ci, ci, cd, cd, cd, vp]
         _lib = lib
         return _lib

@@ -17,11 +17,25 @@ The tangent action runs the identical movement around the element-level
 tangent (gathers/scatters are linear, so differentiating the physics alone
 is exact); the physics is linearized once per Newton step
 (``linearize``) and applied with multiply-adds in every CG iteration.
-This is the staged P1 path of ``tpufem.lane.engine``; the
-fused element kernel (``fused=True``), the multi-quadrature-point
-specialization, facet terms, the two-level preconditioner and the
-mixed-precision solver are not ported yet and raise
-``NotImplementedError`` -- nothing falls back silently to another path.
+This is the staged P1 path of ``tpufem.lane.engine``.
+
+``fused=True`` replaces gather -> physics -> scatter by ONE kernel,
+
+  u [, v] (bs, R, 128) + geometry rows + coefficient rows
+    -> lane_fused_elem (element gradient / Hessian-vector product)  [CUDA]
+    -> lane_pass_update head=True, head=False                       [CUDA]
+
+for the residual and for J(u) v alike: the tangent action recomputes the
+stress derivative from the frozen ``u`` in every application and no
+per-cell Hessian is stored. The kernel's physics is written by hand
+(``lane.kernels.FusedLaw``); the engine finds out which law an integrand
+evaluates, proves the match on probe cells at construction, and raises
+``NotImplementedError`` for anything the kernel has no law for.
+
+The multi-quadrature-point specialization, facet terms, the two-level
+preconditioner and the mixed-precision solver are not ported yet and
+raise ``NotImplementedError`` -- nothing falls back silently to another
+path.
 """
 
 from __future__ import annotations
@@ -36,9 +50,11 @@ from torch.func import grad, jvp
 
 from tpufem_torch.config import DEFAULT_DTYPE, SolverConfig, resolve_device
 from tpufem_torch.forms.form import QP, EnergyFunctional
+from tpufem_torch.forms.potentials import record_fused_laws
 from tpufem_torch.forms.smat import SMat, SVec
-from tpufem_torch.lane.kernels import (lane_gather_cm, lane_pass_update,
-                                       lane_scatter_cm)
+from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
+                                       lane_fused_elem, lane_gather_cm,
+                                       lane_pass_update, lane_scatter_cm)
 from tpufem_torch.lane.plan import LanePlan, N_LANES, build_lane_plan
 from tpufem_torch.mesh.mesh import CellType
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
@@ -56,11 +72,6 @@ class LaneEngine:
         device=None,
         dtype: torch.dtype = DEFAULT_DTYPE,
     ):
-        if fused:
-            raise NotImplementedError(
-                "LaneEngine(fused=True) needs the lane_fused_elem kernel, "
-                "which is not ported yet (ROADMAP.md: slice 2, K4)"
-            )
         space = functional.space
         if space.element.degree < 1:
             raise NotImplementedError("lane engine needs degree >= 1")
@@ -99,6 +110,24 @@ class LaneEngine:
             )
         (self._red_res, self._red_energy, self._red_linearize,
          self._red_apply) = self._make_reduced_fns()
+
+        # fused element kernel: which hand-written law the integrand is
+        # (proved on probe cells, or NotImplementedError -- never a quiet
+        # switch to the staged path), and the static geometry rows
+        # (G, 7, kc, 128) the kernel streams: dN[v][d] at row v*gd+d, then
+        # the weight. The quadrature-point rows are left out: no
+        # hand-written law reads qp.x.
+        self._fused = bool(fused)
+        self.fused_law = self.fused_geom = None
+        if self._fused:
+            self.fused_law = self._resolve_fused_law()
+            dN_h, w_h = self._geom_host
+            rows = np.concatenate(
+                [dN_h.reshape(-1, dN_h.shape[-1]), w_h[None, :]], axis=0)
+            self.fused_geom = self._store(np.ascontiguousarray(
+                rows.reshape(rows.shape[0], p.G, p.kc, N_LANES)
+                .transpose(1, 0, 2, 3)))
+        self._geom_host = None
 
         # device plans; index streams in int8 when the window allows --
         # the gather/scatter kernels are partly index-bandwidth-bound
@@ -272,6 +301,7 @@ class LaneEngine:
         self.geom_dN = self._store(dN_t)
         self.geom_w = self._store(w)
         self.geom_xq = self._store(xq_t)
+        self._geom_host = (dN_t, w)  # for the fused kernel's geometry rows
         return True
 
     def _make_reduced_fns(self):
@@ -402,6 +432,200 @@ class LaneEngine:
 
         return red_residual, red_energy, red_linearize, red_apply
 
+    # -- fused kernel: law of the integrand -------------------------------------
+
+    def _probe_qp(self, x):
+        """A quadrature-point context of distinct 0-dim float64 tensors
+        (one evaluation of the integrand on it tells what it reads)."""
+        bs, gd = self.bs, self.space.mesh.gdim
+
+        def s(val):
+            return torch.tensor(val, dtype=torch.float64)
+
+        grad_u = SMat([[s(0.01 * (1 + i * gd + j)) for j in range(gd)]
+                       for i in range(bs)])
+        u = SVec([s(0.001 * (i + 1)) for i in range(bs)])
+        cvals = {}
+        for c in self.functional.coefficients:
+            cb = c.space.bs
+            cvals[c.name] = s(0.5) if cb == 1 else SVec(
+                [s(0.5) for _ in range(cb)])
+        return QP(grad_u, u, x, cvals, {}), cvals
+
+    def _integrand_uses_x(self) -> bool:
+        """True iff the cell integrand reads qp.x: it is evaluated once
+        with a poison object in every x component, and any operation on
+        the poison marks x as used."""
+
+        class _Touched(Exception):
+            pass
+
+        class _Poison:
+            def _no(self, *a, **k):
+                raise _Touched()
+
+            for _op in ("add", "radd", "sub", "rsub", "mul", "rmul",
+                        "truediv", "rtruediv", "pow", "rpow", "mod",
+                        "rmod", "lt", "le", "gt", "ge", "eq", "ne",
+                        "neg", "pos", "abs", "float", "index", "bool",
+                        "matmul", "rmatmul", "getitem", "iter"):
+                locals()[f"__{_op}__"] = _no
+            del _op
+
+        gd = self.space.mesh.gdim
+        qp, _ = self._probe_qp(SVec([_Poison() for _ in range(gd)]))
+        try:
+            for term in self.functional.terms:
+                term.integrand(qp)
+        except _Touched:
+            return True
+        return False
+
+    def _resolve_fused_law(self) -> FusedLaw:
+        """The hand-written law of the fused kernel that this engine's
+        integrand evaluates, or ``NotImplementedError``.
+
+        The energies of ``forms.potentials`` that the kernel has a law
+        for are tagged: one evaluation of the integrand under
+        ``record_fused_laws`` names the law and shows what is passed for
+        the damage, the modulus and the Poisson ratio (a coefficient, by
+        identity with the probe's value, or a constant). That is only a
+        claim; :meth:`_prove_fused_law` holds it against AD of the
+        integrand itself."""
+        mesh = self.space.mesh
+        if (mesh.cell_type != CellType.triangle or mesh.gdim != 2
+                or self.bs != 2):
+            raise NotImplementedError(
+                "LaneEngine(fused=True): lane_fused_elem has hand-written "
+                "physics for the P1 triangle with two displacement "
+                "components only (ROADMAP.md: K4, kernel source generated "
+                "from the elementwise energy)")
+        if self._integrand_uses_x():
+            raise NotImplementedError(
+                "LaneEngine(fused=True): the integrand reads qp.x, which no "
+                "hand-written law of lane_fused_elem does (ROADMAP.md: an "
+                "x-using integrand on the fused path)")
+        qp, cvals = self._probe_qp(None)
+        with record_fused_laws() as calls:
+            self.functional.terms[0].integrand(qp)
+        if len(calls) != 1:
+            raise NotImplementedError(
+                "LaneEngine(fused=True): the integrand evaluates "
+                f"{len(calls)} energies that lane_fused_elem has a "
+                "hand-written law for (asym_damage_psi, linear_elastic_psi); "
+                "it needs exactly one (ROADMAP.md: K4, kernel source "
+                "generated from the elementwise energy)")
+        name, args = calls[0]
+        rows, off = {}, 0  # coefficient name -> (first row, rows) of _cd
+        for c in self.functional.coefficients:
+            n = self._coeff_dofmaps[c.name].shape[1]
+            if c.space.bs == 1:
+                rows[c.name] = (off, n)
+            off += n
+
+        def source(arg):
+            for cname, val in cvals.items():
+                if arg is val and cname in rows:
+                    return rows[cname]
+            return float(arg)  # a constant (derived values fail the proof)
+
+        if name == "asym_damage":
+            _eps, d, E, nu = args
+            law = FusedLaw(name, float(nu), E=source(E), d=source(d))
+        else:
+            _eps, E, nu = args
+            law = FusedLaw(name, float(nu), E=source(E))
+        self._prove_fused_law(law, off)
+        return law
+
+    def _prove_fused_law(self, law: FusedLaw, n_coeff_rows: int,
+                         n_probe: int = 384, rtol: float = 1e-9):
+        """Hold the hand-written physics of ``law`` against AD of the
+        actual integrand (``torch.func.grad`` / ``jvp`` through the
+        staged element functions) on random probe cells in float64,
+        including zero strain, spherical strain (``delta == 0``), both
+        signs of the eigenvalues, and damage 0 and 1. Raises
+        ``NotImplementedError`` on disagreement: the integrand is then
+        not the law it names (scaled, shifted, other arguments)."""
+        M = n_probe
+        rng = np.random.default_rng(20240229)
+        dN = 10.0 * rng.standard_normal((3, 2, M))
+        w = rng.uniform(1e-4, 1e-3, M)
+        u = 1e-3 * rng.standard_normal((6, M))
+        v = rng.standard_normal((6, M))
+        q = M // 8
+        u[:, :q] = 0.0  # zero strain
+        # exactly spherical strain a*I on the reference triangle,
+        # tension and compression
+        dN[:, :, q:2 * q] = np.array(
+            [[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])[:, :, None]
+        a = np.ldexp(rng.integers(1, 64, q).astype(np.float64), -16)
+        a[::2] *= -1.0
+        u[:, q:2 * q] = 0.0
+        u[2, q:2 * q] = a  # vertex 1, x
+        u[5, q:2 * q] = a  # vertex 2, y
+        cd = rng.uniform(0.0, 1.0, (max(n_coeff_rows, 1), M))
+        cd[:, ::5] = 1.0  # fully damaged
+        cd[:, 1::5] = 0.0  # sound
+        if isinstance(law.E, tuple):  # moduli of realistic size
+            o, n = law.E
+            cd[o:o + n] = rng.uniform(1e5, 1e7, (n, M))
+
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float64,
+                                   device=self.device)
+
+        coeffs, off = {}, 0
+        for c in self.functional.coefficients:
+            n = self._coeff_dofmaps[c.name].shape[1]
+            coeffs[c.name] = t(cd[off:off + n])
+            off += n
+        dN_t, w_t, xq_t = t(dN), t(w), t(np.zeros((2, M)))
+        u_t, v_t = t(u), t(v)
+        cds = (torch.cat([dN_t.reshape(6, M), w_t[None]]), t(cd))
+        H = self._red_linearize(u_t, coeffs, dN_t, w_t, xq_t)
+        pairs = {
+            "gradient": (fused_elem_vectors(law, (u_t,), cds),
+                         self._red_res(u_t, coeffs, dN_t, w_t, xq_t)),
+            "Hessian-vector product": (
+                fused_elem_vectors(law, (u_t, v_t), cds),
+                self._red_apply(H, v_t, dN_t)),
+        }
+        for what, (hand, ad) in pairs.items():
+            err = float((hand - ad).abs().max())
+            scale = float(ad.abs().max())
+            if not (np.isfinite(err) and err <= rtol * scale):
+                raise NotImplementedError(
+                    f"LaneEngine(fused=True): the element {what} of the "
+                    f"integrand is not that of {law} (max abs difference "
+                    f"{err:.3e} against {scale:.3e} on {M} probe cells): "
+                    "lane_fused_elem has no hand-written law for this "
+                    "integrand (ROADMAP.md: K4, kernel source generated "
+                    "from the elementwise energy)")
+
+    def _fused_cds(self, coeff_cells, dtype):
+        cds = (self.fused_geom.to(dtype),)
+        if self._coeff_dofmaps:
+            if "_cd" not in coeff_cells:
+                raise KeyError(
+                    "the fused engine needs the '_cd' coefficient block: "
+                    "pass what this engine's prepare_coeffs returned")
+            cds = cds + (coeff_cells["_cd"].to(dtype),)
+        return cds
+
+    def _fused_apply(self, states, coeff_cells):
+        """Element gradient (one state) or Hessian-vector product (u, v)
+        through the fused kernel, then owner-sum and refresh. The kernel
+        stores its (G, bs, wg, 128) result channel-leading, so the
+        transpose to (bs, G, wg, 128) is a view."""
+        p = self.plan
+        part = lane_fused_elem(
+            states, self.gather_starts, self.gather_idx,
+            self._fused_cds(coeff_cells, states[0].dtype), self.fused_law,
+            wr=p.wg, nv=p.nv,
+        )
+        return self._owner_refresh(part.permute(1, 0, 2, 3))
+
     # -- layout ---------------------------------------------------------------
 
     def to_lane(self, u_flat):
@@ -458,16 +682,25 @@ class LaneEngine:
         """Pre-gather coefficient values per cell in lane-cell order
         (frozen during a solve -- the quadrature cache of MFEM/...cc:
         1317-1324). The gather runs on the host; values may be numpy
-        arrays or tensors."""
-        out = {}
+        arrays or tensors. A fused engine adds the entry ``_cd``: the
+        coefficient rows, in the order of ``functional.coefficients``,
+        re-blocked per bin (G, Dc, kc, 128) for the fused kernel."""
+        host = {}
         for name, dm in self._coeff_dofmaps.items():
             c = coeffs[name]
             if isinstance(c, torch.Tensor):
                 c = c.detach().cpu().numpy()
             per_cell = np.asarray(c)[dm]  # (nc, ndc)
-            out[name] = self._store(
-                np.ascontiguousarray(per_cell[self._safe_order].T)
+            host[name] = np.ascontiguousarray(
+                per_cell[self._safe_order].T
             )  # (ndc, M)
+        out = {k: self._store(v) for k, v in host.items()}
+        if host and self._fused:
+            p = self.plan
+            cdc = np.concatenate(
+                [host[c.name] for c in self.functional.coefficients], axis=0)
+            cdc = cdc.reshape(-1, p.G, p.kc, N_LANES).transpose(1, 0, 2, 3)
+            out["_cd"] = self._store(np.ascontiguousarray(cdc))
         return out
 
     # -- movement pieces --------------------------------------------------------
@@ -546,6 +779,8 @@ class LaneEngine:
                 self.geom_xq.to(dtype))
 
     def residual(self, u_lane, coeff_cells) -> torch.Tensor:
+        if self._fused:
+            return self._fused_apply((u_lane,), coeff_cells)
         u_cells = self._gather_cells(u_lane)
         ev = self._red_res(u_cells, coeff_cells, *self._geom(u_lane.dtype))
         return self._scatter_cells(ev)
@@ -568,12 +803,19 @@ class LaneEngine:
 
     def tangent_action(self, u_lane, coeff_cells, v_lane) -> torch.Tensor:
         """J(u) v -- element-level tangent between the (linear) movements."""
+        if self._fused:
+            return self._fused_apply((u_lane, v_lane), coeff_cells)
         return self.make_tangent(u_lane, coeff_cells)(v_lane)
 
     def make_tangent(self, u_lane, coeff_cells, lin=None):
-        """v -> J(u) v closure for a frozen linearization state (``lin``:
-        a ``linearize`` result to reuse): every application is gather ->
-        multiply-adds -> scatter."""
+        """v -> J(u) v closure for a frozen linearization state. Staged:
+        every application is gather -> multiply-adds on the stored
+        per-cell Hessian -> scatter (``lin``: a ``linearize`` result to
+        reuse). Fused: every application is the fused kernel on
+        ``(u, v)``; nothing is stored and ``lin`` is not read."""
+        if self._fused:
+            return lambda v_lane: self._fused_apply((u_lane, v_lane),
+                                                    coeff_cells)
         H = self.linearize(u_lane, coeff_cells) if lin is None else lin
         dN = self.geom_dN.to(u_lane.dtype)
 
@@ -629,6 +871,11 @@ class LaneEngine:
         device (a flag that freezes the state once it is met, and a
         device iteration counter), so the exit iteration is set by the
         math and does not depend on ``cg_chunk``.
+
+        With a fused engine the residual and the CG operator are the
+        fused kernel (the operator in its Hessian-vector mode on the
+        frozen ``u``); the Jacobi diagonal still comes from one
+        ``linearize`` per Newton step.
 
         ``cfg.preconditioner == 'twolevel'`` is not ported yet."""
         cfg = cfg or SolverConfig()
@@ -706,6 +953,7 @@ class LaneEngine:
                 lin = eng.linearize(u, coeff_cells)
                 dinv = diag_fn(u, coeff_cells, free, lin)
                 Araw = eng.make_tangent(u, coeff_cells, lin)
+                del lin  # staged: Araw holds it; fused: free it before CG
 
                 def A(v):
                     av = Araw(v * free)

@@ -3,11 +3,14 @@ plain PyTorch version.
 
 Three primitives cover every irregular movement of the staged lane
 pipeline (gather to cells, scatter-add to bin partials, copy owner-sum
-and refresh):
+and refresh), and a fourth fuses the first two around the element
+physics:
 
 - :func:`lane_gather_cm`   -- out[v*C+c,t,k,j] = values[c, starts[t]+idx[t,v,k,j], j]
 - :func:`lane_scatter_cm`  -- out[c,t,r,j] = sum_{v,k: idx[t,v,k,j]==r} src[v*C+c,t,k,j]
 - :func:`lane_pass_update` -- all owner-sum / refresh passes + bin-block update
+- :func:`lane_fused_elem`  -- gather -> element gradient / Hessian-vector
+  product of a hand-written law (:class:`FusedLaw`) -> scatter, in one pass
 
 Each wrapper takes the same arguments as its counterpart in
 ``tpufem/lane/kernels.py``. For a CUDA tensor it launches the kernel
@@ -23,9 +26,13 @@ entry" and contributes 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import dataclasses
+from typing import Sequence, Tuple, Union
 
 import torch
+
+from tpufem_torch.forms.potentials import (asym_damage_stress_components,
+                                           asym_damage_stress_jvp_components)
 
 from tpufem_torch.lane import _build
 
@@ -57,16 +64,18 @@ def _raise_on(code: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error code {code}")
 
 
+def _wrappers():
+    return (lane_gather_cm, lane_scatter_cm, lane_pass_update,
+            lane_fused_elem)
+
+
 def reset_launch_counts() -> None:
-    for fn in (lane_gather_cm, lane_scatter_cm, lane_pass_update):
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {
-        fn.__name__: fn.launches
-        for fn in (lane_gather_cm, lane_scatter_cm, lane_pass_update)
-    }
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 # -- K1: gather ---------------------------------------------------------------
@@ -235,6 +244,206 @@ def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
     _raise_on(code, "lane_pass_update")
     lane_pass_update.launches += 1
     return out
+
+
+# -- K4: fused gather -> element physics -> scatter ---------------------------
+
+_LAWS = {"linear_elastic": 0, "asym_damage": 1}
+
+# a per-cell scalar of a law: a constant, or (first row, row count) of the
+# coefficient block, averaged over its rows (P1: the cell's 3 dofs; P0: 1)
+CellScalar = Union[float, Tuple[int, int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLaw:
+    """A constitutive law whose P1-triangle element physics the fused
+    kernel has written by hand (``csrc/lane_fused_elem.cu``) -- what the
+    port passes where the reference passes a traced ``elem_fn``.
+
+    ``name``: ``"asym_damage"`` (forms.potentials.asym_damage_psi) or
+    ``"linear_elastic"`` (linear_elastic_psi; ``d`` is not read). ``E``
+    and ``d`` say where Young's modulus and the damage come from, ``nu``
+    is the Poisson ratio."""
+
+    name: str
+    nu: float
+    E: CellScalar
+    d: CellScalar = 0.0
+
+    def __post_init__(self):
+        if self.name not in _LAWS:
+            raise ValueError(f"no hand-written law {self.name!r}; "
+                             f"have {sorted(_LAWS)}")
+
+    def lame_factors(self):
+        """(klam, kmu) with lam = E * klam, mu = E * kmu."""
+        nu = float(self.nu)
+        return (nu / ((1.0 + nu) * (1.0 - 2.0 * nu)),
+                1.0 / (2.0 * (1.0 + nu)))
+
+    def rows_needed(self) -> int:
+        """Rows of the coefficient block the law reads (0: none)."""
+        srcs = (self.E, self.d) if self.name == "asym_damage" else (self.E,)
+        return max([s[0] + s[1] for s in srcs if isinstance(s, tuple)] + [0])
+
+
+def _cell_scalar(src: CellScalar, cd, like):
+    if isinstance(src, tuple):
+        off, n = src
+        acc = cd[off]
+        for i in range(1, n):
+            acc = acc + cd[off + i]
+        return acc if n == 1 else acc * (1.0 / n)
+    return torch.as_tensor(float(src), dtype=like.dtype, device=like.device)
+
+
+def fused_elem_vectors(law: FusedLaw, u_blocks, cds):
+    """The hand-written element physics on tensors: ``u_blocks`` a tuple
+    of one or two (6, ...) dof blocks (row v*2+c), ``cds`` = (geometry
+    rows (7, ...), [coefficient rows (Dc, ...)]); returns the element
+    vectors (6, ...) -- gradient of the cell energy for one state,
+    Hessian-vector product for two. The CUDA kernel repeats these
+    operations in this order."""
+    geom = cds[0]
+    cd = cds[1] if len(cds) > 1 else None
+    dN = [[geom[v * 2 + d] for d in range(2)] for v in range(3)]
+    w = geom[6]
+
+    def strain(u):
+        g = [[u[c] * dN[0][d] + u[2 + c] * dN[1][d] + u[4 + c] * dN[2][d]
+              for d in range(2)] for c in range(2)]
+        return g[0][0], g[1][1], 0.5 * (g[0][1] + g[1][0])
+
+    klam, kmu = law.lame_factors()
+    E = _cell_scalar(law.E, cd, w)
+    lam, mu = E * klam, E * kmu
+    e = strain(u_blocks[0])
+    if law.name == "asym_damage":
+        d = _cell_scalar(law.d, cd, w)
+        if len(u_blocks) == 1:
+            s11, s22, s12 = asym_damage_stress_components(*e, d, lam, mu)
+        else:
+            s11, s22, s12 = asym_damage_stress_jvp_components(
+                *e, *strain(u_blocks[1]), d, lam, mu)
+    else:
+        t11, t22, t12 = e if len(u_blocks) == 1 else strain(u_blocks[1])
+        vol = lam * (t11 + t22)
+        s11 = vol + 2.0 * mu * t11
+        s22 = vol + 2.0 * mu * t22
+        s12 = 2.0 * mu * t12
+    rows = []
+    for v in range(3):
+        rows.append(w * (s11 * dN[v][0] + s12 * dN[v][1]))
+        rows.append(w * (s12 * dN[v][0] + s22 * dN[v][1]))
+    return torch.stack(rows)
+
+
+def _check_fused_shapes(values, idx, cell_data, law, nv):
+    C, R, L = values[0].shape
+    T, V, K, L2 = idx.shape
+    if len(values) not in (1, 2) or any(v.shape != values[0].shape
+                                        for v in values):
+        raise ValueError("lane_fused_elem: one or two states of one shape")
+    if C != 2 or V != 3 or nv != 3 or L != N_LANES or L2 != N_LANES:
+        raise NotImplementedError(
+            "lane_fused_elem has hand-written physics for the P1 triangle "
+            "with two displacement components only (C = 2, nv = 3)")
+    if not 1 <= len(cell_data) <= 2 or tuple(cell_data[0].shape) != (
+            T, 7, K, L):
+        raise ValueError("lane_fused_elem: cell_data[0] must be the "
+                         f"(T, 7, K, 128) geometry rows, T={T}, K={K}")
+    Dc = 0
+    if len(cell_data) == 2:
+        Dc = cell_data[1].shape[1]
+        if tuple(cell_data[1].shape) != (T, Dc, K, L):
+            raise ValueError("lane_fused_elem: cell_data[1] must be "
+                             "(T, Dc, K, 128) coefficient rows")
+    if law.rows_needed() > Dc:
+        raise ValueError(f"lane_fused_elem: {law} reads "
+                         f"{law.rows_needed()} coefficient rows, got {Dc}")
+    return C, R, T, K, Dc
+
+
+def lane_fused_elem_plain(values, starts, idx, cell_data, law: FusedLaw, *,
+                          wr: int, nv: int):
+    """Plain version of :func:`lane_fused_elem`: the plain gather, the
+    physics of :func:`fused_elem_vectors`, and one ``scatter_add_`` per
+    (k, v), k-outer and v-inner -- every call has at most one source per
+    destination, so the sum order is exactly the kernel's."""
+    values, cell_data = tuple(values), tuple(cell_data)
+    C, _R, T, K, _Dc = _check_fused_shapes(values, idx, cell_data, law, nv)
+    L = N_LANES
+    u_blocks = tuple(
+        lane_gather_cm_plain(v, starts, idx, wr=wr, n_ch=C * nv)
+        for v in values)  # each (nv*C, T, K, L)
+    ev = fused_elem_vectors(
+        law, u_blocks, tuple(cd.permute(1, 0, 2, 3) for cd in cell_data))
+    ii = idx.to(torch.int64)
+    ii = torch.where((ii >= 0) & (ii < wr), ii,
+                     torch.full_like(ii, wr))  # dump row
+    out = torch.zeros((C, T, wr + 1, L), dtype=ev.dtype, device=ev.device)
+    for k in range(K):
+        for v in range(nv):
+            dest = ii[:, v, k, :].view(1, T, 1, L).expand(C, T, 1, L)
+            out.scatter_add_(2, dest, ev[v * C:(v + 1) * C, :, k:k + 1, :])
+    return out[:, :, :wr, :].contiguous().permute(1, 0, 2, 3)
+
+
+def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
+                    wr: int, nv: int):
+    """Fused gather -> element function -> bin scatter, one pass over the
+    cell data: neither the gathered dofs nor the element vectors touch
+    global memory.
+
+    values: tuple of state tensors, each (C, R, 128) -- ``(u,)`` gives the
+      element gradient (residual), ``(u, v)`` the Hessian-vector product
+      (tangent action). All share ``starts`` / ``idx``.
+    starts (T,) int32 window row starts; idx (T, nv, K, 128) in [-1, wr).
+    cell_data: ``(geometry,)`` or ``(geometry, coefficients)``: the
+      (T, 7, K, 128) rows dN[v][d] at v*2+d then the weight, and the
+      (T, Dc, K, 128) coefficient rows ``law`` points into.
+    law: the hand-written physics (:class:`FusedLaw`) -- the reference
+      traces an ``elem_fn`` into its kernel here.
+
+    Returns the (T, C, wr, 128) bin partials
+      out[t,c,r,j] = sum_{k,v: idx[t,v,k,j]==r} ev[v*C+c, k, j]
+    as a view of channel-leading (C, T, wr, 128) storage, so
+    ``out.permute(1, 0, 2, 3)`` is contiguous and free.
+    """
+    values, cell_data = tuple(values), tuple(cell_data)
+    if values[0].device.type != "cuda":
+        return lane_fused_elem_plain(values, starts, idx, cell_data, law,
+                                     wr=wr, nv=nv)
+    dev = values[0].device
+    vdt = values[0].dtype
+    for i, v in enumerate(values):
+        _check(f"values[{i}]", v, device=dev, dtypes=(vdt,))
+    _check("values[0]", values[0], device=dev, dtypes=_VT)
+    _check("idx", idx, device=dev, dtypes=_IT)
+    for i, cd in enumerate(cell_data):
+        _check(f"cell_data[{i}]", cd, device=dev, dtypes=(vdt,))
+    C, R, T, K, Dc = _check_fused_shapes(values, idx, cell_data, law, nv)
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+
+    def src(s):  # (offset, rows, constant) of a CellScalar
+        return (s[0], s[1], 0.0) if isinstance(s, tuple) else (0, 0, float(s))
+
+    klam, kmu = law.lame_factors()
+    out = torch.empty((C, T, wr, N_LANES), dtype=vdt, device=dev)
+    lib = _build.load()
+    code = lib.lane_fused_elem(
+        _VT[vdt], _IT[idx.dtype], _LAWS[law.name], len(values),
+        values[0].data_ptr(),
+        values[1].data_ptr() if len(values) == 2 else None,
+        starts.data_ptr(), idx.data_ptr(), cell_data[0].data_ptr(),
+        cell_data[1].data_ptr() if Dc else None, out.data_ptr(),
+        R, T, K, int(wr), Dc, *src(law.d), *src(law.E), klam, kmu,
+        _stream(dev),
+    )
+    _raise_on(code, "lane_fused_elem")
+    lane_fused_elem.launches += 1
+    return out.permute(1, 0, 2, 3)
 
 
 reset_launch_counts()
