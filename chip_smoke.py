@@ -15,19 +15,31 @@ prints one JSON line per phase:
                    card, at the shapes of the n = 1024 polycrystal plan
                    (float32/float64 values, int8/int32 indices, both modes
                    of the pass kernel; the fused element kernel in both
-                   modes and both laws), with times and the bound
+                   modes and both laws; the weighted gather at the
+                   two-level restriction and prolongation tables), with
+                   times and the bound
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
-                   the fused engine against the staged one and the Assembler
-5. ``solve_small`` polycrystal n = 256, Jacobi, to convergence, staged and
-                   fused (same Newton count)
+                   the fused engine against the staged one and the
+                   Assembler; one two-level cycle on the card against the
+                   same cycle on the CPU (plain versions)
+5. ``solve_small`` polycrystal n = 256 to convergence: Jacobi staged and
+                   fused (same Newton count), and fused + two-level
 6. ``solve_full``  polycrystal n = 1024 (about 2.1 M dofs), 200 grains, a few
-                   Newton steps, staged, twice: the kernels' launch counts,
-                   the phase table, and a bitwise equal residual trajectory
+                   Newton steps, staged, Jacobi, twice: the kernels' launch
+                   counts, the phase table, a bitwise equal residual
+                   trajectory
 7. ``solve_full_fused`` the same solve through ``LaneEngine(fused=True)``,
                    twice: launch counts of the fused path, a bitwise equal
                    residual trajectory, and one CG iteration of either
                    engine under the profiler (launches and device time)
+8. ``solve_full_twolevel`` n = 1024 through ``polycrystal.run``'s defaults
+                   (fused engine, two-level preconditioner) TO CONVERGENCE,
+                   twice: bitwise equal residual trajectory, CG counts and
+                   u; launch counts (two weighted gathers per application
+                   of the preconditioner), the phase table with the
+                   two-level set-up, peak memory, and one CG iteration
+                   split into its parts under the profiler
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -58,6 +70,7 @@ from tpufem_torch.forms import EnergyFunctional, asym_damage_psi  # noqa: E402
 from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
 from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
+from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.mesh import unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
@@ -72,7 +85,7 @@ N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
-          "solve_full_fused")
+          "solve_full_fused", "solve_full_twolevel")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -190,6 +203,19 @@ shapes = dict(C=C, V=V_, G=G, kc=kc, wg=wg, wg_own=p.wg_own, R=p.R,
               host_setup_seconds=time.perf_counter() - t0)
 check(eng_full._owner_idx is not None and eng_full._refresh_idx is not None,
       "the n=1024 plan has no owner/refresh passes")
+# the two-level geometry of that engine: K5's tables at full width
+t0 = time.perf_counter()
+tl_static, tl_geo = TL.build_twolevel_geo(eng_full, {"d": d_full, "E": E_full})
+torch.cuda.synchronize()
+shapes.update(
+    twolevel_setup_seconds=time.perf_counter() - t0,
+    twolevel={k: getattr(tl_static, k) for k in ("SC", "WRp", "WRr", "Kc",
+                                                 "ncx", "ncy", "Rv")},
+    p_idx=[list(tl_geo["p_idx"].shape), str(tl_geo["p_idx"].dtype)],
+    r_idx=[list(tl_geo["r_idx"].shape), str(tl_geo["r_idx"].dtype)],
+    o_dst=int(tl_geo["o_dst"].numel()),
+    mg_levels=[list(L.u_lin.shape) for L in tl_geo["mg_data"].levels],
+    mg_coarse=list(tl_geo["mg_data"].coarse_inv.shape))
 
 gen = torch.Generator(device=DEV)
 gen.manual_seed(1234)
@@ -381,10 +407,81 @@ for vdt in (torch.float32, torch.float64):
                 del out, ref
         del values, u4, v4, geom4, cd4
 
+# K5 lane_gather_weighted: the two-level restriction (fine lane vector ->
+# coarse view rows; int32 indices, the window is 288 rows) and
+# prolongation (view rows -> fine bins; int8 indices, also widened to
+# int32) tables of the n = 1024 engine. The kernel sums v ascending as the
+# plain version does and the library is built without fused
+# multiply-adds: the tolerance is 0, exactly equal.
+K5_CASES = {
+    "restrict": (tl_geo["r_starts"], tl_geo["r_idx"], tl_geo["r_wts"],
+                 (C, p.R, 128), tl_static.WRr, (torch.int32,)),
+    "prolong": (tl_geo["p_starts"], tl_geo["p_idx"], tl_geo["p_wts"],
+                (C, tl_static.Rv, 128), tl_static.WRp,
+                (torch.int8, torch.int32)),
+}
+for vdt in (torch.float32, torch.float64):
+    for which, (st5, ix5, w5, vshape, wr5, idts) in K5_CASES.items():
+        for idt in idts:
+            main = vdt == torch.float32 and idt == ix5.dtype
+            vals = torch.randn(vshape, dtype=vdt, device=DEV, generator=gen)
+            ix, w = ix5.to(idt), w5.to(vdt)
+            args = (vals, st5, ix, w)
+            out = K.lane_gather_weighted(*args, wr=wr5)
+            torch.cuda.synchronize()
+            ref = K.lane_gather_weighted_plain(*args, wr=wr5)
+            err = float((out - ref).abs().max())
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"lane_gather_weighted {which} {vdt} {idt}: {err}")
+            check(out.permute(1, 0, 2, 3).is_contiguous(),
+                  "lane_gather_weighted: output layout")
+            if not main:
+                record("lane_gather_weighted", err, None, None, None, None)
+                continue
+            ms = time_ms(lambda: K.lane_gather_weighted(*args, wr=wr5), 20)
+            pms = time_ms(lambda: K.lane_gather_weighted_plain(*args, wr=wr5),
+                          3)
+            b = nbytes(vals, st5, ix, w, out)
+            # yardstick (two PyTorch calls, not one: no library_ms): a
+            # torch.gather over int64 global indices expanded outside the
+            # timing (-1 -> an appended 0), then the weighted sum over v
+            T5, V5, K5, _ = ix.shape
+            ii = ix.to(torch.int64)
+            lane = torch.arange(128, device=DEV)
+            flat = (st5.to(torch.int64).view(T5, 1, 1, 1) + ii) * 128 + lane
+            flat = torch.where(ii >= 0, flat,
+                               torch.full_like(flat, vshape[1] * 128))
+            flat = flat.reshape(1, -1).expand(C, -1)
+            vext = torch.cat([vals.reshape(C, -1), vals.new_zeros((C, 1))], 1)
+
+            def gather_sum():
+                g = torch.gather(vext, 1, flat).reshape(C, T5, V5, K5, 128)
+                return (g * w).sum(2)
+
+            yard = gather_sum().permute(1, 0, 2, 3)
+            check(float((yard - ref).abs().max())
+                  <= 1e-5 * float(ref.abs().max()),
+                  "gather-sum yardstick disagrees")
+            yms = time_ms(gather_sum, 10)
+            del flat, vext, ii, yard
+            if which == "restrict":
+                record("lane_gather_weighted", err, ms, pms, b, None,
+                       gather_sum_yardstick_ms=yms, shape="restrict",
+                       idx_dtype=str(idt))
+            else:
+                results["lane_gather_weighted"].update(
+                    prolong_ms=ms, prolong_plain_ms=pms,
+                    prolong_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                    prolong_bound_bytes=b,
+                    prolong_gather_sum_yardstick_ms=yms)
+                record("lane_gather_weighted", err, None, None, None, None)
+            del out, ref, vals
+
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
-     tolerance="exactly equal (0) for lane_gather_cm, lane_scatter_cm and "
-               "lane_pass_update; lane_fused_elem max |kernel - plain| <= "
-               "1e-12 (float64) / 1e-5 (float32) of max |plain|")
+     tolerance="exactly equal (0) for lane_gather_cm, lane_scatter_cm, "
+               "lane_pass_update and lane_gather_weighted; lane_fused_elem "
+               "max |kernel - plain| <= 1e-12 (float64) / 1e-5 (float32) of "
+               "max |plain|")
 torch.cuda.empty_cache()
 
 # -- 4. engine against the flat assembler (n = 64, float64) ---------------------
@@ -449,9 +546,40 @@ for name, (lane_val, (staged_val, flat_val)) in fused_pairs.items():
         engine_out[f"{name}_vs_{other}"] = rel
     check(torch.equal(eng_f.refresh_copies(lane_val), lane_val),
           f"engine {name}: copy slots differ from their owners")
+# one two-level cycle on the card (K5, the selector products on the card,
+# the lattice V-cycle) against the same cycle run by the plain versions on
+# the CPU, staged and fused; float64, different summation orders in the
+# matrix products and reductions: rel <= 1e-10
+cpu = dict(device="cpu", dtype=torch.float64)
+F_c = EnergyFunctional(F_e.space, F_e.terms, F_e.coefficients, **cpu)
+eng_c = LaneEngine(F_c, bcs_e, plan=eng_e.plan, **cpu)
+eng_cf = LaneEngine(F_c, bcs_e, plan=eng_e.plan, fused=True, **cpu)
+r_e = rng.standard_normal(V_e.n_dofs)
+tl_rel = {}
+for tag, (eg, ec) in {"staged": (eng_e, eng_c),
+                      "fused": (eng_f, eng_cf)}.items():
+    out = []
+    for eng in (eg, ec):
+        cc = eng.prepare_coeffs({"d": d_e})
+        st, data = TL.build_twolevel(eng, eng.bc_lane, cc, {"d": d_e})
+        if eng is eg:
+            K.reset_launch_counts()
+        z = TL.precondition(eng, st, data, eng.bc_lane, cc, eng.free_lane,
+                            eng.to_lane(r_e) * eng.free_lane)
+        if eng is eg:
+            torch.cuda.synchronize()
+            check(K.launch_counts()["lane_gather_weighted"] == 2,
+                  f"two-level cycle on the card: {K.launch_counts()}")
+        out.append(eng.from_lane(z))
+    rel = float(np.abs(out[0] - out[1]).max() / np.abs(out[1]).max())
+    check(rel <= 1e-10, f"engine twolevel {tag}: card vs CPU rel {rel}")
+    tl_rel[f"twolevel_precondition_{tag}_card_vs_cpu"] = rel
+engine_out.update(tl_rel)
 emit("engine", n=N_ENGINE, dtype="float64", rel_err=engine_out,
-     fused_law=str(eng_f.fused_law), tolerance=1e-12)
-del eng_e, eng_f, asm_e
+     fused_law=str(eng_f.fused_law),
+     tolerance="1e-12 (engine vs assembler, fused vs staged); 1e-10 (one "
+               "two-level cycle, card vs CPU)")
+del eng_e, eng_f, asm_e, eng_c, eng_cf
 
 # -- 5. small solve to convergence, staged and fused ------------------------------
 
@@ -460,14 +588,17 @@ del eng_e, eng_f, asm_e
 # rounding; one decade above it is met with room to spare
 cfg_small = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
                          newton_maxit=10, preconditioner="jacobi")
+cfg_small_tl = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
+                            newton_maxit=10, preconditioner="twolevel")
 mesh_small = polycrystal.generate_polycrystal(N_SMALL, n_grains=200)
 small = {}
-for fused in (False, True):
+for tag, fused, cfg in (("staged", False, cfg_small),
+                        ("fused", True, cfg_small),
+                        ("fused_twolevel", True, cfg_small_tl)):
     t0 = time.perf_counter()
     res_s = polycrystal.run(N_SMALL, fused=fused, device=DEV, mesh=mesh_small,
-                            solver=cfg_small)
+                            solver=cfg)
     st = res_s.stats
-    tag = "fused" if fused else "staged"
     small[tag] = dict(
         converged=st["converged"], newton_iters=st["newton_iters"],
         cg_iters=st["cg_iters"], residuals=st["residuals"],
@@ -485,15 +616,23 @@ for fused in (False, True):
     small[tag]["u"] = res_s.u_flat
 check(small["fused"]["newton_iters"] == small["staged"]["newton_iters"],
       "solve_small: fused and staged take different Newton counts")
-u_st, u_fu = small["staged"].pop("u"), small["fused"].pop("u")
-# both stop at newton_rtol = 1e-5 in float32: they agree to that order
-u_rel = float(np.abs(u_fu - u_st).max() / np.abs(u_st).max())
-check(u_rel <= 1e-3, f"solve_small: fused vs staged u rel {u_rel}")
-check(abs(small["fused"]["energy"] - small["staged"]["energy"])
-      <= 1e-4 * abs(small["staged"]["energy"]),
-      "solve_small: fused and staged energies differ")
+u_st = small["staged"].pop("u")
+u_rels = {}
+for tag in ("fused", "fused_twolevel"):
+    # all stop at newton_rtol = 1e-5 in float32: they agree to that order
+    u_rels[tag] = float(np.abs(small[tag].pop("u") - u_st).max()
+                        / np.abs(u_st).max())
+    check(u_rels[tag] <= 1e-3, f"solve_small: {tag} vs staged u rel "
+          f"{u_rels[tag]}")
+    check(abs(small[tag]["energy"] - small["staged"]["energy"])
+          <= 1e-4 * abs(small["staged"]["energy"]),
+          f"solve_small: {tag} and staged energies differ")
+JACOBI_CG_N256 = sum(small["fused"]["cg_iters"])
 emit("solve_small", n=N_SMALL, n_dofs=res_s.n_dofs, dtype="float32",
-     fused_vs_staged_u_rel=u_rel, **small)
+     u_rel_vs_staged=u_rels,
+     cg_total=dict(jacobi=JACOBI_CG_N256,
+                   twolevel=sum(small["fused_twolevel"]["cg_iters"])),
+     **small)
 del res_s, mesh_small
 
 # -- 6./7. full-width solve, staged and fused, each twice -------------------------
@@ -599,7 +738,92 @@ emit("solve_full_fused", **out_fused,
                  cg_iters=out_staged["cg_iters"],
                  peak_device_bytes=out_staged["peak_device_bytes"]),
      cg_iteration_profile=prof)
-del eng_staged, eng_full
+del eng_staged
+
+# -- 8. full-width solve to convergence: polycrystal.run's defaults ----------
+
+# fused engine + two-level preconditioner, cg_chunk 20, float32, to
+# newton_rtol = 1e-5 (float32 stops improving near 1e-6 * r0). Should
+# float32 stall above it, the phase solves in float64 instead and says so.
+cfg_tl = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-5, cg_maxit=20000,
+                      newton_maxit=20, preconditioner="twolevel")
+
+
+def run_full_twolevel(dtype, postprocess):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = polycrystal.run(N_FULL, n_grains=200, device=DEV, mesh=mesh_full,
+                        plan=p, solver=cfg_tl, dtype=dtype,
+                        postprocess_fields=postprocess)
+    return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+tl_dtype, float32_attempt = torch.float32, None
+runs = []
+for i in range(2):
+    if i == 0:
+        K.reset_launch_counts()
+    r = run_full_twolevel(tl_dtype, i == 0)
+    if i == 0 and not r[0].stats["converged"]:
+        float32_attempt = dict(residuals=r[0].stats["residuals"],
+                               cg_iters=r[0].stats["cg_iters"])
+        tl_dtype = torch.float64
+        K.reset_launch_counts()
+        r = run_full_twolevel(tl_dtype, True)
+    if i == 0:
+        launches_tl = K.launch_counts()
+    runs.append(r)
+(r_tl, secs0, peak0), (r_tl1, secs1, _) = runs
+st_tl = r_tl.stats
+check(st_tl["converged"] and r_tl1.stats["converged"],
+      f"solve_full_twolevel did not converge: {st_tl['residuals']}")
+check(st_tl["residuals"] == r_tl1.stats["residuals"]
+      and st_tl["final_residual"] == r_tl1.stats["final_residual"]
+      and st_tl["cg_iters"] == r_tl1.stats["cg_iters"],
+      "solve_full_twolevel: residual trajectory differs between two runs")
+check(np.array_equal(r_tl.u_flat, r_tl1.u_flat),
+      "solve_full_twolevel: solution differs bitwise between two runs")
+check(np.isfinite(r_tl.u_flat).all() and np.isfinite(r_tl.energy)
+      and np.isfinite(r_tl.stress).all(), "solve_full_twolevel: non-finite")
+check(r_tl.u_flat.shape == (2 * (N_FULL + 1) ** 2,),
+      "solve_full_twolevel: bad shape")
+uu = r_tl.u_flat.reshape(-1, 2)
+check(np.allclose(uu[np.abs(r_tl.mesh.x[:, 0] - 1) < 1e-9, 0], 0.01,
+                  atol=1e-6), "solve_full_twolevel: Dirichlet values lost")
+# two weighted gathers (restriction, prolongation) per application of the
+# preconditioner: every CG iteration enqueued (the frozen tail of the last
+# chunk too) and one z0 per Newton step that ran CG
+n_precond = sum(st_tl["cg_enqueued"]) + len(st_tl["cg_iters"])
+check(launches_tl["lane_gather_weighted"] == 2 * n_precond,
+      f"solve_full_twolevel: {launches_tl['lane_gather_weighted']} weighted "
+      f"gathers for {n_precond} preconditioner applications")
+check(all(v > 0 for v in launches_tl.values()),
+      f"solve_full_twolevel: a kernel of the path was not launched: "
+      f"{launches_tl}")
+total_tl = st_tl["total_cg_iters"]
+cg_ratio = JACOBI_CG_N256 / max(total_tl, 1)
+check(cg_ratio >= 5.0, f"solve_full_twolevel: {total_tl} CG iterations at "
+      f"n = {N_FULL} against {JACOBI_CG_N256} of Jacobi at n = {N_SMALL}")
+prof_tl = cg_profile.profile_cg_iteration(eng_full, cc_full, 20,
+                                          twolevel=(tl_static, tl_geo))
+check(prof_tl["lane_kernel_launches_per_iter"]["lane_gather_weighted"] == 2.0,
+      f"profile: weighted gathers per two-level CG iteration: {prof_tl}")
+emit("solve_full_twolevel", n=N_FULL, n_grains=200, n_dofs=r_tl.n_dofs,
+     dtype=str(tl_dtype).replace("torch.", ""),
+     float32_attempt=float32_attempt, fused=True, preconditioner="twolevel",
+     newton_rtol=cfg_tl.newton_rtol, converged=True,
+     newton_iters=st_tl["newton_iters"], cg_iters=st_tl["cg_iters"],
+     cg_enqueued=st_tl["cg_enqueued"], total_cg_iters=total_tl,
+     jacobi_total_cg_n256=JACOBI_CG_N256, jacobi_over_twolevel=cg_ratio,
+     residuals=st_tl["residuals"], final_residual=st_tl["final_residual"],
+     energy=r_tl.energy,
+     ms_per_cg_iter=1e3 * st_tl["cg_seconds"] / max(total_tl, 1),
+     twolevel_setup_seconds=st_tl["twolevel_setup_seconds"],
+     launches=launches_tl, preconditioner_applications=n_precond,
+     bitwise_equal_runs=True, seconds=[secs0, secs1],
+     peak_device_bytes=peak0, timings=r_tl.timings,
+     cg_iteration_profile=prof_tl)
+del r_tl, r_tl1, runs, eng_full
 
 # -- summary ------------------------------------------------------------------
 
@@ -608,24 +832,26 @@ REPLACES = {
     "lane_scatter_cm": "tpufem/lane/kernels.py:258",
     "lane_pass_update": "tpufem/lane/kernels.py:356",
     "lane_fused_elem": "tpufem/lane/kernels.py:521",
+    "lane_gather_weighted": "tpufem/lane/kernels.py:568",
 }
 summary = []
 for name, r in results.items():
-    # launches: on the staged solve for the staged kernels, on the fused
-    # solve for the fused kernel; both counts are listed
-    on_fused = name == "lane_fused_elem"
+    # launches: on the main path, polycrystal.run's defaults (fused +
+    # two-level, phase solve_full_twolevel); the Jacobi solves' counts
+    # are listed beside them
     entry = dict(
         name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
-        replaces=REPLACES[name],
-        launches=(launches_fused if on_fused else launches)[name],
+        replaces=REPLACES[name], launches=launches_tl[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"],
-        launches_staged_solve=launches[name],
-        launches_fused_solve=launches_fused[name],
+        launches_staged_jacobi_solve=launches[name],
+        launches_fused_jacobi_solve=launches_fused[name],
     )
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
-              "jvp_ms", "jvp_plain_ms", "jvp_bound_ms"):
+              "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
+              "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
+              "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

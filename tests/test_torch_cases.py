@@ -1,6 +1,8 @@
 """tpufem_torch.cases.polycrystal.run and the CLI on the CPU (float64):
-the port's own entry points end to end at a tiny size, what they refuse
-for now, and that nothing runs on the CPU unless it was asked to."""
+the port's own entry points end to end at a tiny size (by default the
+fused engine with the two-level preconditioner, as in the reference),
+what they refuse for now, and that nothing runs on the CPU unless it was
+asked to."""
 
 import numpy as np
 import pytest
@@ -39,16 +41,17 @@ def test_run_entry_point_small():
 
 
 def test_run_fused_entry_point_matches_staged():
-    """``run(fused=True)`` and the CLI's ``--fused``: the same solve through
-    the fused element kernel's plain version -- same Newton count as the
-    staged run, CG counts within +-1 (the exit test compares a rounded
-    residual with a tolerance), u rel <= 1e-9 (float64)."""
+    """``run(fused=True)`` (the default) and ``run(fused=False)`` with the
+    CLI's ``--fused`` / ``--no-fused``: the same Jacobi solve through the
+    fused element kernel's plain version and through the staged pipeline
+    -- same Newton count, CG counts within +-1 (the exit test compares a
+    rounded residual with a tolerance), u rel <= 1e-9 (float64)."""
     kw = dict(n_grains=6, smooth_iters=4, use_volume=False,
               postprocess_fields=False,
               solver=TSolverConfig(cg_rtol=1e-10, cg_maxit=2000), **F64)
     mesh = t_poly.generate_polycrystal(12, n_grains=6)
     staged = t_poly.run(12, mesh=mesh, fused=False, **kw)
-    fused = t_poly.run(12, mesh=mesh, fused=True, **kw)
+    fused = t_poly.run(12, mesh=mesh, **kw)
     assert fused.stats["converged"]
     assert fused.stats["newton_iters"] == staged.stats["newton_iters"]
     assert all(abs(a - b) <= 1 for a, b in zip(fused.stats["cg_iters"],
@@ -59,18 +62,50 @@ def test_run_fused_entry_point_matches_staged():
 
     from tpufem_torch.cli import build_parser
 
-    args = build_parser().parse_args(["polycrystal", "-n", "8", "--fused"])
-    assert args.fused and not build_parser().parse_args(
-        ["polycrystal", "-n", "8"]).fused
+    ap = build_parser()
+    assert ap.parse_args(["polycrystal", "-n", "8"]).fused
+    assert ap.parse_args(["polycrystal", "-n", "8", "--fused"]).fused
+    assert not ap.parse_args(["polycrystal", "-n", "8", "--no-fused"]).fused
+
+
+def test_run_defaults_to_fused_twolevel_like_the_reference():
+    """``run``'s defaults are the reference's: the fused engine and CG
+    preconditioned by the two-level cycle (cg_chunk 20), with its set-up
+    as a row of the phase table. It reaches the Jacobi solution with far
+    fewer CG iterations; the CLI's ``--pc`` defaults to twolevel."""
+    import inspect
+
+    sig = inspect.signature(t_poly.run)
+    assert sig.parameters["fused"].default is True
+    kw = dict(n_grains=6, smooth_iters=4, use_volume=False,
+              postprocess_fields=False, **F64)
+    mesh = t_poly.generate_polycrystal(12, n_grains=6)
+    tl = t_poly.run(12, mesh=mesh, solver=TSolverConfig(
+        cg_rtol=1e-10, cg_maxit=2000, preconditioner="twolevel"), **kw)
+    jac = t_poly.run(12, mesh=mesh, solver=TSolverConfig(
+        cg_rtol=1e-10, cg_maxit=2000, preconditioner="jacobi"), **kw)
+    assert tl.stats["converged"] and jac.stats["converged"]
+    assert tl.stats["newton_iters"] == jac.stats["newton_iters"]
+    assert np.abs(tl.u_flat - jac.u_flat).max() <= 1e-9 * np.abs(
+        jac.u_flat).max()
+    assert 3 * tl.stats["total_cg_iters"] < jac.stats["total_cg_iters"]
+    assert "7.3.1 two-level set-up (in 7.3)" in tl.timings
+    assert "7.3.1 two-level set-up (in 7.3)" not in jac.timings
+
+    from tpufem_torch.cli import build_parser
+
+    ap = build_parser()
+    assert ap.parse_args(["polycrystal", "-n", "8"]).pc == "twolevel"
+    assert ap.parse_args(["polycrystal", "--pc", "jacobi"]).pc == "jacobi"
 
 
 @pytest.mark.parametrize("kw", [
-    # fused alone is ported; with the reference's default preconditioner
-    # (fused + twolevel) it still is not
-    dict(fused=True, solver=TSolverConfig(preconditioner="twolevel")),
+    # fused and twolevel are ported; a preconditioner the lane solver does
+    # not have, and the mixed-precision solver with two-level, are not
+    dict(fused=True, solver=TSolverConfig(preconditioner="amg")),
     dict(mixed=True), dict(gmsh_roundtrip=True),
     dict(output_path="x"), dict(checkpoint_path="x"),
-    dict(solver=TSolverConfig(preconditioner="twolevel")),
+    dict(mixed=True, solver=TSolverConfig(preconditioner="twolevel")),
 ], ids=["fused", "mixed", "gmsh_roundtrip", "output_path",
         "checkpoint_path", "twolevel"])
 def test_run_unported_options_raise(kw):

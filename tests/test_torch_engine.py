@@ -223,7 +223,11 @@ def test_unported_paths_raise(setup):
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_poly.run(8, mixed=True, **F64)
+    # the two-level preconditioner is ported; a preconditioner the lane
+    # solver does not have is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.make_solver(SolverConfig(preconditioner="amg"))
+    with pytest.raises(ValueError, match="fine_coeffs"):
         eng.make_solver(SolverConfig(preconditioner="twolevel"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.make_mixed_solver()

@@ -118,9 +118,13 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     out = tk.lane_fused_elem((x,), torch.tensor([0, 8], dtype=torch.int32),
                              idx, (geom,), law, wr=8, nv=3)
     assert out.shape == (2, 2, 8, L)
+    wts = torch.from_numpy(rng.standard_normal((2, 3, 8, L)))
+    out = tk.lane_gather_weighted(x, torch.tensor([0, 8], dtype=torch.int32),
+                                  idx, wts, wr=8)
+    assert out.shape == (2, 2, 8, L)
     assert tk.launch_counts() == {
         "lane_gather_cm": 0, "lane_scatter_cm": 0, "lane_pass_update": 0,
-        "lane_fused_elem": 0}
+        "lane_fused_elem": 0, "lane_gather_weighted": 0}
 
 
 def test_kernel_sources_present():
@@ -131,5 +135,6 @@ def test_kernel_sources_present():
 
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"lane_gather_cm.cu", "lane_scatter_cm.cu",
-            "lane_pass_update.cu", "lane_fused_elem.cu"} <= names
+            "lane_pass_update.cu", "lane_fused_elem.cu",
+            "lane_gather_weighted.cu"} <= names
     assert any("sm_90a" in f for f in _build.ARCH_FLAGS)

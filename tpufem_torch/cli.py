@@ -1,6 +1,6 @@
 """Runtime command-line interface of the port.
 
-    python -m tpufem_torch polycrystal -n 1024 --pc jacobi [--fused]
+    python -m tpufem_torch polycrystal -n 1024 [--pc jacobi] [--no-fused]
 
 Only the ``polycrystal`` subcommand is ported so far. It runs on the GPU
 (``--device cuda``, the default) and exits with an error if there is
@@ -27,9 +27,10 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
                    help="CG relative tolerance (default 1e-12)")
     g.add_argument("--cg-maxit", type=int, default=2000,
                    help="CG max iterations (default 2000)")
-    g.add_argument("--pc", default="jacobi", choices=["jacobi", "twolevel"],
-                   help="preconditioner (default jacobi until the two-level "
-                        "cycle is ported: twolevel raises)")
+    g.add_argument("--pc", default="twolevel", choices=["jacobi", "twolevel"],
+                   help="preconditioner of the lane CG (default twolevel: "
+                        "the lattice-coarse two-level cycle, as in the "
+                        "reference)")
 
 
 def _solver_config(args):
@@ -91,10 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference: 8*(MAX_REFINE+1))")
     p.add_argument("--wg-own", type=int, default=16)
     p.add_argument("--ecst", action="store_true")
-    p.add_argument("--fused", action="store_true",
+    p.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                   default=True,
                    help="residual and CG operator through the fused element "
-                        "kernel lane_fused_elem instead of the staged "
-                        "gather / physics / scatter pipeline")
+                        "kernel lane_fused_elem (default); --no-fused runs "
+                        "the staged gather / physics / scatter pipeline")
     _add_solver_flags(p)
     p.set_defaults(fn=_cmd_polycrystal)
     return ap

@@ -54,7 +54,8 @@ class SolverConfig:
     newton_rtol: float = 1.0e-7
     newton_atol: float = 5.0e-8
     newton_maxit: int = 10
-    # 'jacobi' is the only preconditioner this package has so far;
-    # 'twolevel' raises NotImplementedError in the lane solver
+    # the lane solver's preconditioner: 'jacobi' or 'twolevel' (the
+    # lattice-coarse two-level cycle, lane/twolevel.py); other names of
+    # the reference (amg, chebyshev, mg, ...) raise NotImplementedError
     preconditioner: str = "jacobi"
     verbose: bool = False

@@ -135,5 +135,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.lane_fused_elem.argtypes = [
             ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
             ci, ci, cd, ci, ci, cd, cd, cd, vp]
+        lib.lane_gather_weighted.restype = ci
+        lib.lane_gather_weighted.argtypes = [
+            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         _lib = lib
         return _lib

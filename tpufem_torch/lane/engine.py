@@ -32,10 +32,11 @@ per-cell Hessian is stored. The kernel's physics is written by hand
 evaluates, proves the match on probe cells at construction, and raises
 ``NotImplementedError`` for anything the kernel has no law for.
 
-The multi-quadrature-point specialization, facet terms, the two-level
-preconditioner and the mixed-precision solver are not ported yet and
-raise ``NotImplementedError`` -- nothing falls back silently to another
-path.
+``make_solver`` preconditions CG with Jacobi or with the two-level
+lattice cycle (``lane.twolevel``); either way the CG operator is
+``make_tangent``. The multi-quadrature-point specialization, facet terms
+and the mixed-precision solver are not ported yet and raise
+``NotImplementedError`` -- nothing falls back silently to another path.
 """
 
 from __future__ import annotations
@@ -863,8 +864,9 @@ class LaneEngine:
     # -- solver -------------------------------------------------------------------
 
     def make_solver(self, cfg: Optional[SolverConfig] = None, *,
-                    cg_chunk: int = 100, const_residual=None):
-        """Chunked Newton-Krylov on the lane layout, Jacobi-preconditioned.
+                    cg_chunk: int = 100, fine_coeffs=None, twolevel_nc=None,
+                    const_residual=None):
+        """Chunked Newton-Krylov on the lane layout.
 
         ``cg_chunk`` CG iterations are enqueued between two reads of the
         device state; the tolerance is tested EVERY iteration on the
@@ -872,24 +874,31 @@ class LaneEngine:
         device iteration counter), so the exit iteration is set by the
         math and does not depend on ``cg_chunk``.
 
-        With a fused engine the residual and the CG operator are the
-        fused kernel (the operator in its Hessian-vector mode on the
-        frozen ``u``); the Jacobi diagonal still comes from one
-        ``linearize`` per Newton step.
+        ``cfg.preconditioner``: ``'jacobi'`` or ``'twolevel'`` -- the
+        lattice-coarse two-level cycle (``lane.twolevel``), which needs
+        ``fine_coeffs`` (flat coefficient vectors, for lattice sampling)
+        and takes ``twolevel_nc`` lattice cells per side. Its geometry is
+        built once per solver; its smoother data once per Newton step,
+        from that step's Jacobi diagonal and CG operator.
 
-        ``cfg.preconditioner == 'twolevel'`` is not ported yet."""
+        The CG operator (and, under ``'twolevel'``, the smoother's) is
+        ``make_tangent``: the fused kernel in Hessian-vector mode on the
+        frozen ``u`` for a fused engine, the stored per-cell Hessian for
+        a staged one. The reference applies the staged element JVP under
+        ``'twolevel'``, the same operator to rounding. The Jacobi
+        diagonal comes from one ``linearize`` per Newton step."""
         cfg = cfg or SolverConfig()
         eng = self
-        if cfg.preconditioner == "twolevel":
+        use_tl = cfg.preconditioner == "twolevel"
+        if cfg.preconditioner not in ("jacobi", "twolevel"):
             raise NotImplementedError(
-                "preconditioner='twolevel' needs lane_gather_weighted and "
-                "lane/twolevel.py, not ported yet (ROADMAP.md: slice 3, K5)"
+                f"lane solver preconditioner {cfg.preconditioner!r}: the "
+                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md: "
+                "linear algebra, la/ beyond chebyshev_iterate)"
             )
-        if cfg.preconditioner != "jacobi":
-            raise NotImplementedError(
-                f"lane solver preconditioner {cfg.preconditioner!r}; "
-                "'jacobi' is the one ported so far"
-            )
+        if use_tl and fine_coeffs is None:
+            raise ValueError("twolevel needs fine_coeffs")
+        _tl = {}  # two-level geometry, built at the first Newton step
         _cr = None if const_residual is None else torch.as_tensor(
             const_residual, device=eng.device
         )
@@ -908,7 +917,7 @@ class LaneEngine:
             return torch.where(d != 0, 1.0 / torch.where(d == 0, one, d),
                                one)
 
-        def cg_chunk_fn(nsteps, A, dinv, state, tol2):
+        def cg_chunk_fn(nsteps, A, M, state, tol2):
             """``nsteps`` preconditioned CG iterations, all enqueued
             without a host read. Once rr2 <= tol2 the step coefficients
             become (alpha, beta, c) = (0, 1, 0), which leaves x, r, z, p
@@ -922,7 +931,7 @@ class LaneEngine:
                 alpha = torch.where(active, rz / eng.dot(pvec, Ap), zero)
                 x = x + alpha * pvec
                 r = r - alpha * Ap
-                z = dinv * r
+                z = M(r)
                 rz_new = eng.dot(r, z)
                 beta = torch.where(active, rz_new / rz, one)
                 pvec = torch.where(active, one, zero) * z + beta * pvec
@@ -938,7 +947,9 @@ class LaneEngine:
             r0 = None
             total_cg = 0
             cg_seconds = 0.0  # wall time of the CG loops (device included)
+            tl_seconds = 0.0  # two-level set-up: geometry + smoother data
             cg_iters = []  # per-Newton MATHEMATICAL exit iterations
+            cg_enqueued = []  # per-Newton iterations enqueued (frozen tail too)
             residuals = []  # |b| at every Newton residual check
             it = 0
             for it in range(1, cfg.newton_maxit + 1):
@@ -959,7 +970,26 @@ class LaneEngine:
                     av = Araw(v * free)
                     return av * free + v * (1.0 - free)
 
-                z0 = dinv * b
+                if use_tl:
+                    from tpufem_torch.lane import twolevel as tlmod
+
+                    t_tl = time.perf_counter()
+                    if "geo" not in _tl:
+                        _tl["static"], _tl["geo"] = tlmod.build_twolevel_geo(
+                            eng, fine_coeffs, nc=twolevel_nc)
+                    data = tlmod.refresh_twolevel(
+                        eng, _tl["static"], _tl["geo"], u, coeff_cells,
+                        inv_d=dinv, A=A)
+                    tl_seconds += time.perf_counter() - t_tl
+
+                    def M(r, data=data):
+                        return tlmod.precondition_with(
+                            eng, _tl["static"], data, free, r, A)
+                else:
+                    def M(r):
+                        return dinv * r
+
+                z0 = M(b)
                 state = (torch.zeros_like(b), b, z0, z0,
                          eng.dot(b, z0), eng.dot(b, b),
                          torch.zeros((), dtype=torch.int64,
@@ -968,6 +998,7 @@ class LaneEngine:
                 tol2 = torch.as_tensor(tol * tol, dtype=b.dtype,
                                        device=b.device)
                 k = 0
+                enq = 0
                 stall = 0
                 best_rr = float("inf")
                 if b.is_cuda:  # the set-up above must not count as CG time
@@ -975,7 +1006,8 @@ class LaneEngine:
                 t_cg = time.perf_counter()
                 while k < cfg.cg_maxit:
                     nsteps = min(cg_chunk, cfg.cg_maxit - k)
-                    state = cg_chunk_fn(nsteps, A, dinv, state, tol2)
+                    state = cg_chunk_fn(nsteps, A, M, state, tol2)
+                    enq += nsteps
                     rr = math.sqrt(float(state[5]))  # blocks on the device
                     kd = int(state[6]) - k  # iterations run this chunk
                     k += kd
@@ -1006,6 +1038,7 @@ class LaneEngine:
                 u = u + alpha * step
                 total_cg += k
                 cg_iters.append(k)
+                cg_enqueued.append(enq)
                 if cfg.verbose:
                     print(
                         f"lane Newton {it}: |r| = {bnorm:.6e} (cg {k}"
@@ -1018,8 +1051,9 @@ class LaneEngine:
                                     cfg.newton_atol)
             return u, dict(
                 newton_iters=it, total_cg_iters=total_cg,
-                cg_iters=cg_iters, residuals=residuals,
-                cg_seconds=cg_seconds,
+                cg_iters=cg_iters, cg_enqueued=cg_enqueued,
+                residuals=residuals,
+                cg_seconds=cg_seconds, twolevel_setup_seconds=tl_seconds,
                 final_residual=bnorm, r0=r0 or bnorm, converged=converged,
             )
 

@@ -3,14 +3,17 @@ plain PyTorch version.
 
 Three primitives cover every irregular movement of the staged lane
 pipeline (gather to cells, scatter-add to bin partials, copy owner-sum
-and refresh), and a fourth fuses the first two around the element
-physics:
+and refresh), a fourth fuses the first two around the element physics,
+and a fifth moves vectors between the lane layout and the two-level
+preconditioner's coarse lattice:
 
 - :func:`lane_gather_cm`   -- out[v*C+c,t,k,j] = values[c, starts[t]+idx[t,v,k,j], j]
 - :func:`lane_scatter_cm`  -- out[c,t,r,j] = sum_{v,k: idx[t,v,k,j]==r} src[v*C+c,t,k,j]
 - :func:`lane_pass_update` -- all owner-sum / refresh passes + bin-block update
 - :func:`lane_fused_elem`  -- gather -> element gradient / Hessian-vector
   product of a hand-written law (:class:`FusedLaw`) -> scatter, in one pass
+- :func:`lane_gather_weighted` -- out[t,c,k,j] = sum_v wts[t,v,k,j] *
+  values[c, starts[t]+idx[t,v,k,j], j]
 
 Each wrapper takes the same arguments as its counterpart in
 ``tpufem/lane/kernels.py``. For a CUDA tensor it launches the kernel
@@ -66,7 +69,7 @@ def _raise_on(code: int, name: str):
 
 def _wrappers():
     return (lane_gather_cm, lane_scatter_cm, lane_pass_update,
-            lane_fused_elem)
+            lane_fused_elem, lane_gather_weighted)
 
 
 def reset_launch_counts() -> None:
@@ -443,6 +446,61 @@ def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
     )
     _raise_on(code, "lane_fused_elem")
     lane_fused_elem.launches += 1
+    return out.permute(1, 0, 2, 3)
+
+
+# -- K5: weighted gather-sum (two-level transfers) -----------------------------
+
+
+def lane_gather_weighted_plain(values, starts, idx, wts, *, wr: int):
+    """Plain version of :func:`lane_gather_weighted`: one gather and one
+    multiply-add per v, v ascending -- the kernel's order of additions."""
+    C, R, L = values.shape
+    T, V, K, _ = idx.shape
+    ii = idx.to(torch.int64)
+    rows = starts.to(torch.int64).view(T, 1, 1, 1) + ii.clamp(min=0)
+    valid = (ii >= 0) & (ii < wr) & (rows < R)
+    rows = rows.clamp(max=R - 1)
+    lane = torch.arange(L, device=values.device)
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    out = torch.zeros((C, T, K, L), dtype=values.dtype, device=values.device)
+    for v in range(V):
+        g = values[:, rows[:, v], lane]  # (C, T, K, L)
+        out = out + torch.where(valid[:, v], wts[:, v] * g, zero)
+    return out.permute(1, 0, 2, 3)
+
+
+def lane_gather_weighted(values, starts, idx, wts, *, wr: int):
+    """Weighted windowed gather-sum, the restriction / prolongation
+    primitive of the two-level preconditioner:
+
+      out[t, c, k, j] = sum_v wts[t,v,k,j] * values[c, starts[t]+idx[t,v,k,j], j]
+
+    values (C, R, 128) with C <= 4; starts (T,) int32; idx (T, V, K, 128)
+    int8/int32 in [-1, wr); wts (T, V, K, 128) of the values' dtype.
+    Returns (T, C, K, 128) as a view of channel-leading (C, T, K, 128)
+    storage, so ``out.permute(1, 0, 2, 3)`` is contiguous and free.
+    """
+    if values.device.type != "cuda":
+        return lane_gather_weighted_plain(values, starts, idx, wts, wr=wr)
+    dev = values.device
+    _check("values", values, device=dev, dtypes=_VT)
+    C, R, L = values.shape
+    _check("idx", idx, device=dev, dtypes=_IT)
+    T, V, K, L2 = idx.shape
+    _check("wts", wts, device=dev, dtypes=(values.dtype,), shape=idx.shape)
+    if L != N_LANES or L2 != N_LANES or not 1 <= C <= 4:
+        raise ValueError("lane_gather_weighted: bad lane width or C > 4")
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    out = torch.empty((C, T, K, L), dtype=values.dtype, device=dev)
+    lib = _build.load()
+    code = lib.lane_gather_weighted(
+        _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
+        starts.data_ptr(), idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
+        C, R, T, V, K, int(wr), _stream(dev),
+    )
+    _raise_on(code, "lane_gather_weighted")
+    lane_gather_weighted.launches += 1
     return out.permute(1, 0, 2, 3)
 
 

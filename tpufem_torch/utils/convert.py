@@ -6,7 +6,10 @@ fields through :func:`lane_plan_from_numpy` and the ``plan=`` keyword of
 ``LaneEngine``; :func:`to_torch` uploads any array-like. The cell data a
 fused engine streams into ``lane_fused_elem`` travels the same way:
 :func:`fused_cell_data` reads it off any engine as numpy and
-:func:`set_fused_cell_data` puts it on a port engine.
+:func:`set_fused_cell_data` puts it on a port engine. The two-level
+preconditioner's tables and lattice-MG hierarchy travel through
+:func:`twolevel_from_numpy`, so a comparison can feed the port and the
+reference identical tables and check the cycle apart from the host build.
 """
 
 from __future__ import annotations
@@ -74,6 +77,58 @@ def set_fused_cell_data(engine, coeff_cells: Dict[str, torch.Tensor],
                              "block")
         out["_cd"] = cd
     return out
+
+
+def twolevel_from_numpy(engine, static: Dict[str, Any], geo: Dict[str, Any],
+                        *, hx: float, hy: float, field_kinds: Dict[str, str],
+                        inv_d, lmax):
+    """The port's two-level structures from numpy.
+
+    ``static``: the integer fields of a ``TwoLevelStatic`` (SC, WRp, WRr,
+    Kc, ncx, ncy, Rv, degree). ``geo``: the transfer tables (S, p_starts,
+    p_idx, p_wts, r_starts, r_idx, r_wts, o_dst, o_src), ``coarse_free``
+    and ``mg_data`` = dict(levels=[dict(u_lin, fields, free, inv_d,
+    lmax), ...], coarse_inv, coarse_free). ``hx``, ``hy``: the finest
+    lattice spacing; ``field_kinds``: coefficient name -> 'vertex' |
+    'cell'. ``inv_d``, ``lmax``: the fine smoother data. Each level's
+    operator is linearized from its ``u_lin`` and ``fields`` by the
+    port's own lattice discretization of ``engine.functional``; every
+    array keeps its values (float arrays in the engine's dtype). Returns
+    ``(TwoLevelStatic, TwoLevelData)``."""
+    from tpufem_torch.lane import twolevel as tl
+    from tpufem_torch.structured import mg2d
+
+    dev, dt = engine.device, engine.dtype
+
+    def up(a):
+        return to_torch(a, dev, dt)
+
+    grid = tl.lattice_grid(engine.functional, engine.bs, field_kinds,
+                           hx=hx, hy=hy, ncx=int(static["ncx"]),
+                           ncy=int(static["ncy"]))
+    grids, levels = [grid], []
+    for lv in geo["mg_data"]["levels"]:
+        u, free = up(lv["u_lin"]), up(lv["free"])
+        fields = {k: up(v) for k, v in lv["fields"].items()}
+        levels.append(mg2d.MGLevel(
+            u_lin=u, fields=fields, free=free, inv_d=up(lv["inv_d"]),
+            lmax=float(np.asarray(lv["lmax"])),
+            op=grids[-1].operator(u, fields, free)))
+        grids.append(mg2d.coarsen_grid(grids[-1]))
+    mg = mg2d.MGData(levels=tuple(levels),
+                     coarse_inv=up(geo["mg_data"]["coarse_inv"]),
+                     coarse_free=up(geo["mg_data"]["coarse_free"]))
+    st = tl.TwoLevelStatic(
+        **{k: int(static[k]) for k in ("SC", "WRp", "WRr", "Kc", "ncx",
+                                       "ncy", "Rv", "degree")},
+        mg_grids=tuple(grids))
+    tables = {k: _numpy(geo[k]) for k in (
+        "S", "p_starts", "p_idx", "p_wts", "r_starts", "r_idx", "r_wts",
+        "o_dst", "o_src")}
+    return st, tl.TwoLevelData(
+        **tl.upload_tables(engine, tables), mg_data=mg,
+        coarse_free=up(geo["coarse_free"]), inv_d=up(inv_d),
+        lmax=float(np.asarray(lmax)))
 
 
 def to_torch(array_like, device=None, dtype=None) -> torch.Tensor:
