@@ -10,6 +10,7 @@ import torch
 
 import tpufem_torch.cases.polycrystal as t_poly
 from tpufem_torch.config import SolverConfig as TSolverConfig
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

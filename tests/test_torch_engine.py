@@ -29,6 +29,7 @@ from tpufem_torch.config import SolverConfig
 from tpufem_torch.lane import LaneEngine as TLaneEngine
 from tpufem_torch.utils.convert import (lane_plan_fields,
                                         lane_plan_from_numpy, to_torch)
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -17,6 +17,7 @@ from torch.func import grad, hessian, jvp
 
 import tpufem.forms as j_forms
 import tpufem_torch.forms as t_forms
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -40,6 +40,7 @@ from tpufem_torch.lane import LaneEngine as TLaneEngine
 from tpufem_torch.lane import kernels as tk
 from tpufem_torch.utils.convert import (fused_cell_data, set_fused_cell_data,
                                         to_torch)
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

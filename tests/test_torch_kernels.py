@@ -12,6 +12,7 @@ import torch
 
 from tpufem.lane import kernels as jk
 from tpufem_torch.lane import kernels as tk
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -26,6 +26,7 @@ import tpufem_torch.spaces.bc as t_bc
 import tpufem_torch.utils as t_utils
 from tpufem_torch.utils.convert import (lane_plan_fields,
                                         lane_plan_from_numpy, to_torch)
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

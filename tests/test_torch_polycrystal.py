@@ -22,6 +22,7 @@ import tpufem.cases.polycrystal as j_poly
 import tpufem_torch.cases.polycrystal as t_poly
 from tpufem.config import SolverConfig as JSolverConfig
 from tpufem_torch.config import SolverConfig as TSolverConfig
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

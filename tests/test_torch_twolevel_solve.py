@@ -28,6 +28,7 @@ import tpufem_torch.lane.twolevel as t_tl
 from tpufem.config import SolverConfig as JSolverConfig
 from tpufem_torch.config import SolverConfig as TSolverConfig
 from tpufem_torch.lane import kernels as tk
+from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

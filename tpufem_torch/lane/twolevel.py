@@ -74,7 +74,6 @@ class TwoLevelStatic(NamedTuple):
     ncx: int
     ncy: int
     Rv: int  # padded view rows = Gc*Kc
-    mg_grids: tuple
     degree: int
 
 
@@ -159,7 +158,6 @@ def lattice_grid(functional, bs, field_kinds, *, hx, hy, ncx, ncy):
 
 def _coarse_mg_from_fields(functional, bs, field_kinds, coarse_fields,
                            coarse_free, *, hx, hy, ncx, ncy,
-                           mg_coarse_dofs=1500, coarse_dtype=None,
                            device=None, dtype=torch.float64):
     """DEVICE stage: rediscretize on the lattice (linearized at u_c = 0
     with the sampled coefficient fields) and build the lattice-MG
@@ -168,37 +166,31 @@ def _coarse_mg_from_fields(functional, bs, field_kinds, coarse_fields,
 
     grid = lattice_grid(functional, bs, field_kinds, hx=hx, hy=hy,
                         ncx=ncx, ncy=ncy)
-    dt = coarse_dtype if coarse_dtype is not None else dtype
-    coarse_fields = {k: torch.as_tensor(np.asarray(v), dtype=dt,
+    coarse_fields = {k: torch.as_tensor(np.asarray(v), dtype=dtype,
                                         device=device)
                      for k, v in coarse_fields.items()}
-    coarse_free = torch.as_tensor(np.asarray(coarse_free), dtype=dt,
+    coarse_free = torch.as_tensor(np.asarray(coarse_free), dtype=dtype,
                                   device=device)
-    u_c = torch.zeros((bs, ncy + 1, ncx + 1), dtype=dt, device=device)
-    mg_grids, mg_data = mg2d.build_mg2d(
-        grid, u_c, coarse_fields, coarse_free,
-        coarse_dofs=mg_coarse_dofs,
-    )
-    return mg_grids, mg_data, coarse_free
+    u_c = torch.zeros((bs, ncy + 1, ncx + 1), dtype=dtype, device=device)
+    _, mg_data = mg2d.build_mg2d(grid, u_c, coarse_fields, coarse_free)
+    return mg_data, coarse_free
 
 
 def _build_coarse(functional, mesh, bs, free_flat, fine_coeffs, *,
-                  x0, y0, hx, hy, ncx, ncy, mg_coarse_dofs=1500,
-                  coarse_dtype=None, device=None, dtype=torch.float64):
+                  x0, y0, hx, hy, ncx, ncy, device=None,
+                  dtype=torch.float64):
     """Coarse lattice rediscretization of ``functional`` + lattice-MG
     hierarchy: coefficient fields nearest-neighbour-sampled from
     ``fine_coeffs`` onto the (ncx, ncy) lattice over [x0,..]x[y0,..],
     operator linearized at u_c = 0, free mask from the nearest fine
-    node's ``free_flat``. Returns (mg_grids, mg_data, coarse_free)."""
+    node's ``free_flat``. Returns (mg_data, coarse_free)."""
     field_kinds, coarse_fields, coarse_free = _sample_coarse_fields(
         functional, mesh, free_flat, fine_coeffs,
         x0=x0, y0=y0, hx=hx, hy=hy, ncx=ncx, ncy=ncy, bs=bs,
     )
     return _coarse_mg_from_fields(
         functional, bs, field_kinds, coarse_fields, coarse_free,
-        hx=hx, hy=hy, ncx=ncx, ncy=ncy,
-        mg_coarse_dofs=mg_coarse_dofs, coarse_dtype=coarse_dtype,
-        device=device, dtype=dtype,
+        hx=hx, hy=hy, ncx=ncx, ncy=ncy, device=device, dtype=dtype,
     )
 
 
@@ -382,7 +374,6 @@ def upload_tables(eng, tables):
 
 
 def build_twolevel_geo(eng, fine_coeffs, *, nc=None, degree=2,
-                       mg_coarse_dofs=1500, coarse_dtype=None,
                        lattice=None, coarse=None, owned=None, force=None):
     """Set-up of everything state-INDEPENDENT: transfer tables, one-hot
     selector, coarse lattice fields and operator (linearized at u_c = 0
@@ -392,11 +383,11 @@ def build_twolevel_geo(eng, fine_coeffs, *, nc=None, degree=2,
 
     ``fine_coeffs``: dict name -> flat fine coefficient vector (for
     lattice sampling). ``nc``: lattice cells per side (default ~ the
-    mesh's own resolution, sqrt(n_nodes)/2 rounded to even).
-    ``coarse_dtype``: the lattice-MG hierarchy's dtype (default: the
-    engine's); the tables live in the engine's dtype. The sharded-build
-    hooks (``lattice``, ``coarse``, ``owned``, ``force``) and the artifact
-    cache (``TPUFEM_ARTIFACT_CACHE``) are not ported and raise."""
+    mesh's own resolution, sqrt(n_nodes)/2 rounded to even). The tables
+    and the lattice-MG hierarchy live in the engine's dtype. The
+    sharded-build hooks (``lattice``, ``coarse``, ``owned``, ``force``)
+    and the artifact cache (``TPUFEM_ARTIFACT_CACHE``) are not ported and
+    raise."""
     if any(h is not None for h in (lattice, coarse, owned, force)):
         raise NotImplementedError(
             "build_twolevel_geo(lattice=, coarse=, owned=, force=): "
@@ -420,14 +411,12 @@ def build_twolevel_geo(eng, fine_coeffs, *, nc=None, degree=2,
 
     tables, dims = transfer_tables(p, x0=x0, y0=y0, hx=hx, hy=hy,
                                    ncx=ncx, ncy=ncy)
-    mg_grids, mg_data, coarse_free = _build_coarse(
+    mg_data, coarse_free = _build_coarse(
         eng.functional, mesh, bs, eng.from_lane(eng.free_lane),
         fine_coeffs, x0=x0, y0=y0, hx=hx, hy=hy, ncx=ncx, ncy=ncy,
-        mg_coarse_dofs=mg_coarse_dofs, coarse_dtype=coarse_dtype,
         device=eng.device, dtype=eng.dtype,
     )
-    static = TwoLevelStatic(ncx=ncx, ncy=ncy, mg_grids=mg_grids,
-                            degree=degree, **dims)
+    static = TwoLevelStatic(ncx=ncx, ncy=ncy, degree=degree, **dims)
     geo = dict(upload_tables(eng, tables), mg_data=mg_data,
                coarse_free=coarse_free)
     return static, geo
@@ -470,13 +459,10 @@ def build_twolevel_geo_sharded(sle, fine_coeffs, **kwargs):
 
 
 def build_twolevel(eng, u_lane, coeff_cells, fine_coeffs, *, nc=None,
-                   degree=2, power_iters=12, mg_coarse_dofs=1500):
+                   degree=2, power_iters=12):
     """One-shot set-up (geo + smoother data); prefer build_twolevel_geo +
     refresh_twolevel inside Newton loops."""
-    static, geo = build_twolevel_geo(
-        eng, fine_coeffs, nc=nc, degree=degree,
-        mg_coarse_dofs=mg_coarse_dofs,
-    )
+    static, geo = build_twolevel_geo(eng, fine_coeffs, nc=nc, degree=degree)
     data = refresh_twolevel(eng, static, geo, u_lane, coeff_cells,
                             power_iters=power_iters)
     return static, data
@@ -549,8 +535,6 @@ def precondition_with(eng, static, data, free, r, A, coarse_reduce=None,
     res = (r - A(x)) * free * eng.owned_w.to(r.dtype)
     cfree = data.coarse_free.to(r.dtype)
     rc = restrict(eng, static, data, res) * cfree
-    cdt = data.mg_data.coarse_inv.dtype
-    xc = mg2d.vcycle(static.mg_grids, data.mg_data, rc.to(cdt))
-    xc = xc.to(r.dtype) * cfree
+    xc = mg2d.vcycle(data.mg_data, rc) * cfree
     x = x + prolong(eng, static, data, xc) * free
     return chebyshev_iterate(A, inv_d, data.lmax, r, x, **kw)

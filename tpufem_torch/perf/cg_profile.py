@@ -196,8 +196,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
             r.dtype)
         parts = dict(
             fine_tangent=_part(lambda: A(r), 20),
-            vcycle=_part(lambda: mg2d.vcycle(static.mg_grids, data.mg_data,
-                                             rc), 10),
+            vcycle=_part(lambda: mg2d.vcycle(data.mg_data, rc), 10),
             restrict=_part(lambda: tl.restrict(eng, static, data, res), 20),
             prolong=_part(lambda: tl.prolong(eng, static, data, rc), 20),
         )

@@ -158,7 +158,6 @@ def build_mg2d(
     free: torch.Tensor,
     *,
     coarse_dofs: int = 1500,
-    max_levels: int = 16,
     power_iters: int = 15,
 ) -> Tuple[Tuple[StructuredGrid2D, ...], MGData]:
     """Build the hierarchy at the current linearization state.
@@ -169,8 +168,7 @@ def build_mg2d(
     levels = []
     g, u, flds, fr = grid, u_lin, fields, free
     while (
-        len(grids) < max_levels
-        and g.nx % 2 == 0 and g.ny % 2 == 0
+        g.nx % 2 == 0 and g.ny % 2 == 0
         and g.nx >= 8 and g.ny >= 8
         and u.numel() > coarse_dofs
     ):
@@ -198,29 +196,18 @@ def coarse_solve(coarse_inv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
-def vcycle(grids, data: MGData, b: torch.Tensor, *, degree: int = 3,
-           lmin_ratio: float = 1.0 / 8.0, matvecs=None) -> torch.Tensor:
-    """One symmetric V(degree,degree)-cycle.
-
-    ``grids`` is the tuple from build_mg2d (kept for the reference's
-    signature; the level operators travel in ``data``). ``matvecs``:
-    optional per-level raw linear operators overriding the stored
-    stencils (constrained here as in the reference)."""
+def vcycle(data: MGData, b: torch.Tensor, *, degree: int = 3,
+           lmin_ratio: float = 1.0 / 8.0) -> torch.Tensor:
+    """One symmetric V(degree,degree)-cycle on the stored level
+    operators of ``data`` (from build_mg2d)."""
 
     def level(l, b):
         if l == len(data.levels):
             return coarse_solve(data.coarse_inv, b)
         L = data.levels[l]
-        if matvecs is not None and l < len(matvecs) and matvecs[l] is not None:
-            raw = matvecs[l]
-
-            def A(v, raw=raw, L=L):
-                return raw(v * L.free) * L.free + v * (1.0 - L.free)
-        else:
-            A = L.op
         kw = dict(degree=degree, lmin_ratio=lmin_ratio)
-        x = chebyshev_iterate(A, L.inv_d, L.lmax, b, None, **kw)
-        res = (b - A(x)) * L.free
+        x = chebyshev_iterate(L.op, L.inv_d, L.lmax, b, None, **kw)
+        res = (b - L.op(x)) * L.free
         next_free = (
             data.levels[l + 1].free
             if l + 1 < len(data.levels)
@@ -229,16 +216,16 @@ def vcycle(grids, data: MGData, b: torch.Tensor, *, degree: int = 3,
         bc = restrict(res) * next_free
         xc = level(l + 1, bc)
         x = x + prolong(xc) * L.free
-        return chebyshev_iterate(A, L.inv_d, L.lmax, b, x, **kw)
+        return chebyshev_iterate(L.op, L.inv_d, L.lmax, b, x, **kw)
 
     return level(0, b)
 
 
-def mg_preconditioner(grids, *, degree: int = 3,
+def mg_preconditioner(*, degree: int = 3,
                       lmin_ratio: float = 1.0 / 8.0) -> Callable:
     """(data, r) -> z."""
 
     def M(data, r):
-        return vcycle(grids, data, r, degree=degree, lmin_ratio=lmin_ratio)
+        return vcycle(data, r, degree=degree, lmin_ratio=lmin_ratio)
 
     return M

@@ -106,22 +106,21 @@ def twolevel_from_numpy(engine, static: Dict[str, Any], geo: Dict[str, Any],
     grid = tl.lattice_grid(engine.functional, engine.bs, field_kinds,
                            hx=hx, hy=hy, ncx=int(static["ncx"]),
                            ncy=int(static["ncy"]))
-    grids, levels = [grid], []
+    levels = []
     for lv in geo["mg_data"]["levels"]:
         u, free = up(lv["u_lin"]), up(lv["free"])
         fields = {k: up(v) for k, v in lv["fields"].items()}
         levels.append(mg2d.MGLevel(
             u_lin=u, fields=fields, free=free, inv_d=up(lv["inv_d"]),
             lmax=float(np.asarray(lv["lmax"])),
-            op=grids[-1].operator(u, fields, free)))
-        grids.append(mg2d.coarsen_grid(grids[-1]))
+            op=grid.operator(u, fields, free)))
+        grid = mg2d.coarsen_grid(grid)
     mg = mg2d.MGData(levels=tuple(levels),
                      coarse_inv=up(geo["mg_data"]["coarse_inv"]),
                      coarse_free=up(geo["mg_data"]["coarse_free"]))
     st = tl.TwoLevelStatic(
         **{k: int(static[k]) for k in ("SC", "WRp", "WRr", "Kc", "ncx",
-                                       "ncy", "Rv", "degree")},
-        mg_grids=tuple(grids))
+                                       "ncy", "Rv", "degree")})
     tables = {k: _numpy(geo[k]) for k in (
         "S", "p_starts", "p_idx", "p_wts", "r_starts", "r_idx", "r_wts",
         "o_dst", "o_src")}
