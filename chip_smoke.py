@@ -40,6 +40,23 @@ prints one JSON line per phase:
                    of the preconditioner), the phase table with the
                    two-level set-up, peak memory, and one CG iteration
                    split into its parts under the profiler
+9. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
+                   against their plain versions at n = 1024 and two small
+                   odd shapes and against the generic lattice's AD residual
+                   and tangent, the K6 assembly rate (MDoF/s); path A: the
+                   structured nonlinear solve of
+                   ``benchmarks/mechanic2d_pallas_bench.py`` at n = 1024
+                   (K6 right-hand side, K7 CG operator, Jacobi) to
+                   convergence, twice, bitwise equal, launch counts, one CG
+                   iteration under the profiler; the same problem at
+                   n = 256 through ``make_grid_solver`` with multigrid
+10. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
+                   n = 160 and 9x7x11, against the stored 27-point stencil,
+                   the conv3d yardstick; path B: the pulled bar of
+                   ``benchmarks/solve3d_bench.py`` at n = 160 (12.5 M dofs)
+                   through ``make_grid_solver`` with multigrid and K8 on
+                   the levels of >= 16 cells, twice, bitwise equal, K8
+                   launches, one CG iteration under the profiler
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -47,6 +64,9 @@ so the script exits non-zero and prints no result line.
 
 ``--until PHASE`` stops after that phase (a short first check of newly
 written kernels); it then prints no result line either.
+
+K6 / K7 / K8's inputs on the card come from a seeded ``torch.Generator``;
+the structured problems are the benchmarks' own, made from numpy.
 """
 
 import argparse
@@ -66,7 +86,8 @@ if not torch.cuda.is_available():
 from tpufem_torch.assemble import Assembler  # noqa: E402
 from tpufem_torch.cases import polycrystal  # noqa: E402
 from tpufem_torch.config import SolverConfig  # noqa: E402
-from tpufem_torch.forms import EnergyFunctional, asym_damage_psi  # noqa: E402
+from tpufem_torch.forms import (EnergyFunctional, asym_damage_psi,  # noqa: E402
+                                linear_elastic_psi)
 from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
 from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
@@ -75,6 +96,13 @@ from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.mesh import unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
 from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
+from tpufem_torch.structured import (StructuredGrid2D,  # noqa: E402
+                                     StructuredGrid3D, make_grid_solver,
+                                     make_linear_matvec, make_residual_kernel,
+                                     make_tangent_kernel)
+from tpufem_torch.structured import kernels2d as K2  # noqa: E402
+from tpufem_torch.structured import kernels3d as K3  # noqa: E402
+from tpufem_torch.structured import mg3d  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -85,7 +113,8 @@ N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
-          "solve_full_fused", "solve_full_twolevel")
+          "solve_full_fused", "solve_full_twolevel", "structured2d",
+          "structured3d")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -825,6 +854,447 @@ emit("solve_full_twolevel", n=N_FULL, n_grains=200, n_dofs=r_tl.n_dofs,
      cg_iteration_profile=prof_tl)
 del r_tl, r_tl1, runs, eng_full
 
+# -- 9. structured2d: K6 / K7 and the structured nonlinear solve (path A) ------
+
+E_S, NU_S = 1.0e6, 0.3  # the structured benchmarks' material
+N_A, N_A_SMALL, N_B, N_B_SMALL = 1024, 256, 160, 32
+# path B's multigrid: levels, coarse dofs, levels on K8 (>= 16 cells a side)
+HIERARCHY_B, COARSE_B, K8_LEVELS_B = [160, 80, 40, 20, 10, 5], 648, 4
+# flops per lattice cell, counted by hand from csrc/lattice2d.cuh and
+# csrc/asym_damage.cuh: both triangles' strain, damage mean and stress (or
+# its directional derivative, both branches), and the six contributions the
+# cell's v00 node adds (one node per cell)
+K6_FLOPS_PER_CELL, K7_FLOPS_PER_CELL = 198, 362
+
+
+def reset_all_counts():
+    for mod in (K, K2, K3):
+        mod.reset_launch_counts()
+
+
+def all_counts():
+    return {**K.launch_counts(), **K2.launch_counts(), **K3.launch_counts()}
+
+
+def damage_grid2d(n):
+    return StructuredGrid2D(
+        nx=n, ny=n, hx=1 / n, hy=1 / n, bs=2,
+        energy_density=lambda g, c: asym_damage_psi(
+            0.5 * (g + g.T), c["d"], E_S, NU_S),
+        field_kinds={"d": "vertex"})
+
+
+def band_problem(n):
+    """benchmarks/mechanic2d_pallas_bench.py's problem, float32 on the card:
+    damage 0.8 in the band 0.45 < y < 0.55, x clamped at both ends, u_x =
+    0.01 at x = 1."""
+    yy = np.linspace(0, 1, n + 1)[:, None]
+    d = np.broadcast_to(np.where((yy > 0.45) & (yy < 0.55), 0.8, 0.0),
+                        (n + 1, n + 1)).astype(np.float32)
+    free = np.ones((2, n + 1, n + 1), np.float32)
+    free[:, :, 0] = 0.0
+    free[:, :, -1] = 0.0
+    bcv = np.zeros((2, n + 1, n + 1), np.float32)
+    bcv[0, :, -1] = 0.01
+    return [torch.as_tensor(a, device=DEV) for a in (d, free, bcv)]
+
+
+def dot(a, b):
+    return torch.sum(a * b)
+
+
+def solve_path_a(n):
+    """The structured nonlinear solve of mechanic2d_pallas_bench.py through
+    the port's public functions: Newton (rtol 1e-4, atol 1e-2, at most 10
+    steps) on K6's residual, Jacobi-CG (rtol 1e-5, chunks of 500 up to
+    6000) on K7's tangent action, the Jacobi diagonal from
+    StructuredGrid2D.diagonal."""
+    grid = damage_grid2d(n)
+    res_k = make_residual_kernel(n, n, 1 / n, 1 / n, E_S, NU_S)
+    jvp_k = make_tangent_kernel(n, n, 1 / n, 1 / n, E_S, NU_S)
+    d, free, bcv = band_problem(n)
+    fixed = 1.0 - free
+    u = bcv.clone()
+    r0, residuals, cg_iters, cg_seconds = None, [], [], 0.0
+    for it in range(11):
+        b = -res_k(u, d) * free
+        bn = float(torch.sqrt(dot(b, b)))
+        residuals.append(bn)
+        r0 = bn if r0 is None else r0
+        if bn < max(1e-4 * r0, 1e-2) or it == 10:
+            break
+        dinv = 1.0 / (grid.diagonal(u, {"d": d}) * free + fixed)
+
+        def A(v, u=u):
+            return jvp_k(u, d, v * free) * free + v * fixed
+
+        x, r, z = torch.zeros_like(b), b, dinv * b
+        p, rz = z, dot(b, z)
+        k, t0 = 0, time.perf_counter()
+        while k < 6000:
+            for _ in range(500):
+                Ap = A(p)
+                alpha = rz / dot(p, Ap)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                z = dinv * r
+                rz_new = dot(r, z)
+                p = z + (rz_new / rz) * p
+                rz = rz_new
+            k += 500
+            if float(torch.sqrt(dot(r, r))) < 1e-5 * bn:
+                break
+        cg_seconds += time.perf_counter() - t0
+        u = u + x * free
+        cg_iters.append(k)
+    return dict(u=u, residuals=residuals, cg_iters=cg_iters,
+                newton_iters=len(cg_iters), cg_seconds=cg_seconds,
+                converged=residuals[-1] < max(1e-4 * r0, 1e-2),
+                grid=grid, res_k=res_k, jvp_k=jvp_k, d=d, free=free)
+
+
+def cg_iteration(A, M, b):
+    """One CG iteration (operator, preconditioner, vector updates) from the
+    state after z0, repeated on the same state: for the profiler."""
+    z = M(b)
+    rz = dot(b, z)
+    x = torch.zeros_like(b)
+
+    def step():
+        Ap = A(z)
+        alpha = rz / dot(z, Ap)
+        x2 = x + alpha * z
+        r2 = b - alpha * Ap
+        z2 = M(r2)
+        rz2 = dot(r2, z2)
+        return x2, z2 + (rz2 / rz) * z
+
+    return step
+
+
+t_phase = time.perf_counter()
+g2 = torch.Generator(device=DEV)
+g2.manual_seed(4321)
+s2_err, s2_shapes = {}, {}
+for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517)):
+    u_k = 1e-3 * torch.randn((2, ny_ + 1, nx_ + 1), device=DEV, generator=g2)
+    u_k[:, : (ny_ + 1) // 4] = 0.0  # rows of cells on the degenerate branch
+    v_k = torch.randn((2, ny_ + 1, nx_ + 1), device=DEV, generator=g2)
+    d_k = torch.rand((ny_ + 1, nx_ + 1), device=DEV, generator=g2)
+    res_k = make_residual_kernel(nx_, ny_, 1 / nx_, 1 / ny_, E_S, NU_S)
+    jvp_k = make_tangent_kernel(nx_, ny_, 1 / nx_, 1 / ny_, E_S, NU_S)
+    for name, fn, plain, args, fl in (
+            ("lattice_residual", res_k, K2.residual_plain, (u_k, d_k),
+             K6_FLOPS_PER_CELL),
+            ("lattice_tangent", jvp_k, K2.tangent_plain, (u_k, d_k, v_k),
+             K7_FLOPS_PER_CELL)):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args, fn.consts)
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), f"{name} {nx_}x{ny_}: max abs err {err}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        if nx_ != N_A:
+            record(name, err, None, None, None, None)
+            continue
+        ms = time_ms(lambda: fn(*args), 50)
+        pms = time_ms(lambda: plain(*args, fn.consts), 5)
+        b = nbytes(*args, out)
+        flops = fl * nx_ * ny_
+        b_ms = b / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / F32_FLOPS_PER_S * 1e3
+        record(name, err, ms, pms, b, None, flops=flops, ops_bound_ms=f_ms,
+               shape=f"{nx_}x{ny_}")
+        results[name].update(bound_ms=max(b_ms, f_ms),
+                             bound_by="bytes" if b_ms >= f_ms
+                             else "operations")
+    if nx_ == N_A:
+        # the lattice kernels against the generic lattice (AD through
+        # torch.func), float32, both on the card
+        grid_k = damage_grid2d(N_A)
+        ra_ = grid_k.residual(u_k, {"d": d_k})
+        rel_r = float((res_k(u_k, d_k) - ra_).abs().max() / ra_.abs().max())
+        ta = grid_k.tangent_action(u_k, {"d": d_k}, v_k)
+        rel_t = float((jvp_k(u_k, d_k, v_k) - ta).abs().max()
+                      / ta.abs().max())
+        check(rel_r <= 2e-6 and rel_t <= 5e-6,
+              f"K6/K7 against grid2d: rel {rel_r} / {rel_t}")
+        s2_err.update(k6_vs_grid2d_residual_rel=rel_r,
+                      k7_vs_grid2d_tangent_rel=rel_t)
+        # the K6 assembly rate bench.py headlines: back-to-back passes
+        pass_ms = time_ms(lambda: res_k(u_k, d_k), 200)
+        s2_shapes["assembly"] = dict(
+            n=N_A, n_dofs=2 * (N_A + 1) ** 2, pass_ms=pass_ms,
+            mdof_per_s=2 * (N_A + 1) ** 2 / (pass_ms * 1e-3) / 1e6)
+        del grid_k, ta, ra_
+    del u_k, v_k, d_k
+
+# path A at full width, twice: bitwise equal
+runs_a = []
+for i in range(2):
+    if i == 0:
+        reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ra = solve_path_a(N_A)
+    torch.cuda.synchronize()
+    ra["seconds"] = time.perf_counter() - t0
+    ra["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    if i == 0:
+        launches_a = all_counts()
+    runs_a.append(ra)
+ra, ra1 = runs_a
+check(ra["converged"] and ra1["converged"],
+      f"path A did not converge: {ra['residuals']} / {ra['cg_iters']}")
+check(ra["residuals"] == ra1["residuals"]
+      and ra["cg_iters"] == ra1["cg_iters"]
+      and torch.equal(ra["u"], ra1["u"]),
+      "path A: trajectory, CG counts or u differ between two runs")
+check(launches_a["lattice_residual"] == len(ra["residuals"])
+      and launches_a["lattice_tangent"] == sum(ra["cg_iters"]),
+      f"path A launches: {launches_a} for {len(ra['residuals'])} residuals "
+      f"and {sum(ra['cg_iters'])} CG iterations")
+check(bool(torch.isfinite(ra["u"]).all())
+      and torch.equal(ra["u"][0, :, -1], torch.full_like(ra["u"][0, :, -1],
+                                                         0.01)),
+      "path A: non-finite u or Dirichlet values lost")
+step_a = cg_iteration(
+    lambda v: ra["jvp_k"](ra["u"], ra["d"], v * ra["free"]) * ra["free"]
+    + v * (1.0 - ra["free"]),
+    lambda r, dinv=1.0 / (ra["grid"].diagonal(ra["u"], {"d": ra["d"]})
+                          * ra["free"] + 1.0 - ra["free"]): dinv * r,
+    -ra["res_k"](ra["u"], ra["d"]) * ra["free"])
+prof_a = cg_profile._part(step_a, 50)
+u_a = ra["u"]
+out_a = {k: ra[k] for k in ("residuals", "cg_iters", "newton_iters",
+                            "converged", "seconds", "peak_device_bytes")}
+out_a.update(n=N_A, n_dofs=2 * (N_A + 1) ** 2, dtype="float32",
+             total_cg_iters=sum(ra["cg_iters"]),
+             ms_per_cg_iter=1e3 * ra["cg_seconds"] / sum(ra["cg_iters"]),
+             seconds_second_run=ra1["seconds"], launches=launches_a,
+             cg_iteration_profile=prof_a, bitwise_equal_runs=True)
+del runs_a, ra, ra1, step_a
+
+# the same problem at n = 256 through make_grid_solver with multigrid on the
+# generic lattice (no K6 / K7), against the kernel path at n = 256
+rs = solve_path_a(N_A_SMALL)
+d_s, free_s, bcv_s = band_problem(N_A_SMALL)
+reset_all_counts()
+t0 = time.perf_counter()
+rm = make_grid_solver(
+    damage_grid2d(N_A_SMALL),
+    SolverConfig(preconditioner="mg", newton_rtol=1e-4, newton_atol=1e-2,
+                 cg_rtol=1e-5, cg_maxit=6000, newton_maxit=10),
+    cg_chunk=10)(bcv_s.clone(), {"d": d_s}, free_s, bcv_s)
+torch.cuda.synchronize()
+mg_secs = time.perf_counter() - t0
+launches_mg = all_counts()
+check(rm.converged and rs["converged"], "path A at n = 256 did not converge")
+check(launches_mg["lattice_residual"] == 0
+      and launches_mg["lattice_tangent"] == 0,
+      f"the generic lattice solve launched K6/K7: {launches_mg}")
+mg_rel = float((rm.u - rs["u"]).abs().max() / rs["u"].abs().max())
+check(mg_rel <= 1e-2, f"path A n = 256: multigrid vs kernel path u rel "
+      f"{mg_rel}")
+emit("structured2d", kernels={k: results[k] for k in
+                              ("lattice_residual", "lattice_tangent")},
+     checks=s2_err, **s2_shapes, path_a=out_a,
+     path_a_small=dict(
+         n=N_A_SMALL, kernel_path=dict(
+             newton_iters=rs["newton_iters"], cg_iters=rs["cg_iters"],
+             residuals=rs["residuals"]),
+         make_grid_solver_mg=dict(
+             newton_iters=rm.newton_iters, cg_iters=list(rm.cg_iters),
+             residuals=list(rm.residuals), final_residual=rm.final_residual,
+             seconds=mg_secs,
+             ms_per_cg_iter=1e3 * rm.cg_seconds / max(rm.total_cg_iters, 1)),
+         u_rel_mg_vs_kernel_path=mg_rel),
+     tolerance="K6/K7 exactly equal to their plain versions; against "
+               "grid2d's AD residual / tangent rel <= 2e-6 / 5e-6 (float32)",
+     seconds=time.perf_counter() - t_phase)
+del rs, rm, u_a
+torch.cuda.empty_cache()
+
+# -- 10. structured3d: K8 and the 3D multigrid solve (path B) -----------------
+
+
+def bar_grid3d(n):
+    return StructuredGrid3D(
+        nx=n, ny=n, nz=n, hx=1 / n, hy=1 / n, hz=1 / n, bs=3,
+        energy_density=lambda g, c: linear_elastic_psi(
+            0.5 * (g + g.T), E_S, NU_S),
+        field_kinds={})
+
+
+def bar_problem3d(n):
+    """benchmarks/solve3d_bench.py's pulled bar: x = 0 clamped, u_x = 0.01
+    at x = 1 (all components fixed on both faces), float32."""
+    free = torch.ones((3, n + 1, n + 1, n + 1), device=DEV)
+    free[..., 0] = 0.0
+    free[..., -1] = 0.0
+    bcv = torch.zeros_like(free)
+    bcv[0, ..., -1] = 0.01
+    return free, bcv
+
+
+def k8_factory(g):
+    """solve3d_bench.py's factory: K8 on levels of at least 16 cells a
+    side, the stored stencil below."""
+    if min(g.nx, g.ny, g.nz) < 16:
+        return None
+    return make_linear_matvec(g, E_S, NU_S)
+
+
+CFG_B = SolverConfig(preconditioner="mg", cg_rtol=1e-6, newton_rtol=1e-5,
+                     newton_atol=1e-2, cg_maxit=500)
+
+
+def solve_path_b(n, factory=k8_factory):
+    free, bcv = bar_problem3d(n)
+    return make_grid_solver(bar_grid3d(n), CFG_B, cg_chunk=5,
+                            mg_matvec_factory=factory)(
+        torch.zeros_like(free), {}, free, bcv)
+
+
+t_phase = time.perf_counter()
+s3 = {}
+for n3, h3 in ((N_B, None), (9, (0.1, 0.2, 0.15))):
+    dims = (n3, n3, n3) if h3 is None else (9, 7, 11)
+    grid3 = (bar_grid3d(n3) if h3 is None else StructuredGrid3D(
+        nx=dims[0], ny=dims[1], nz=dims[2], hx=h3[0], hy=h3[1], hz=h3[2],
+        bs=3, energy_density=lambda g, c: linear_elastic_psi(
+            0.5 * (g + g.T), E_S, NU_S), field_kinds={}))
+    mv = make_linear_matvec(grid3, E_S, NU_S)
+    x3 = torch.randn((3, dims[2] + 1, dims[1] + 1, dims[0] + 1), device=DEV,
+                     generator=g2)
+    y3 = mv(x3)
+    torch.cuda.synchronize()
+    ref3 = K3.linear_matvec_plain(x3, mv.consts)
+    err = float((y3 - ref3).abs().max())
+    check(torch.equal(y3, ref3), f"lattice_matvec3d {dims}: {err}")
+    if h3 is not None:
+        record("lattice_matvec3d", err, None, None, None, None)
+        continue
+    ms = time_ms(lambda: mv(x3), 20)
+    pms = time_ms(lambda: K3.linear_matvec_plain(x3, mv.consts), 2)
+    b = nbytes(x3, y3)
+    # the least work: a 3x3 block product per in-lattice neighbour
+    flops = 18 * int(np.prod([3 * (m + 1) - 2 for m in dims]))
+    # what the kernel does in the reference's order: every (delta, chi)
+    # block, separately rounded, zero entries skipped
+    nz_blocks = sum(int(np.count_nonzero(Kb)) for _d, _c, Kb in mv.consts.terms)
+    b_ms, f_ms = b / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    # yardstick: conv3d, 3 -> 3 channels, 3^3 kernel, padding 1, with the
+    # interior stencil (sum over chi per delta): right in the interior only
+    wgt = torch.zeros((3, 3, 3, 3, 3), dtype=torch.float64)
+    for (dz, dy, dx), _chi, Kb in mv.consts.terms:
+        wgt[:, :, dz + 1, dy + 1, dx + 1] += torch.as_tensor(
+            Kb, dtype=torch.float64)
+    wgt = wgt.to(torch.float32).to(DEV)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # full float32, as K8
+    conv = lambda: torch.nn.functional.conv3d(x3[None], wgt, padding=1)[0]
+    yc = conv()
+    crel = float((yc - y3)[:, 1:-1, 1:-1, 1:-1].abs().max()
+                 / y3[:, 1:-1, 1:-1, 1:-1].abs().max())
+    check(crel <= 1e-5, f"conv3d yardstick disagrees in the interior: {crel}")
+    lms = time_ms(conv, 20)
+    torch.backends.cudnn.allow_tf32 = tf32
+    record("lattice_matvec3d", err, ms, pms, b, None, flops=flops,
+           ops_bound_ms=f_ms, kernel_flops_per_interior_node=2 * nz_blocks,
+           conv3d_yardstick_ms=lms, conv3d_interior_rel=crel,
+           shape=f"{n3}^3")
+    results["lattice_matvec3d"].update(
+        bound_ms=max(b_ms, f_ms),
+        bound_by="bytes" if b_ms >= f_ms else "operations")
+    del x3, y3, ref3, yc, wgt
+# K8 against the stored 27-point stencil of the same lattice (float32)
+g40 = bar_grid3d(40)
+x40 = torch.randn((3, 41, 41, 41), device=DEV, generator=g2)
+st40 = g40.operator(torch.zeros_like(x40), {})(x40)
+s3["k8_vs_stored_stencil_rel"] = float(
+    (make_linear_matvec(g40, E_S, NU_S)(x40) - st40).abs().max()
+    / st40.abs().max())
+check(s3["k8_vs_stored_stencil_rel"] <= 5e-6,
+      f"K8 against the stored stencil: {s3['k8_vs_stored_stencil_rel']}")
+del g40, x40, st40
+# a small bar: the K8 solve against the stored-stencil solve (no factory)
+rk, rn = solve_path_b(N_B_SMALL), solve_path_b(N_B_SMALL, None)
+s3["small_k8_vs_stencil_u_rel"] = float((rk.u - rn.u).abs().max()
+                                        / rn.u.abs().max())
+check(rk.converged and rn.converged
+      and s3["small_k8_vs_stencil_u_rel"] <= 1e-4,
+      f"path B at n = {N_B_SMALL}: {s3}")
+del rk, rn
+
+runs_b = []
+for i in range(2):
+    if i == 0:
+        reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rb = solve_path_b(N_B)
+    torch.cuda.synchronize()
+    runs_b.append((rb, time.perf_counter() - t0,
+                   torch.cuda.max_memory_allocated()))
+    if i == 0:
+        launches_b = all_counts()
+(rb, secs_b0, peak_b), (rb1, secs_b1, _) = runs_b
+check(rb.converged and rb1.converged,
+      f"path B did not converge: {rb.residuals} / {rb.cg_iters}")
+check(rb.residuals == rb1.residuals and rb.cg_iters == rb1.cg_iters
+      and rb.final_residual == rb1.final_residual
+      and torch.equal(rb.u, rb1.u),
+      "path B: trajectory, CG counts or u differ between two runs")
+# path B's hierarchy (the solver builds it at every Newton step): for the
+# launch count and for one CG iteration under the profiler
+free_b, _ = bar_problem3d(N_B)
+grids_b, data_b = mg3d.build_mg3d(bar_grid3d(N_B), rb.u, {}, free_b)
+mvs_b = [k8_factory(g) for g in grids_b[:-1]]
+k8_levels = sum(m is not None for m in mvs_b)
+check([g.nx for g in grids_b] == HIERARCHY_B
+      and data_b.coarse_inv.shape == (COARSE_B, COARSE_B)
+      and k8_levels == K8_LEVELS_B,
+      f"path B hierarchy {[g.nx for g in grids_b]}, coarse "
+      f"{tuple(data_b.coarse_inv.shape)}, {k8_levels} K8 levels")
+# K8 on the levels of >= 16 cells: the fine CG operator once per CG
+# iteration, 8 smoother applications per level per V-cycle (one V-cycle
+# per CG iteration and one for z0)
+want_k8 = sum(k + (k + 1) * 8 * k8_levels for k in rb.cg_iters)
+check(launches_b["lattice_matvec3d"] == want_k8,
+      f"path B: {launches_b['lattice_matvec3d']} K8 launches, expected "
+      f"{want_k8}")
+mid = rb.u[0, :, :, N_B // 2]
+check(bool(torch.isfinite(rb.u).all())
+      and 0.004 < float(mid.mean()) < 0.006
+      and torch.equal(rb.u[0, ..., -1], torch.full_like(rb.u[0, ..., -1],
+                                                        0.01)),
+      "path B: non-finite u, Dirichlet values lost, or u_x(1/2) off")
+fixed_b = 1.0 - free_b
+step_b = cg_iteration(
+    lambda v: mvs_b[0](v * free_b) * free_b + v * fixed_b,
+    lambda r: mg3d.vcycle(data_b, r, degree=CFG_B.mg_degree, matvecs=mvs_b),
+    -bar_grid3d(N_B).residual(rb.u, {}) * free_b)
+prof_b = cg_profile._part(step_b, 10)
+emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
+     checks=s3, path_b=dict(
+         n=N_B, n_dofs=3 * (N_B + 1) ** 3, dtype="float32",
+         levels=[g.nx for g in grids_b], k8_levels=k8_levels,
+         coarse_dofs=int(data_b.coarse_inv.shape[0]),
+         newton_iters=rb.newton_iters, cg_iters=list(rb.cg_iters),
+         total_cg_iters=rb.total_cg_iters, residuals=list(rb.residuals),
+         final_residual=rb.final_residual, r0=rb.r0,
+         ms_per_cg_iter=1e3 * rb.cg_seconds / max(rb.total_cg_iters, 1),
+         seconds=[secs_b0, secs_b1], peak_device_bytes=peak_b,
+         launches=launches_b, cg_iteration_profile=prof_b,
+         u_x_mid_mean=float(mid.mean()), bitwise_equal_runs=True),
+     tolerance="K8 exactly equal to its plain version; against the stored "
+               "stencil rel <= 5e-6 (float32); conv3d yardstick interior "
+               "rel <= 1e-5",
+     seconds=time.perf_counter() - t_phase)
+del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b
+torch.cuda.empty_cache()
+
 # -- summary ------------------------------------------------------------------
 
 REPLACES = {
@@ -833,25 +1303,35 @@ REPLACES = {
     "lane_pass_update": "tpufem/lane/kernels.py:356",
     "lane_fused_elem": "tpufem/lane/kernels.py:521",
     "lane_gather_weighted": "tpufem/lane/kernels.py:568",
+    "lattice_residual": "tpufem/structured/pallas2d.py:197",
+    "lattice_tangent": "tpufem/structured/pallas2d.py:391",
+    "lattice_matvec3d": "tpufem/structured/pallas3d.py:180",
 }
+# launches on each kernel's main path: run's defaults (fused + two-level,
+# phase solve_full_twolevel) for the lane kernels, with the Jacobi solves'
+# counts beside them; path A (structured2d) for K6 / K7; path B
+# (structured3d) for K8
+MAIN_LAUNCHES = {**launches_tl, "lattice_residual":
+                 launches_a["lattice_residual"], "lattice_tangent":
+                 launches_a["lattice_tangent"], "lattice_matvec3d":
+                 launches_b["lattice_matvec3d"]}
 summary = []
 for name, r in results.items():
-    # launches: on the main path, polycrystal.run's defaults (fused +
-    # two-level, phase solve_full_twolevel); the Jacobi solves' counts
-    # are listed beside them
     entry = dict(
         name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
-        replaces=REPLACES[name], launches=launches_tl[name],
+        replaces=REPLACES[name], launches=MAIN_LAUNCHES[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"],
-        launches_staged_jacobi_solve=launches[name],
-        launches_fused_jacobi_solve=launches_fused[name],
     )
+    if name in launches:
+        entry.update(launches_staged_jacobi_solve=launches[name],
+                     launches_fused_jacobi_solve=launches_fused[name])
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
-              "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms"):
+              "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms",
+              "conv3d_yardstick_ms"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

@@ -55,7 +55,12 @@ class SolverConfig:
     newton_atol: float = 5.0e-8
     newton_maxit: int = 10
     # the lane solver's preconditioner: 'jacobi' or 'twolevel' (the
-    # lattice-coarse two-level cycle, lane/twolevel.py); other names of
-    # the reference (amg, chebyshev, mg, ...) raise NotImplementedError
+    # lattice-coarse two-level cycle, lane/twolevel.py); the structured
+    # solver (structured/solve.py): 'mg' (geometric multigrid V-cycle) or
+    # anything else for point Jacobi. Other names of the reference (amg,
+    # chebyshev, ...) raise NotImplementedError in the lane solver
     preconditioner: str = "jacobi"
+    # geometric MG (structured path, preconditioner='mg'): Chebyshev degree
+    # of the V(mg_degree, mg_degree) cycle's smoother
+    mg_degree: int = 3
     verbose: bool = False

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernel library of the lane layout.
+"""Build and load the CUDA kernel library of the port (the lane layout's
+kernels and the structured lattice's).
 
 The sources under ``tpufem_torch/csrc/`` have a plain C interface (no
 PyTorch headers), so ``nvcc`` compiles each in seconds. Every ``.cu`` is
@@ -138,5 +139,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.lane_gather_weighted.restype = ci
         lib.lane_gather_weighted.argtypes = [
             ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        # structured lattice kernels: the constants are a host float array
+        lib.lattice_residual.restype = ci
+        lib.lattice_residual.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        lib.lattice_tangent.restype = ci
+        lib.lattice_tangent.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.lattice_matvec3d.restype = ci
+        lib.lattice_matvec3d.argtypes = [vp, vp, ci, ci, ci, vp, vp]
         _lib = lib
         return _lib

@@ -55,47 +55,54 @@ def _tri_geometry(hx: float, hy: float, orientation: str) -> np.ndarray:
     return np.array([[0.0, 0.0], [hx, hy], [0.0, hy]])
 
 
-def _shifts(arr, offsets, ny1, nx1):
-    """(..., ny1, nx1) views of ``arr`` padded by one node on every side,
-    shifted by each (dy, dx): entry [i, j] of view k is arr[i+dy, j+dx]
-    (0 outside the lattice)."""
-    p = tF.pad(arr, (1, 1, 1, 1))
-    return [p[..., 1 + dy: 1 + dy + ny1, 1 + dx: 1 + dx + nx1]
-            for dy, dx in offsets]
+def _shifts(arr, offsets):
+    """Views of ``arr`` padded by one node on every side of its last
+    ``len(offset)`` axes, shifted by each offset: entry [i, j] of view k
+    (2D) is arr[i+dy, j+dx], 0 outside the lattice."""
+    nd = len(offsets[0])
+    shape = arr.shape[-nd:]
+    p = tF.pad(arr, (1, 1) * nd)
+    return [p[(Ellipsis,) + tuple(slice(1 + o, 1 + o + n)
+                                  for o, n in zip(off, shape))]
+            for off in offsets]
 
 
 class LatticeOperator:
-    """A linear operator on (..., bs, ny+1, nx+1) lattice vectors as a
-    7-point stencil ``S`` (7, bs, bs, ny+1, nx+1):
+    """A linear operator on (..., bs, *lattice) vectors as a stencil of
+    bs x bs blocks: ``S`` (K, bs, bs, *lattice) and its node offsets
+    (K tuples, (0, ..., 0) first). In 2D (``STENCIL_OFFSETS``, 7 points)
 
       y[c, i, j] = sum_k sum_e S[k, c, e, i, j] * v[e, i + dy_k, j + dx_k]
 
-    with (dy_k, dx_k) = ``STENCIL_OFFSETS[k]`` and v = 0 off the lattice.
-    Leading batch dimensions of ``v`` are kept (the dense coarse operator
-    is built from one batched application to unit vectors)."""
+    with v = 0 off the lattice; in 3D the same with 27 offsets
+    (``grid3d.STENCIL_OFFSETS_3D``). Leading batch dimensions of ``v`` are
+    kept (the dense coarse operator is built from one batched application
+    to unit vectors)."""
 
-    def __init__(self, S: torch.Tensor):
+    def __init__(self, S: torch.Tensor, offsets=STENCIL_OFFSETS):
         self.S = S
+        self.offsets = tuple(offsets)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        ny1, nx1 = v.shape[-2:]
-        U = torch.stack(_shifts(v, STENCIL_OFFSETS, ny1, nx1), dim=-4)
-        return (self.S * U.unsqueeze(-4)).sum(dim=(-5, -3))
+        nd = len(self.offsets[0])
+        U = torch.stack(_shifts(v, self.offsets), dim=-(nd + 2))
+        return (self.S * U.unsqueeze(-(nd + 2))).sum(
+            dim=(-(nd + 3), -(nd + 1)))
 
     def diagonal(self) -> torch.Tensor:
-        """(bs, ny+1, nx+1): the operator's diagonal."""
+        """(bs, *lattice): the operator's diagonal."""
         return torch.diagonal(self.S[0], dim1=0, dim2=1).movedim(-1, 0)
 
     def constrained(self, free: torch.Tensor) -> "LatticeOperator":
         """The operator v -> A(v * free) * free + v * (1 - free) (identity
         rows and columns at constrained dofs), as one stencil."""
-        ny1, nx1 = free.shape[-2:]
-        fn = torch.stack(_shifts(free, STENCIL_OFFSETS, ny1, nx1))
-        S = self.S * free[None, :, None] * fn[:, None, :]
+        fn = torch.stack(_shifts(free, self.offsets))
+        S = self.S * free[None, :, None]
+        S *= fn[:, None, :]
         bs = free.shape[0]
         idx = torch.arange(bs, device=S.device)
         S[0, idx, idx] = S[0, idx, idx] + (1.0 - free)
-        return LatticeOperator(S)
+        return LatticeOperator(S, self.offsets)
 
 
 @dataclasses.dataclass

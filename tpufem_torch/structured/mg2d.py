@@ -196,18 +196,29 @@ def coarse_solve(coarse_inv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
-def vcycle(data: MGData, b: torch.Tensor, *, degree: int = 3,
-           lmin_ratio: float = 1.0 / 8.0) -> torch.Tensor:
-    """One symmetric V(degree,degree)-cycle on the stored level
-    operators of ``data`` (from build_mg2d)."""
+def cycle(data: MGData, b: torch.Tensor, prolong: Callable,
+          restrict: Callable, *, degree: int, lmin_ratio: float,
+          matvecs=None) -> torch.Tensor:
+    """One symmetric V(degree,degree)-cycle with the given transfers (the
+    body of :func:`vcycle` and of ``mg3d.vcycle``). Level l applies
+    ``matvecs[l]`` where it is given -- a raw linear operator, masked as
+    v -> raw(v * free) * free + v * (1 - free) -- and its stored
+    constrained stencil otherwise."""
 
     def level(l, b):
         if l == len(data.levels):
             return coarse_solve(data.coarse_inv, b)
         L = data.levels[l]
+        if matvecs is not None and l < len(matvecs) and matvecs[l] is not None:
+            raw, fixed = matvecs[l], 1.0 - L.free
+
+            def A(v, raw=raw, L=L, fixed=fixed):
+                return raw(v * L.free) * L.free + v * fixed
+        else:
+            A = L.op
         kw = dict(degree=degree, lmin_ratio=lmin_ratio)
-        x = chebyshev_iterate(L.op, L.inv_d, L.lmax, b, None, **kw)
-        res = (b - L.op(x)) * L.free
+        x = chebyshev_iterate(A, L.inv_d, L.lmax, b, None, **kw)
+        res = (b - A(x)) * L.free
         next_free = (
             data.levels[l + 1].free
             if l + 1 < len(data.levels)
@@ -216,9 +227,19 @@ def vcycle(data: MGData, b: torch.Tensor, *, degree: int = 3,
         bc = restrict(res) * next_free
         xc = level(l + 1, bc)
         x = x + prolong(xc) * L.free
-        return chebyshev_iterate(L.op, L.inv_d, L.lmax, b, x, **kw)
+        return chebyshev_iterate(A, L.inv_d, L.lmax, b, x, **kw)
 
     return level(0, b)
+
+
+def vcycle(data: MGData, b: torch.Tensor, *, degree: int = 3,
+           lmin_ratio: float = 1.0 / 8.0, matvecs=None) -> torch.Tensor:
+    """One symmetric V(degree,degree)-cycle on the stored level
+    operators of ``data`` (from build_mg2d); ``matvecs``: optional
+    per-level raw linear operators overriding the stored stencils (see
+    :func:`cycle`)."""
+    return cycle(data, b, prolong, restrict, degree=degree,
+                 lmin_ratio=lmin_ratio, matvecs=matvecs)
 
 
 def mg_preconditioner(*, degree: int = 3,
