@@ -43,7 +43,8 @@ prints one JSON line per phase:
 9. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
                    against their plain versions at n = 1024 and two small
                    odd shapes and against the generic lattice's AD residual
-                   and tangent, the K6 assembly rate (MDoF/s); path A: the
+                   and tangent, their times warm (inputs in L2) and cold
+                   (from HBM), the K6 assembly rate (MDoF/s); path A: the
                    structured nonlinear solve of
                    ``benchmarks/mechanic2d_pallas_bench.py`` at n = 1024
                    (K6 right-hand side, K7 CG operator, Jacobi) to
@@ -55,8 +56,10 @@ prints one JSON line per phase:
                    the conv3d yardstick; path B: the pulled bar of
                    ``benchmarks/solve3d_bench.py`` at n = 160 (12.5 M dofs)
                    through ``make_grid_solver`` with multigrid and K8 on
-                   the levels of >= 16 cells, twice, bitwise equal, K8
-                   launches, one CG iteration under the profiler
+                   the levels of >= 16 cells (no stored stencil there),
+                   twice, bitwise equal, K8 launches, the hierarchy build
+                   and one residual timed alone, one CG iteration under
+                   the profiler
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -70,6 +73,7 @@ the structured problems are the benchmarks' own, made from numpy.
 """
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -106,6 +110,8 @@ from tpufem_torch.structured import mg3d  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+TRIALS = 11  # readings behind a median time
+COLD_SETS = 8  # input copies a cold timing cycles through
 F32_FLOPS_PER_S = 67e12  # same sheet, float32 outside the tensor cores
 N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 # caps of the full-width solve (it shows the path and its reproducibility,
@@ -145,6 +151,12 @@ def time_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, reps):
+    """[median, least, most] of TRIALS readings of :func:`time_ms`."""
+    t = sorted(time_ms(fn, reps) for _ in range(TRIALS))
+    return [t[TRIALS // 2], t[0], t[-1]]
 
 
 def nbytes(*tensors):
@@ -997,14 +1009,24 @@ for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517)):
         if nx_ != N_A:
             record(name, err, None, None, None, None)
             continue
-        ms = time_ms(lambda: fn(*args), 50)
+        # per pass: the median of TRIALS timings of back-to-back passes,
+        # warm (the same inputs, which the 50 MB L2 holds) and cold
+        # (COLD_SETS copies of the inputs in turn, several times what L2
+        # holds, so every pass reads its inputs from HBM); the kernels line
+        # carries the cold time, the one the byte bound speaks of
+        warm = median_ms(lambda: fn(*args), 8 * COLD_SETS)
+        sets = itertools.cycle([args] + [tuple(a.clone() for a in args)
+                                         for _ in range(COLD_SETS - 1)])
+        cold = median_ms(lambda: fn(*next(sets)), 8 * COLD_SETS)
         pms = time_ms(lambda: plain(*args, fn.consts), 5)
         b = nbytes(*args, out)
         flops = fl * nx_ * ny_
         b_ms = b / HBM_BYTES_PER_S * 1e3
         f_ms = flops / F32_FLOPS_PER_S * 1e3
-        record(name, err, ms, pms, b, None, flops=flops, ops_bound_ms=f_ms,
-               shape=f"{nx_}x{ny_}")
+        record(name, err, cold[0], pms, b, None, flops=flops,
+               ops_bound_ms=f_ms, shape=f"{nx_}x{ny_}", cold_ms_range=cold,
+               warm_ms=warm[0], warm_ms_range=warm)
+        del sets
         results[name].update(bound_ms=max(b_ms, f_ms),
                              bound_by="bytes" if b_ms >= f_ms
                              else "operations")
@@ -1021,11 +1043,15 @@ for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517)):
               f"K6/K7 against grid2d: rel {rel_r} / {rel_t}")
         s2_err.update(k6_vs_grid2d_residual_rel=rel_r,
                       k7_vs_grid2d_tangent_rel=rel_t)
-        # the K6 assembly rate bench.py headlines: back-to-back passes
-        pass_ms = time_ms(lambda: res_k(u_k, d_k), 200)
+        # the K6 assembly rate bench.py headlines (back-to-back passes on
+        # the same inputs: warm), and the rate of passes from HBM (cold)
+        r6, ndof = results["lattice_residual"], 2 * (N_A + 1) ** 2
         s2_shapes["assembly"] = dict(
-            n=N_A, n_dofs=2 * (N_A + 1) ** 2, pass_ms=pass_ms,
-            mdof_per_s=2 * (N_A + 1) ** 2 / (pass_ms * 1e-3) / 1e6)
+            n=N_A, n_dofs=ndof, trials=TRIALS, passes=8 * COLD_SETS,
+            warm_pass_ms=r6["warm_ms_range"],
+            cold_pass_ms=r6["cold_ms_range"],
+            mdof_per_s=ndof / (r6["warm_ms"] * 1e-3) / 1e6,
+            cold_mdof_per_s=ndof / (r6["ms"] * 1e-3) / 1e6)
         del grid_k, ta, ra_
     del u_k, v_k, d_k
 
@@ -1247,10 +1273,31 @@ check(rb.residuals == rb1.residuals and rb.cg_iters == rb1.cg_iters
       and torch.equal(rb.u, rb1.u),
       "path B: trajectory, CG counts or u differ between two runs")
 # path B's hierarchy (the solver builds it at every Newton step): for the
-# launch count and for one CG iteration under the profiler
+# launch count, for one CG iteration under the profiler, and for the split
+# of the solve's time (the build, one residual, the fine level's diagonal
+# and one call of the K8 factory, each timed alone)
 free_b, _ = bar_problem3d(N_B)
-grids_b, data_b = mg3d.build_mg3d(bar_grid3d(N_B), rb.u, {}, free_b)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+grids_b, data_b = mg3d.build_mg3d(bar_grid3d(N_B), rb.u, {}, free_b,
+                                  matvec_factory=k8_factory)
+torch.cuda.synchronize()
+build_secs_b = time.perf_counter() - t0
+t0 = time.perf_counter()
+res_b = bar_grid3d(N_B).residual(rb.u, {})
+torch.cuda.synchronize()
+residual_secs_b = time.perf_counter() - t0
+t0 = time.perf_counter()
+bar_grid3d(N_B).diagonal(rb.u, {})
+torch.cuda.synchronize()
+diagonal_secs_b = time.perf_counter() - t0
+t0 = time.perf_counter()
+k8_factory(bar_grid3d(N_B))  # the law's proof and the stencil constants
+factory_secs_b = time.perf_counter() - t0
 mvs_b = [k8_factory(g) for g in grids_b[:-1]]
+check(all((lv.op is None) == (m is not None)
+          for lv, m in zip(data_b.levels, mvs_b)),
+      "path B: a level on K8 stores a stencil, or one without K8 lacks it")
 k8_levels = sum(m is not None for m in mvs_b)
 check([g.nx for g in grids_b] == HIERARCHY_B
       and data_b.coarse_inv.shape == (COARSE_B, COARSE_B)
@@ -1259,8 +1306,10 @@ check([g.nx for g in grids_b] == HIERARCHY_B
       f"{tuple(data_b.coarse_inv.shape)}, {k8_levels} K8 levels")
 # K8 on the levels of >= 16 cells: the fine CG operator once per CG
 # iteration, 8 smoother applications per level per V-cycle (one V-cycle
-# per CG iteration and one for z0)
-want_k8 = sum(k + (k + 1) * 8 * k8_levels for k in rb.cg_iters)
+# per CG iteration and one for z0), and at each Newton step's build the
+# level's power iterations and Rayleigh quotient
+want_k8 = sum(k + (k + 1) * 8 * k8_levels
+              + (mg3d.POWER_ITERS + 1) * k8_levels for k in rb.cg_iters)
 check(launches_b["lattice_matvec3d"] == want_k8,
       f"path B: {launches_b['lattice_matvec3d']} K8 launches, expected "
       f"{want_k8}")
@@ -1274,7 +1323,7 @@ fixed_b = 1.0 - free_b
 step_b = cg_iteration(
     lambda v: mvs_b[0](v * free_b) * free_b + v * fixed_b,
     lambda r: mg3d.vcycle(data_b, r, degree=CFG_B.mg_degree, matvecs=mvs_b),
-    -bar_grid3d(N_B).residual(rb.u, {}) * free_b)
+    -res_b * free_b)
 prof_b = cg_profile._part(step_b, 10)
 emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
      checks=s3, path_b=dict(
@@ -1286,13 +1335,17 @@ emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
          final_residual=rb.final_residual, r0=rb.r0,
          ms_per_cg_iter=1e3 * rb.cg_seconds / max(rb.total_cg_iters, 1),
          seconds=[secs_b0, secs_b1], peak_device_bytes=peak_b,
+         hierarchy_build_seconds=build_secs_b,
+         residual_seconds=residual_secs_b,
+         fine_diagonal_seconds=diagonal_secs_b,
+         k8_factory_seconds=factory_secs_b,
          launches=launches_b, cg_iteration_profile=prof_b,
          u_x_mid_mean=float(mid.mean()), bitwise_equal_runs=True),
      tolerance="K8 exactly equal to its plain version; against the stored "
                "stencil rel <= 5e-6 (float32); conv3d yardstick interior "
                "rel <= 1e-5",
      seconds=time.perf_counter() - t_phase)
-del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b
+del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b, res_b
 torch.cuda.empty_cache()
 
 # -- summary ------------------------------------------------------------------
@@ -1331,7 +1384,7 @@ for name, r in results.items():
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
               "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms",
-              "conv3d_yardstick_ms"):
+              "conv3d_yardstick_ms", "warm_ms"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

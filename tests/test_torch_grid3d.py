@@ -195,24 +195,32 @@ def test_mg3d_coarse_operator_is_galerkin():
         Ac.abs().max())
 
 
-def test_mg3d_vcycle_with_and_without_k8():
+@pytest.fixture
+def bar8(monkeypatch):
+    """An 8x8x8 pulled bar with one multigrid level above the dense coarse
+    solve: the lattice (2187 dofs) is below ``mg3d.COARSE_DOFS``, which
+    the fixture lowers to 1000 for the test."""
+    monkeypatch.setattr(t_mg3, "COARSE_DOFS", 1000)
+    n = 8
+    _, gt = _grids(n, n, n, "linear")
+    free = torch.ones((3, n + 1, n + 1, n + 1), dtype=torch.float64)
+    free[..., 0] = 0.0
+    free[..., -1] = 0.0
+    return gt, free
+
+
+def test_mg3d_vcycle_with_and_without_k8(bar8):
     """The hierarchy of an 8x8x8 pulled bar: levels, coarse size, and one
     V-cycle on the stored stencils against the same cycle with K8 (plain)
     overriding the level-0 smoother operator: equal to K8's float32
     rounding. The cycle is symmetric (CG needs it)."""
-    n = 8
-    _, gt = _grids(n, n, n, "linear")
-    shape = (3, n + 1, n + 1, n + 1)
-    free = torch.ones(shape, dtype=torch.float64)
-    free[..., 0] = 0.0
-    free[..., -1] = 0.0
-    grids, data = t_mg3.build_mg3d(gt, torch.zeros(shape, dtype=torch.float64),
-                                   {}, free, coarse_dofs=1000)
+    gt, free = bar8
+    grids, data = t_mg3.build_mg3d(gt, torch.zeros_like(free), {}, free)
     assert [g.nx for g in grids] == [8, 4] and len(data.levels) == 1
     assert data.coarse_inv.shape == (375, 375)
     rng = np.random.default_rng(4)
-    b = _t(rng.standard_normal(shape)) * free
-    c = _t(rng.standard_normal(shape)) * free
+    b = _t(rng.standard_normal(free.shape)) * free
+    c = _t(rng.standard_normal(free.shape)) * free
     z = t_mg3.vcycle(data, b)
     mv = [K3.make_linear_matvec(gt, E, NU)]
     z8 = t_mg3.vcycle(data, b, matvecs=mv)
@@ -220,3 +228,29 @@ def test_mg3d_vcycle_with_and_without_k8():
     lhs = float((t_mg3.vcycle(data, c) * b).sum())
     rhs = float((z * c).sum())
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+def test_mg3d_level_with_a_matvec_stores_no_stencil(bar8):
+    """build_mg3d with a matvec factory (K8 plain on the fine level, None
+    below): that level keeps no stencil, its inverse diagonal is the
+    stored stencil's (rel <= 1e-12: grid.diagonal against the stencil's
+    diagonal, sums in another order) and its lambda_max the power
+    iteration's through K8 (rel <= 1e-5: K8 rounds to float32); the cycle
+    on it equals the cycle on the stored data given the same matvec to
+    that rounding. Without the matvec the cycle refuses that level."""
+    gt, free = bar8
+    u = torch.zeros_like(free)
+    mv = K3.make_linear_matvec(gt, E, NU)
+    _, data = t_mg3.build_mg3d(
+        gt, u, {}, free, matvec_factory=lambda g: mv if g.nx == 8 else None)
+    _, ref = t_mg3.build_mg3d(gt, u, {}, free)
+    (lv,), (rl,) = data.levels, ref.levels
+    assert lv.op is None and rl.op is not None
+    assert _rel(lv.inv_d, rl.inv_d) <= 1e-12
+    assert abs(lv.lmax - rl.lmax) <= 1e-5 * rl.lmax
+    assert torch.equal(data.coarse_inv, ref.coarse_inv)
+    b = _t(np.random.default_rng(5).standard_normal(free.shape)) * free
+    z = t_mg3.vcycle(data, b, matvecs=[mv])
+    assert _rel(z, t_mg3.vcycle(ref, b, matvecs=[mv])) <= 1e-5
+    with pytest.raises(ValueError, match="stores no operator"):
+        t_mg3.vcycle(data, b)

@@ -171,9 +171,9 @@ class StructuredGrid3D:
     def _hessians(self, u, fields):
         """Per quadrature point q: (q, H) with H (bs, 3, bs, 3, nz, ny, nx)
         the Hessian of the density with respect to the displacement
-        gradient, H[c, d, e, f] = d sigma_cd / d G_ef: one backward pass
-        through the stress per component (every cell at once; the cells
-        are independent)."""
+        gradient, H[c, d, e, f] = d sigma_cd / d G_ef: the backward pass
+        through the stress batched over its bs*3 components (every cell
+        at once; the cells are independent)."""
         bs = self.bs
         with torch.enable_grad():
             for q in range(self._nq):
@@ -181,12 +181,14 @@ class StructuredGrid3D:
                 psi = torch.sum(self.energy_density(
                     _smat(G, bs), self._coeffs_at_qp(fields, q, u)))
                 (sig,) = torch.autograd.grad(psi, G, create_graph=True)
-                rows = [torch.autograd.grad(
-                    sig[c, d].sum(), G, retain_graph=True, allow_unused=True,
-                    materialize_grads=True)[0]
-                    for c in range(bs) for d in range(3)]
-                H = torch.stack(rows).detach()  # (bs*3, bs, 3, cells)
-                yield q, H.reshape((bs, 3, bs, 3) + H.shape[3:])
+                # row k of the batch seeds component k of sigma
+                seeds = torch.eye(bs * 3, dtype=G.dtype, device=G.device)
+                seeds = seeds.reshape((bs * 3, bs, 3) + (1,) * (G.dim() - 2))
+                (H,) = torch.autograd.grad(
+                    sig, G, grad_outputs=seeds.expand((bs * 3,) + G.shape),
+                    is_grads_batched=True, materialize_grads=True)
+                # (bs*3, bs, 3, cells)
+                yield q, H.detach().reshape((bs, 3, bs, 3) + H.shape[3:])
 
     def diagonal(self, u, fields):
         """Jacobian diagonal: sum_q w_q dN_k^T H_q[c, :, c, :] dN_k per

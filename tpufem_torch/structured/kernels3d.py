@@ -168,8 +168,8 @@ def _prove_linear_law(grid: StructuredGrid3D, Ke: np.ndarray) -> None:
     ref = torch.as_tensor(Ke.reshape(24, 24))
     for u0 in (np.zeros((8, 3)), 1e-3 * rng.standard_normal((8, 3))):
         H = torch.autograd.functional.hessian(
-            lambda w: energy(w, {}),
-            torch.as_tensor(u0, dtype=torch.float64)).reshape(24, 24)
+            lambda w: energy(w, {}), torch.as_tensor(u0, dtype=torch.float64),
+            vectorize=True).reshape(24, 24)
         if float((H - ref).abs().max()) > 1e-9 * float(ref.abs().max()):
             raise NotImplementedError(
                 "make_linear_matvec: the grid's energy is not isotropic "

@@ -24,7 +24,7 @@ differentiates.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +40,9 @@ class MGLevel(NamedTuple):
     free: torch.Tensor  # (bs, ny+1, nx+1) 1.0 on unknowns
     inv_d: torch.Tensor  # 1/diag of the constrained operator
     lmax: float  # lambda_max(D^-1 A) estimate
-    op: LatticeOperator  # the constrained operator, linearized at u_lin
+    # the constrained operator, linearized at u_lin; None on a 3D level
+    # whose raw matvec the cycle is given instead (mg3d.build_mg3d)
+    op: Optional[LatticeOperator]
 
 
 class MGData(NamedTuple):
@@ -214,8 +216,11 @@ def cycle(data: MGData, b: torch.Tensor, prolong: Callable,
 
             def A(v, raw=raw, L=L, fixed=fixed):
                 return raw(v * L.free) * L.free + v * fixed
-        else:
+        elif L.op is not None:
             A = L.op
+        else:
+            raise ValueError(f"multigrid level {l} stores no operator: "
+                             "pass its matvec in matvecs")
         kw = dict(degree=degree, lmin_ratio=lmin_ratio)
         x = chebyshev_iterate(A, L.inv_d, L.lmax, b, None, **kw)
         res = (b - A(x)) * L.free

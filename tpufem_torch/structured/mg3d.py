@@ -4,24 +4,33 @@ The design of structured.mg2d (see there for the coarse-Dirichlet
 masking): Q1 spaces are nested under dyadic refinement, trilinear
 interpolation is the exact nested prolongation and its transpose the
 restriction -- both compositions of 1-D [1/2, 1, 1/2] stencils per axis,
-so everything is slice arithmetic. Each level's operator is linearized
-once, at set-up, into a 27-point stencil with the Dirichlet rows folded
-in; the coarsest is inverted densely on the host in float64. The V-cycle
-plugs into ``make_grid_solver`` unchanged (preconditioner='mg' dispatches
-on the grid type).
+so everything is slice arithmetic. A level the caller gives a raw matvec
+(K8, ``structured.kernels3d``) keeps no operator of its own: its Jacobi
+diagonal comes from ``grid.diagonal`` and its lambda_max from power
+iterations through the masked matvec, as the reference takes them from
+the diagonal and the tangent. Any other level is linearized once, at
+set-up, into a 27-point stencil with the Dirichlet rows folded in; the
+coarsest is inverted densely on the host in float64. The V-cycle plugs
+into ``make_grid_solver`` unchanged (preconditioner='mg' dispatches on
+the grid type).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as tF
 
+from tpufem_torch.la.precond import power_lambda_max
 from tpufem_torch.structured.grid3d import StructuredGrid3D
 from tpufem_torch.structured.mg2d import (MGData, MGLevel, cycle,
                                           dense_coarse_inverse,
                                           level_smoother_data)
+
+COARSE_DOFS = 3000  # coarsen while a level holds more dofs than this
+POWER_ITERS = 15  # power iterations for each level's lambda_max
+LMIN_RATIO = 1.0 / 8.0  # the Chebyshev smoother's band: its low end / top
 
 
 def _prolong_axis(c: torch.Tensor, axis: int) -> torch.Tensor:
@@ -92,22 +101,40 @@ def build_mg3d(
     fields: Dict[str, torch.Tensor],
     free: torch.Tensor,
     *,
-    coarse_dofs: int = 3000,
-    power_iters: int = 15,
+    matvec_factory: Optional[Callable] = None,
 ) -> Tuple[Tuple[StructuredGrid3D, ...], MGData]:
     """Build the hierarchy at the current linearization state: coarsens
     while nx, ny, nz stay even and >= 4 and the level is above
-    ``coarse_dofs``; the coarsest operator is materialized dense."""
+    ``COARSE_DOFS``; the coarsest operator is materialized dense.
+
+    ``matvec_factory``: optional callable level grid -> raw linear matvec
+    or None (``make_grid_solver``'s ``mg_matvec_factory``). A level with a
+    matvec stores no stencil (``MGLevel.op`` is None): the V-cycle must
+    then be given that matvec (``vcycle(matvecs=)``)."""
     grids = [grid]
     levels = []
     g, u, flds, fr = grid, u_lin, fields, free
     while (
         g.nx % 2 == 0 and g.ny % 2 == 0 and g.nz % 2 == 0
         and min(g.nx, g.ny, g.nz) >= 4
-        and u.numel() > coarse_dofs
+        and u.numel() > COARSE_DOFS
     ):
-        op = g.operator(u, flds, fr)
-        inv_d, lmax = level_smoother_data(op, fr, power_iters)
+        raw = matvec_factory(g) if matvec_factory is not None else None
+        if raw is None:
+            op = g.operator(u, flds, fr)
+            inv_d, lmax = level_smoother_data(op, fr, POWER_ITERS)
+        else:
+            op = None
+            d = g.diagonal(u, flds) * fr + (1.0 - fr)
+            one = torch.ones_like(d)
+            inv_d = torch.where(d != 0, 1.0 / torch.where(d == 0, one, d),
+                                one)
+            fixed = 1.0 - fr
+
+            def A(v, raw=raw, fr=fr, fixed=fixed):
+                return raw(v * fr) * fr + v * fixed
+
+            lmax = power_lambda_max(A, inv_d, fr, POWER_ITERS)
         levels.append(MGLevel(u_lin=u, fields=flds, free=fr, inv_d=inv_d,
                               lmax=lmax, op=op))
         flds = _coarsen_fields(g, flds)
@@ -123,11 +150,12 @@ def build_mg3d(
 
 
 def vcycle(data: MGData, b: torch.Tensor, *, degree: int = 3,
-           lmin_ratio: float = 1.0 / 8.0, matvecs=None) -> torch.Tensor:
-    """One symmetric V(degree,degree)-cycle on the stored level operators
-    of ``data`` (from build_mg3d). ``matvecs``: optional per-level raw
+           matvecs=None) -> torch.Tensor:
+    """One symmetric V(degree,degree)-cycle on the level operators of
+    ``data`` (from build_mg3d). ``matvecs``: optional per-level raw
     linear operators (e.g. the K8 constant-stencil matvec,
     structured.kernels3d) replacing the stored stencil in the smoothers --
-    the fine level dominates the cycle's cost."""
+    the fine level dominates the cycle's cost; a level built without a
+    stencil needs its matvec here."""
     return cycle(data, b, prolong, restrict, degree=degree,
-                 lmin_ratio=lmin_ratio, matvecs=matvecs)
+                 lmin_ratio=LMIN_RATIO, matvecs=matvecs)

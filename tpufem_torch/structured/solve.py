@@ -9,7 +9,9 @@ after convergence inside the last chunk run too, as in the reference.
 Operators, per Newton step:
 - ``mg_matvec_factory`` given: its raw linear matvec (e.g. K8,
   ``structured.kernels3d``) as the fine CG operator and, per level, in
-  the V-cycle's smoothers where it returns one;
+  the V-cycle's smoothers where it returns one (in 3D such a level
+  stores no stencil: its smoother data come from ``grid.diagonal`` and
+  power iterations through the matvec);
 - otherwise the tangent linearized once into a stored stencil
   (``grid.operator``: a 7-point stencil in 2D, 27-point in 3D) -- the
   reference applies ``jax.jvp`` of the residual per CG iteration, free
@@ -69,7 +71,8 @@ def make_grid_solver(
 
     ``mg_matvec_factory``: optional callable grid_level -> raw linear
     matvec (or None); used for the CG operator at the fine level and the
-    MG smoothers per level (K8 for linear constant-coefficient problems).
+    MG smoothers per level (K8 for linear constant-coefficient problems),
+    called once per lattice.
 
     ``inner_dtype`` (e.g. torch.float32): mixed precision -- the Newton
     residual, the iterate and the update stay in u0's dtype, while each CG
@@ -81,9 +84,17 @@ def make_grid_solver(
     """
     cfg = cfg or SolverConfig()
     use_mg = cfg.preconditioner == "mg"
-    mg_mod = mg3d if isinstance(grid, StructuredGrid3D) else mg2d
-    build = mg3d.build_mg3d if mg_mod is mg3d else mg2d.build_mg2d
+    is_3d = isinstance(grid, StructuredGrid3D)
+    mg_mod = mg3d if is_3d else mg2d
     cache = {}  # the factory's matvecs: the lattices repeat every step
+
+    def level_matvec(g):
+        key = (g.nx, g.ny, getattr(g, "nz", None))
+        if key not in cache:
+            cache[key] = mg_matvec_factory(g)
+        return cache[key]
+
+    factory = level_matvec if mg_matvec_factory is not None else None
 
     def rhs(u, fields, free, load_r):
         b = -(grid.residual(u, fields) - load_r) * free
@@ -133,14 +144,19 @@ def make_grid_solver(
             # the preconditioner and the CG operator of this step
             op = None
             if use_mg:
-                grids, data = build(grid, u_in, fields_in, free_in)
-                if mg_matvec_factory is not None and "levels" not in cache:
-                    cache["levels"] = [mg_matvec_factory(g)
-                                       for g in grids[:-1]]
+                if is_3d:
+                    grids, data = mg3d.build_mg3d(
+                        grid, u_in, fields_in, free_in,
+                        matvec_factory=factory)
+                else:
+                    grids, data = mg2d.build_mg2d(grid, u_in, fields_in,
+                                                  free_in)
+                matvecs = ([factory(g) for g in grids[:-1]]
+                           if factory is not None else None)
 
-                def M(r, data=data):
+                def M(r, data=data, matvecs=matvecs):
                     return mg_mod.vcycle(data, r, degree=cfg.mg_degree,
-                                         matvecs=cache.get("levels"))
+                                         matvecs=matvecs)
 
                 if data.levels:
                     op = data.levels[0].op
@@ -152,11 +168,7 @@ def make_grid_solver(
 
                 def M(r, inv_d=inv_d):
                     return inv_d * r
-            if mg_matvec_factory is not None and "fine" not in cache:
-                levels = cache.get("levels")
-                cache["fine"] = (levels[0] if levels
-                                 else mg_matvec_factory(grid))
-            raw = cache.get("fine")
+            raw = factory(grid) if factory is not None else None
             if raw is not None:
                 fixed = 1.0 - free_in
 
