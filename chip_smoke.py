@@ -16,8 +16,12 @@ prints one JSON line per phase:
                    (float32/float64 values, int8/int32 indices, both modes
                    of the pass kernel; the fused element kernel in both
                    modes and both laws; the weighted gather at the
-                   two-level restriction and prolongation tables), with
-                   times and the bound
+                   two-level restriction and prolongation tables; the
+                   three kernels on no path -- K9 lane_gather at K1's
+                   tables in both modes, K10 lane_scatter at their
+                   transpose, K11 lane_scatter_weighted as the adjoint of
+                   the prolongation, checked as such against K5 in
+                   float64), with times, the bound and a yardstick
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
                    the fused engine against the staged one and the
@@ -40,7 +44,16 @@ prints one JSON line per phase:
                    of the preconditioner), the phase table with the
                    two-level set-up, peak memory, and one CG iteration
                    split into its parts under the profiler
-9. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
+9. ``solve_full_mixed`` ``polycrystal.run(mixed=True)``: the float64
+                   Newton loop on the flat assembler around float32 lane
+                   CG (fused engine, two-level), n = 1024 with ``run``'s
+                   defaults to convergence, twice: bitwise equal
+                   trajectory, CG counts and u, the phase split, one
+                   float64 outer residual timed alone, peak memory, K1-K5
+                   launches; the same problem solved in float64 on the lane
+                   engine for its time; n = 256 mixed to 1e-10 * r0 held
+                   against a float64 lane solve (u rel <= 2e-7)
+10. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
                    against their plain versions at n = 1024 and two small
                    odd shapes and against the generic lattice's AD residual
                    and tangent, their times warm (inputs in L2) and cold
@@ -51,7 +64,7 @@ prints one JSON line per phase:
                    convergence, twice, bitwise equal, launch counts, one CG
                    iteration under the profiler; the same problem at
                    n = 256 through ``make_grid_solver`` with multigrid
-10. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
+11. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
                    n = 160 and 9x7x11, against the stored 27-point stencil,
                    the conv3d yardstick; path B: the pulled bar of
                    ``benchmarks/solve3d_bench.py`` at n = 160 (12.5 M dofs)
@@ -119,8 +132,8 @@ N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
-          "solve_full_fused", "solve_full_twolevel", "structured2d",
-          "structured3d")
+          "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
+          "structured2d", "structured3d")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -518,11 +531,200 @@ for vdt in (torch.float32, torch.float64):
                 record("lane_gather_weighted", err, None, None, None, None)
             del out, ref, vals
 
+# K9 lane_gather, K10 lane_scatter, K11 lane_scatter_weighted: no path of
+# either package calls them. K9 at K1's tables (both modes), K10 at their
+# transpose (each bin's V * kc cell slots as source rows, the bin window as
+# destination), K11 as the adjoint of K5's prolongation tables. Exactly
+# equal to the plain versions (moves, or sums in the plain order without
+# fused multiply-adds).
+SK10 = V_ * kc
+k10_starts = torch.arange(G, dtype=torch.int32, device=DEV) * SK10
+k11_starts = torch.arange(G, dtype=torch.int32, device=DEV) * wg
+p_st, p_ix, p_w = tl_geo["p_starts"], tl_geo["p_idx"], tl_geo["p_wts"]
+WRP, RV = tl_static.WRp, tl_static.Rv
+
+
+def index_add_dest(dest, k_out, rows_per_bin):
+    """int64 positions in a (T * k_out * 128 + 1) accumulator of every
+    source entry of a (T, ..., rows_per_bin, 128) table (-1 -> the last)."""
+    ii = dest.to(torch.int64)
+    tt = torch.arange(dest.shape[0], device=DEV).view(
+        -1, *([1] * (dest.dim() - 1)))
+    lane = torch.arange(128, device=DEV)
+    flat = (tt * k_out + ii) * 128 + lane
+    return torch.where((ii >= 0) & (ii < k_out), flat,
+                       torch.full_like(flat, dest.shape[0] * k_out * 128))
+
+
+def bound_of(b, flops):
+    b_ms = b / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
+
+
+for vdt in (torch.float32, torch.float64):
+    for idt in (torch.int8, torch.int32):
+        main = vdt == torch.float32 and idt == eng_full.gather_idx.dtype
+        gidx = eng_full.gather_idx.to(idt)
+        starts = eng_full.gather_starts
+        values = torch.randn((C, p.R, 128), dtype=vdt, device=DEV,
+                             generator=gen)
+        # K9, per v and summed over v
+        for sum_v in (False, True):
+            kw = dict(wr=wg, sum_v=sum_v)
+            out = K.lane_gather(values, starts, gidx, **kw)
+            torch.cuda.synchronize()
+            ref = K.lane_gather_plain(values, starts, gidx, **kw)
+            err = float((out - ref).abs().max())
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"lane_gather sum_v={sum_v} {vdt} {idt}: {err}")
+            if not main:
+                record("lane_gather", err, None, None, None, None)
+                continue
+            ms_r = median_ms(
+                lambda: K.lane_gather(values, starts, gidx, **kw), 20)
+            ms = ms_r[0]
+            pms = time_ms(lambda: K.lane_gather_plain(values, starts, gidx,
+                                                      **kw), 3)
+            b = nbytes(values, starts, gidx, out)
+            n_valid = int((gidx >= 0).sum()) * C
+            if not sum_v:
+                # yardstick: one torch.gather over int64 global indices
+                # expanded outside the timing (-1 -> an appended 0)
+                ii = gidx.to(torch.int64)
+                lane = torch.arange(128, device=DEV)
+                flat = (starts.to(torch.int64).view(G, 1, 1, 1) + ii) * 128 \
+                    + lane
+                flat = torch.where(ii >= 0, flat,
+                                   torch.full_like(flat, p.R * 128))
+                flat = flat.reshape(1, -1).expand(C, -1)
+                vext = torch.cat([values.reshape(C, -1),
+                                  values.new_zeros((C, 1))], dim=1)
+                lib = torch.gather(vext, 1, flat).reshape(C, G, V_, kc, 128)
+                check(torch.equal(lib.permute(1, 0, 2, 3, 4), ref),
+                      "lane_gather yardstick disagrees")
+                lms = median_ms(lambda: torch.gather(vext, 1, flat), 10)[0]
+                record("lane_gather", err, ms, pms, b, lms, ms_range=ms_r)
+                del flat, vext, lib, ii
+            else:
+                bms, by = bound_of(b, n_valid)
+                results["lane_gather"].update(
+                    sum_v_ms=ms, sum_v_ms_range=ms_r, sum_v_plain_ms=pms,
+                    sum_v_bound_ms=bms, sum_v_bound_by=by)
+                record("lane_gather", err, None, None, None, None)
+        del values
+        # K10 at the transpose of K1's tables
+        didx = gidx.reshape(G, SK10, 128)
+        src = torch.randn((C, G * SK10, 128), dtype=vdt, device=DEV,
+                          generator=gen)
+        kw = dict(sk=SK10, k_out=wg)
+        out = K.lane_scatter(src, k10_starts, didx, **kw)
+        torch.cuda.synchronize()
+        ref = K.lane_scatter_plain(src, k10_starts, didx, **kw)
+        err = float((out - ref).abs().max())
+        check(out.shape == (G, C, wg, 128) and torch.equal(out, ref),
+              f"lane_scatter {vdt} {idt}: {err}")
+        if main:
+            ms_r = median_ms(
+                lambda: K.lane_scatter(src, k10_starts, didx, **kw), 20)
+            ms = ms_r[0]
+            pms = time_ms(lambda: K.lane_scatter_plain(src, k10_starts,
+                                                       didx, **kw), 2)
+            # yardstick: one index_add_ (float atomics: close, not equal)
+            dest = index_add_dest(didx, wg, SK10).reshape(-1)
+            s2 = src.reshape(C, -1).T.contiguous()  # (G*SK10*128, C)
+            acc = torch.zeros((G * wg * 128 + 1, C), dtype=vdt, device=DEV)
+            acc.index_add_(0, dest, s2)
+            lib = acc[:-1].reshape(G, wg, 128, C).permute(0, 3, 1, 2)
+            check(float((lib - ref).abs().max())
+                  <= 1e-4 * float(ref.abs().max()),
+                  "lane_scatter yardstick disagrees")
+            lms = median_ms(lambda: acc.index_add_(0, dest, s2), 10)[0]
+            bms, by = bound_of(nbytes(src, k10_starts, didx, out),
+                               int((didx >= 0).sum()) * C)
+            record("lane_scatter", err, ms, pms,
+                   nbytes(src, k10_starts, didx, out), lms, ms_range=ms_r)
+            results["lane_scatter"].update(bound_ms=bms, bound_by=by)
+            del dest, s2, acc, lib
+        else:
+            record("lane_scatter", err, None, None, None, None)
+        del src, out, ref
+        # K11 on K5's prolongation tables (the adjoint direction)
+        ix11, w11 = p_ix.to(idt), p_w.to(vdt)
+        src = torch.randn((C, G * wg, 128), dtype=vdt, device=DEV,
+                          generator=gen)
+        kw = dict(sk=wg, k_out=WRP, n_dest=ix11.shape[1])
+        out = K.lane_scatter_weighted(src, k11_starts, ix11, w11, **kw)
+        torch.cuda.synchronize()
+        ref = K.lane_scatter_weighted_plain(src, k11_starts, ix11, w11, **kw)
+        err = float((out - ref).abs().max())
+        check(out.shape == (G, C, WRP, 128) and torch.equal(out, ref),
+              f"lane_scatter_weighted {vdt} {idt}: {err}")
+        if main:
+            args11 = (src, k11_starts, ix11, w11)
+            ms_r = median_ms(lambda: K.lane_scatter_weighted(*args11, **kw),
+                             20)
+            ms = ms_r[0]
+            pms = time_ms(lambda: K.lane_scatter_weighted_plain(*args11,
+                                                                **kw), 2)
+            # yardstick (two PyTorch calls, not one: no library_ms): the
+            # products, then one index_add_ of them
+            dest = index_add_dest(ix11, WRP, wg).reshape(-1)
+            src_t = src.view(C, G, 1, wg, 128).permute(1, 2, 3, 4, 0) \
+                .contiguous()  # (G, 1, wg, 128, C)
+            acc = torch.zeros((G * WRP * 128 + 1, C), dtype=vdt, device=DEV)
+
+            def mul_index_add():
+                prod = w11.unsqueeze(-1) * src_t  # (G, D, wg, 128, C)
+                return acc.index_add_(0, dest, prod.view(-1, C))
+
+            mul_index_add()
+            lib = acc[:-1].reshape(G, WRP, 128, C).permute(0, 3, 1, 2)
+            check(float((lib - ref).abs().max())
+                  <= 1e-4 * float(ref.abs().max()),
+                  "lane_scatter_weighted yardstick disagrees")
+            yms = median_ms(mul_index_add, 10)[0]
+            b = nbytes(*args11, out)
+            bms, by = bound_of(b, 2 * int((ix11 >= 0).sum()) * C)
+            record("lane_scatter_weighted", err, ms, pms, b, None,
+                   mul_index_add_yardstick_ms=yms, ms_range=ms_r)
+            results["lane_scatter_weighted"].update(bound_ms=bms,
+                                                    bound_by=by)
+            del dest, src_t, acc, lib
+        else:
+            record("lane_scatter_weighted", err, None, None, None, None)
+        del src, out, ref
+# K11 is K5's transpose: <K5(x), y> = <x, K11(y)>, K11's bin windows placed
+# at K5's window starts; float64 on the card, rel <= 1e-12
+x5 = torch.randn((C, RV, 128), dtype=torch.float64, device=DEV, generator=gen)
+y5 = torch.randn((G, C, wg, 128), dtype=torch.float64, device=DEV,
+                 generator=gen)
+w5 = p_w.to(torch.float64)
+lhs = float(torch.sum(K.lane_gather_weighted(x5, p_st, p_ix, w5, wr=WRP)
+                      * y5))
+back = K.lane_scatter_weighted(
+    y5.permute(1, 0, 2, 3).reshape(C, G * wg, 128).contiguous(), k11_starts,
+    p_ix, w5, sk=wg, k_out=WRP, n_dest=p_ix.shape[1])
+rows5 = p_st.to(torch.int64).view(G, 1) + torch.arange(WRP, device=DEV)
+win5 = x5[:, rows5.clamp(max=RV - 1)].permute(1, 0, 2, 3)
+win5 = torch.where((rows5 < RV).view(G, 1, WRP, 1), win5, 0.0)
+rhs = float(torch.sum(win5 * back))
+adjoint_rel = abs(lhs - rhs) / abs(lhs)
+check(adjoint_rel <= 1e-12, f"K11 is not K5's adjoint: rel {adjoint_rel}")
+shapes.update(k9_idx=list(eng_full.gather_idx.shape),
+              k10=dict(src=[C, G * SK10, 128], dest_idx=[G, SK10, 128],
+                       sk=SK10, k_out=wg),
+              k11=dict(src=[C, G * wg, 128], dest_idx=list(p_ix.shape),
+                       idx_dtype=str(p_ix.dtype), sk=wg, k_out=WRP))
+del x5, y5, w5, back, win5, rows5
+
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
+     k11_adjoint_of_k5_rel=adjoint_rel,
      tolerance="exactly equal (0) for lane_gather_cm, lane_scatter_cm, "
-               "lane_pass_update and lane_gather_weighted; lane_fused_elem "
+               "lane_pass_update, lane_gather_weighted, lane_gather, "
+               "lane_scatter and lane_scatter_weighted; lane_fused_elem "
                "max |kernel - plain| <= 1e-12 (float64) / 1e-5 (float32) of "
-               "max |plain|")
+               "max |plain|; K11 adjoint of K5 rel <= 1e-12 (float64)")
 torch.cuda.empty_cache()
 
 # -- 4. engine against the flat assembler (n = 64, float64) ---------------------
@@ -838,7 +1040,9 @@ n_precond = sum(st_tl["cg_enqueued"]) + len(st_tl["cg_iters"])
 check(launches_tl["lane_gather_weighted"] == 2 * n_precond,
       f"solve_full_twolevel: {launches_tl['lane_gather_weighted']} weighted "
       f"gathers for {n_precond} preconditioner applications")
-check(all(v > 0 for v in launches_tl.values()),
+LANE_PATH = ("lane_gather_cm", "lane_scatter_cm", "lane_pass_update",
+             "lane_fused_elem", "lane_gather_weighted")
+check(all(launches_tl[k] > 0 for k in LANE_PATH),
       f"solve_full_twolevel: a kernel of the path was not launched: "
       f"{launches_tl}")
 total_tl = st_tl["total_cg_iters"]
@@ -865,6 +1069,145 @@ emit("solve_full_twolevel", n=N_FULL, n_grains=200, n_dofs=r_tl.n_dofs,
      peak_device_bytes=peak0, timings=r_tl.timings,
      cg_iteration_profile=prof_tl)
 del r_tl, r_tl1, runs, eng_full
+
+# -- 8b. the mixed-precision solve: float64 Newton, float32 lane CG ----------
+
+# polycrystal.run(mixed=True) with run's defaults (fused + two-level,
+# cg_rtol 1e-8, newton_rtol 1e-6) at n = 1024, twice, bitwise equal; the
+# float64 outer residual alone; the same problem solved in float64 on the
+# lane engine for the time; at n = 256 the mixed solve to 1e-10 * r0
+# against a float64 lane solve (the reference's bound for a loaded mixed
+# solve: u rel <= 2e-7, tests/test_polycrystal.py:196-239)
+
+
+def timed_run(n, **kw):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = polycrystal.run(n, n_grains=200, device=DEV, **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+t_phase = time.perf_counter()
+runs = []
+for i in range(2):
+    if i == 0:
+        K.reset_launch_counts()
+    runs.append(timed_run(N_FULL, mesh=mesh_full, plan=p, mixed=True,
+                          postprocess_fields=(i == 0)))
+    if i == 0:
+        launches_mx = K.launch_counts()
+(r_mx, secs_mx0, peak_mx), (r_mx1, secs_mx1, _) = runs
+st_mx = r_mx.stats
+check(st_mx["converged"] and r_mx1.stats["converged"],
+      f"solve_full_mixed did not converge: {st_mx['residuals']}")
+check(st_mx["residuals"] == r_mx1.stats["residuals"]
+      and st_mx["final_residual"] == r_mx1.stats["final_residual"]
+      and st_mx["cg_iters"] == r_mx1.stats["cg_iters"],
+      "solve_full_mixed: residual trajectory differs between two runs")
+check(np.array_equal(r_mx.u_flat, r_mx1.u_flat),
+      "solve_full_mixed: solution differs bitwise between two runs")
+check(r_mx.u_flat.dtype == np.float64 and np.isfinite(r_mx.u_flat).all()
+      and np.isfinite(r_mx.energy) and np.isfinite(r_mx.stress).all(),
+      "solve_full_mixed: non-finite or not float64")
+check(r_mx.u_flat.shape == (2 * (N_FULL + 1) ** 2,),
+      "solve_full_mixed: bad shape")
+uu = r_mx.u_flat.reshape(-1, 2)
+check(np.array_equal(uu[np.abs(r_mx.mesh.x[:, 0] - 1) < 1e-9, 0],
+                     np.full(int((np.abs(r_mx.mesh.x[:, 0] - 1) < 1e-9)
+                                 .sum()), 0.01)),
+      "solve_full_mixed: Dirichlet values are not exactly 0.01")
+check(st_mx["final_residual"] < 1e-6 * st_mx["r0"],
+      "solve_full_mixed: not converged below 1e-6 * r0")
+check(all(launches_mx[k] > 0 for k in LANE_PATH),
+      f"solve_full_mixed: a kernel of the path was not launched: "
+      f"{launches_mx}")
+# two weighted gathers per application of the two-level cycle: every CG
+# iteration enqueued and one z0 per Newton step that ran CG
+n_precond_mx = sum(st_mx["cg_enqueued"]) + len(st_mx["cg_iters"])
+check(launches_mx["lane_gather_weighted"] == 2 * n_precond_mx,
+      f"solve_full_mixed: {launches_mx['lane_gather_weighted']} weighted "
+      f"gathers for {n_precond_mx} preconditioner applications")
+
+# one float64 outer residual alone, through the same flat Assembler
+F64_full, bcs64 = cg_profile.damage_functional(mesh_full, DEV, torch.float64)
+asm64 = Assembler(F64_full, bcs64)
+c64 = {"d": torch.as_tensor(d_full, dtype=torch.float64, device=DEV),
+       "E": torch.as_tensor(E_full, dtype=torch.float64, device=DEV)}
+u64 = torch.as_tensor(r_mx.u_flat, device=DEV)
+asm64.residual(u64, c64, batch=65536)
+torch.cuda.synchronize()
+res64_s = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    asm64.residual(u64, c64, batch=65536)
+    torch.cuda.synchronize()
+    res64_s.append(time.perf_counter() - t0)
+del asm64, c64, u64, F64_full
+
+# the same problem in float64 on the lane engine (run's defaults)
+r_64, secs_64, peak_64 = timed_run(N_FULL, mesh=mesh_full, plan=p,
+                                   dtype=torch.float64,
+                                   postprocess_fields=False)
+check(r_64.stats["converged"], "solve_full_mixed: the float64 lane solve "
+      f"did not converge: {r_64.stats['residuals']}")
+mx_vs_64 = float(np.linalg.norm(r_mx.u_flat - r_64.u_flat)
+                 / np.linalg.norm(r_64.u_flat))
+
+# n = 256: the mixed solve to 1e-10 * r0 against a float64 lane solve
+mesh_256 = polycrystal.generate_polycrystal(N_SMALL, n_grains=200)
+r256_mx, secs256_mx, _ = timed_run(
+    N_SMALL, mesh=mesh_256, mixed=True, postprocess_fields=False,
+    solver=SolverConfig(cg_rtol=1e-8, newton_rtol=1e-10, cg_maxit=20000,
+                        newton_maxit=30, preconditioner="twolevel"))
+r256_64, secs256_64, _ = timed_run(
+    N_SMALL, mesh=mesh_256, dtype=torch.float64, postprocess_fields=False,
+    solver=SolverConfig(cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=20000,
+                        newton_maxit=30, preconditioner="twolevel"))
+st256 = r256_mx.stats
+check(st256["final_residual"] <= 1e-10 * st256["r0"],
+      f"solve_full_mixed n={N_SMALL}: final residual "
+      f"{st256['final_residual']} above 1e-10 * r0 ({st256['r0']})")
+check(r256_64.stats["converged"],
+      f"n={N_SMALL} float64 lane solve did not converge: "
+      f"{r256_64.stats['residuals']}")
+rel256 = float(np.linalg.norm(r256_mx.u_flat - r256_64.u_flat)
+               / np.linalg.norm(r256_64.u_flat))
+check(rel256 <= 2e-7, f"solve_full_mixed n={N_SMALL}: u rel {rel256} "
+      "against the float64 lane solve")
+emit("solve_full_mixed", n=N_FULL, n_grains=200, n_dofs=r_mx.n_dofs,
+     inner_dtype="float32", outer_dtype="float64", fused=True,
+     preconditioner="twolevel", newton_rtol=1e-6, converged=True,
+     newton_iters=st_mx["newton_iters"], cg_iters=st_mx["cg_iters"],
+     cg_enqueued=st_mx["cg_enqueued"],
+     total_cg_iters=st_mx["total_cg_iters"], residuals=st_mx["residuals"],
+     final_residual=st_mx["final_residual"], r0=st_mx["r0"],
+     energy=r_mx.energy, phase_s=st_mx["phase_s"],
+     ms_per_cg_iter=1e3 * st_mx["phase_s"]["cg"]
+     / max(st_mx["total_cg_iters"], 1),
+     float64_residual_seconds=res64_s, launches=launches_mx,
+     preconditioner_applications=n_precond_mx, bitwise_equal_runs=True,
+     seconds=[secs_mx0, secs_mx1], peak_device_bytes=peak_mx,
+     timings=r_mx.timings,
+     float64_lane=dict(seconds=secs_64, peak_device_bytes=peak_64,
+                       newton_iters=r_64.stats["newton_iters"],
+                       cg_iters=r_64.stats["cg_iters"],
+                       residuals=r_64.stats["residuals"],
+                       timings=r_64.timings, u_rel_to_mixed=mx_vs_64),
+     n256=dict(newton_rtol=1e-10, mixed_seconds=secs256_mx,
+               float64_seconds=secs256_64,
+               mixed_newton_iters=st256["newton_iters"],
+               mixed_cg_iters=st256["cg_iters"],
+               mixed_residuals=st256["residuals"],
+               float64_newton_iters=r256_64.stats["newton_iters"],
+               float64_cg_iters=r256_64.stats["cg_iters"],
+               float64_residuals=r256_64.stats["residuals"],
+               u_rel=rel256),
+     tolerance="n = 1024: bitwise equal runs; n = 256: final residual <= "
+               "1e-10 * r0, u rel <= 2e-7 against the float64 lane solve",
+     seconds_phase=time.perf_counter() - t_phase)
+del runs, r_mx, r_mx1, r_64, r256_mx, r256_64, mesh_256
+torch.cuda.empty_cache()
 
 # -- 9. structured2d: K6 / K7 and the structured nonlinear solve (path A) ------
 
@@ -1356,35 +1699,46 @@ REPLACES = {
     "lane_pass_update": "tpufem/lane/kernels.py:356",
     "lane_fused_elem": "tpufem/lane/kernels.py:521",
     "lane_gather_weighted": "tpufem/lane/kernels.py:568",
+    "lane_gather": "tpufem/lane/kernels.py:76",
+    "lane_scatter": "tpufem/lane/kernels.py:138",
+    "lane_scatter_weighted": "tpufem/lane/kernels.py:632",
     "lattice_residual": "tpufem/structured/pallas2d.py:197",
     "lattice_tangent": "tpufem/structured/pallas2d.py:391",
     "lattice_matvec3d": "tpufem/structured/pallas3d.py:180",
 }
 # launches on each kernel's main path: run's defaults (fused + two-level,
 # phase solve_full_twolevel) for the lane kernels, with the Jacobi solves'
-# counts beside them; path A (structured2d) for K6 / K7; path B
-# (structured3d) for K8
+# and the mixed solve's counts beside them; path A (structured2d) for K6 /
+# K7; path B (structured3d) for K8; K9-K11 are on no path (0)
 MAIN_LAUNCHES = {**launches_tl, "lattice_residual":
                  launches_a["lattice_residual"], "lattice_tangent":
                  launches_a["lattice_tangent"], "lattice_matvec3d":
                  launches_b["lattice_matvec3d"]}
+PATHS = {**dict.fromkeys(LANE_PATH, "polycrystal.run defaults, n = 1024"),
+         "lattice_residual": "path A", "lattice_tangent": "path A",
+         "lattice_matvec3d": "path B", "lane_gather": None,
+         "lane_scatter": None, "lane_scatter_weighted": None}
 summary = []
 for name, r in results.items():
     entry = dict(
         name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
-        replaces=REPLACES[name], launches=MAIN_LAUNCHES[name],
+        replaces=REPLACES[name], path=PATHS[name],
+        launches=MAIN_LAUNCHES[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"],
     )
-    if name in launches:
+    if name in LANE_PATH:
         entry.update(launches_staged_jacobi_solve=launches[name],
-                     launches_fused_jacobi_solve=launches_fused[name])
+                     launches_fused_jacobi_solve=launches_fused[name],
+                     launches_mixed_solve=launches_mx[name])
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
               "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms",
-              "conv3d_yardstick_ms", "warm_ms"):
+              "conv3d_yardstick_ms", "warm_ms", "sum_v_ms",
+              "sum_v_plain_ms", "sum_v_bound_ms", "mul_index_add_yardstick_ms",
+              "ms_range", "sum_v_ms_range"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

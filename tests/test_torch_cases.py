@@ -100,17 +100,23 @@ def test_run_defaults_to_fused_twolevel_like_the_reference():
     assert ap.parse_args(["polycrystal", "--pc", "jacobi"]).pc == "jacobi"
 
 
-@pytest.mark.parametrize("kw", [
-    # fused and twolevel are ported; a preconditioner the lane solver does
-    # not have, and the mixed-precision solver with two-level, are not
-    dict(fused=True, solver=TSolverConfig(preconditioner="amg")),
-    dict(mixed=True), dict(gmsh_roundtrip=True),
-    dict(output_path="x"), dict(checkpoint_path="x"),
-    dict(mixed=True, solver=TSolverConfig(preconditioner="twolevel")),
+@pytest.mark.parametrize("kw,exc,match", [
+    # fused, twolevel and mixed are ported; a preconditioner the lane
+    # solver does not have is not, under the mixed solver neither (staged
+    # or fused engine); a checkpoint belongs to the mixed solve
+    (dict(fused=True, solver=TSolverConfig(preconditioner="amg")),
+     NotImplementedError, "ROADMAP"),
+    (dict(mixed=True, solver=TSolverConfig(preconditioner="amg")),
+     NotImplementedError, "ROADMAP"),
+    (dict(gmsh_roundtrip=True), NotImplementedError, "ROADMAP"),
+    (dict(output_path="x"), NotImplementedError, "ROADMAP"),
+    (dict(checkpoint_path="x"), ValueError, "mixed=True"),
+    (dict(mixed=True, fused=False, solver=TSolverConfig(
+        preconditioner="amg")), NotImplementedError, "ROADMAP"),
 ], ids=["fused", "mixed", "gmsh_roundtrip", "output_path",
         "checkpoint_path", "twolevel"])
-def test_run_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_run_unported_options_raise(kw, exc, match):
+    with pytest.raises(exc, match=match):
         t_poly.run(8, n_grains=4, smooth_iters=2, use_volume=False,
                    postprocess_fields=False, **F64, **kw)
 

@@ -223,7 +223,8 @@ def test_unported_paths_raise(setup):
     import tpufem_torch.cases.polycrystal as t_poly
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_poly.run(8, mixed=True, **F64)
+        t_poly.run(8, mixed=True, solver=SolverConfig(preconditioner="amg"),
+                   **F64)
     # the two-level preconditioner is ported; a preconditioner the lane
     # solver does not have is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -231,7 +232,7 @@ def test_unported_paths_raise(setup):
     with pytest.raises(ValueError, match="fine_coeffs"):
         eng.make_solver(SolverConfig(preconditioner="twolevel"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.make_mixed_solver()
+        eng.make_mixed_solver(SolverConfig(preconditioner="amg"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TAssembler(s["Ft"], s["bt"]).matrix(None, None)
 

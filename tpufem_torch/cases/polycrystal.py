@@ -172,17 +172,27 @@ def run(
     50 under Jacobi; the two-level set-up is reported as its own row of
     ``timings``, inside "7.3". ``device`` defaults to CUDA and
     ``dtype`` to float32; every device tensor of the run has them.
-    ``mixed``, ``gmsh_roundtrip``, ``output_path`` and ``checkpoint_path``
-    are not ported yet and raise ``NotImplementedError``.
+
+    ``mixed``: the mixed-precision solve (``LaneEngine.make_mixed_solver``)
+    -- a float64 Newton loop on the flat ``Assembler`` around CG solves on
+    the lane engine in ``dtype``. The damage, the functional, the load
+    vector, the energy and the DG0 fields are then float64 and only the
+    engine holds ``dtype``; ``cg_chunk`` defaults to 200 under Jacobi, as
+    in the reference. ``checkpoint_path`` (mixed only: a ``ValueError``
+    otherwise) saves the iterate after every Newton step and resumes from
+    it. ``gmsh_roundtrip`` and ``output_path`` are not ported yet and
+    raise ``NotImplementedError``.
     """
-    for flag, name in ((mixed, "mixed"), (gmsh_roundtrip, "gmsh_roundtrip"),
-                       (output_path, "output_path"),
-                       (checkpoint_path, "checkpoint_path")):
+    for flag, name in ((gmsh_roundtrip, "gmsh_roundtrip"),
+                       (output_path, "output_path")):
         if flag:
             raise NotImplementedError(
                 f"polycrystal.run({name}=...) is not ported yet "
                 "(ROADMAP.md: remaining modules of tpufem_torch)"
             )
+    if checkpoint_path is not None and not mixed:
+        raise ValueError("polycrystal.run(checkpoint_path=...) checkpoints "
+                         "the mixed-precision solve: pass mixed=True")
     from tpufem_torch.assemble.assembler import Assembler
     from tpufem_torch.cases import mechanic2d
     from tpufem_torch.cases.damage import smooth_damage
@@ -193,6 +203,8 @@ def run(
     from tpufem_torch.spaces.bc import locate_dofs_geometrical
 
     dev = resolve_device(device)
+    # mixed: everything outside the engine's inner solves in float64
+    odt = torch.float64 if mixed else dtype
     timings = {}
 
     def lap(label, t0):
@@ -225,7 +237,7 @@ def run(
     d0 = np.zeros(DS.n_dofs)
     if n_damage_chains > 0:
         d0[damage_seed_nodes(mesh, n_chains=n_damage_chains)] = 1.0
-    d = smooth_damage(mesh, d0, iterations=smooth_iters, dtype=dtype,
+    d = smooth_damage(mesh, d0, iterations=smooth_iters, dtype=odt,
                       device=dev).cpu().numpy()
     lap("3.2 define damage", t0)
 
@@ -241,7 +253,7 @@ def run(
     )
     F = EnergyFunctional(
         V, [stiff], [Coefficient("d", DS), Coefficient("E", P0)],
-        device=dev, dtype=dtype,
+        device=dev, dtype=odt,
     )
     left = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0]) < 1e-12)
     right = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
@@ -255,15 +267,15 @@ def run(
     r_load = None
     if use_volume:
         fvals = mechanic2d.volumetric_load(V.dof_coords)
-        f_vec = torch.as_tensor(fvals.reshape(-1), dtype=dtype, device=dev)
+        f_vec = torch.as_tensor(fvals.reshape(-1), dtype=odt, device=dev)
         load = Term(
             integrand=lambda qp: -torch.dot(qp.coeff("f"), qp.u),
             degree=2,
         )
         F_load = EnergyFunctional(V, [load], [Coefficient("f", V)],
-                                  device=dev, dtype=dtype)
+                                  device=dev, dtype=odt)
         r_load = Assembler(F_load, []).residual(
-            torch.zeros(V.n_dofs, dtype=dtype, device=dev), {"f": f_vec},
+            torch.zeros(V.n_dofs, dtype=odt, device=dev), {"f": f_vec},
             batch=65536,
         )
     lap("5.2 neumann/volume setting", t0)
@@ -280,23 +292,40 @@ def run(
     )
     use_tl = cfg.preconditioner == "twolevel"
     if cg_chunk is None:
-        cg_chunk = 20 if use_tl else 50
+        cg_chunk = 20 if use_tl else (200 if mixed else 50)
+    fine = {"d": d, "E": E_cell} if use_tl else None
     t0 = time.perf_counter()
-    solve = eng.make_solver(
-        cfg, cg_chunk=cg_chunk,
-        fine_coeffs={"d": d, "E": E_cell} if use_tl else None,
-        const_residual=(None if r_load is None
-                        else eng.to_lane_dev(r_load)),
-    )
-    u_lane, stats = solve(torch.zeros_like(eng.bc_lane), cc)
+    if mixed:
+        solve = eng.make_mixed_solver(
+            cfg, cg_chunk=cg_chunk, fine_coeffs=fine, inner_dtype=dtype,
+            checkpoint_path=checkpoint_path, const_residual=r_load)
+        u_flat_dev, stats = solve(
+            torch.zeros(V.n_dofs, dtype=odt, device=dev),
+            {"d": d, "E": E_cell}, cc)
+        tl_seconds = stats["phase_s"]["tl_setup"] + stats["phase_s"][
+            "tl_refresh"]
+    else:
+        solve = eng.make_solver(
+            cfg, cg_chunk=cg_chunk, fine_coeffs=fine,
+            const_residual=(None if r_load is None
+                            else eng.to_lane_dev(r_load)),
+        )
+        u_lane, stats = solve(torch.zeros_like(eng.bc_lane), cc)
+        tl_seconds = stats["twolevel_setup_seconds"]
     lap("7.3 nonlinear resolution", t0)
     if use_tl:
-        timings["7.3.1 two-level set-up (in 7.3)"] = stats[
-            "twolevel_setup_seconds"]
+        timings["7.3.1 two-level set-up (in 7.3)"] = tl_seconds
 
     t0 = time.perf_counter()
-    u_flat_dev = eng.from_lane_dev(u_lane)
-    energy = float(torch.sum(eng.cell_energies(u_lane, cc)))
+    c_pp = {"d": torch.as_tensor(d, dtype=odt, device=dev),
+            "E": torch.as_tensor(E_cell, dtype=odt, device=dev)}
+    asm = Assembler(F, bcs) if mixed else None
+    if mixed:
+        # float64 energy through the flat Assembler
+        energy = float(asm.energy(u_flat_dev, c_pp, batch=65536))
+    else:
+        u_flat_dev = eng.from_lane_dev(u_lane)
+        energy = float(torch.sum(eng.cell_energies(u_lane, cc)))
     energy_stiff = energy
     if r_load is not None:
         # load energy is linear: E_load(u) = r_load . u exactly
@@ -311,9 +340,7 @@ def run(
     t0 = time.perf_counter()
     strain = stress = endens = None
     if postprocess_fields:
-        asm = Assembler(F, bcs)
-        c_pp = {"d": torch.as_tensor(d, dtype=dtype, device=dev),
-                "E": torch.as_tensor(E_cell, dtype=dtype, device=dev)}
+        asm = asm or Assembler(F, bcs)
         strain, stress, endens = mechanic2d.postprocess(
             asm, u_flat_dev, c_pp, batch=65536
         )

@@ -1,6 +1,7 @@
 """Runtime command-line interface of the port.
 
     python -m tpufem_torch polycrystal -n 1024 [--pc jacobi] [--no-fused]
+        [--mixed]
 
 Only the ``polycrystal`` subcommand is ported so far. It runs on the GPU
 (``--device cuda``, the default) and exits with an error if there is
@@ -53,7 +54,8 @@ def _cmd_polycrystal(args) -> int:
         args.n, n_grains=args.grains, use_ecst=args.ecst,
         solver=_solver_config(args),
         wg_own=args.wg_own, smooth_iters=args.smooth_iters,
-        n_damage_chains=args.chains, fused=args.fused, device=args.device,
+        n_damage_chains=args.chains, fused=args.fused, mixed=args.mixed,
+        device=args.device,
         dtype=torch.float64 if args.x64 else torch.float32,
     )
     print(f"dofs: {res.n_dofs}  energy = {res.energy:.6e}")
@@ -97,6 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="residual and CG operator through the fused element "
                         "kernel lane_fused_elem (default); --no-fused runs "
                         "the staged gather / physics / scatter pipeline")
+    p.add_argument("--mixed", action="store_true",
+                   help="mixed precision: float64 Newton on the flat "
+                        "assembler around the lane engine's CG in float32 "
+                        "(float64 with --x64); reaches float64 accuracy")
     _add_solver_flags(p)
     p.set_defaults(fn=_cmd_polycrystal)
     return ap

@@ -34,14 +34,19 @@ evaluates, proves the match on probe cells at construction, and raises
 
 ``make_solver`` preconditions CG with Jacobi or with the two-level
 lattice cycle (``lane.twolevel``); either way the CG operator is
-``make_tangent``. The multi-quadrature-point specialization, facet terms
-and the mixed-precision solver are not ported yet and raise
-``NotImplementedError`` -- nothing falls back silently to another path.
+``make_tangent``. ``make_mixed_solver`` runs the same inner solves in
+float32 under a float64 Newton loop whose residuals come from the flat
+``Assembler``. The multi-quadrature-point specialization and facet terms
+are not ported yet and raise ``NotImplementedError`` -- nothing falls
+back silently to another path.
 """
 
 from __future__ import annotations
 
+import copy
+import hashlib
 import math
+import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -59,6 +64,121 @@ from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
 from tpufem_torch.lane.plan import LanePlan, N_LANES, build_lane_plan
 from tpufem_torch.mesh.mesh import CellType
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
+
+
+def _inv_diagonal(eng, u, coeffs, free, lin):
+    """Jacobi: 1 / diag(J) on free dofs, 1 on constrained ones and where
+    the diagonal is 0."""
+    d = eng.diagonal(u, coeffs, lin)
+    d = d * free + (1.0 - free)
+    one = torch.ones_like(d)
+    return torch.where(d != 0, 1.0 / torch.where(d == 0, one, d), one)
+
+
+def _linear_system(eng, u, coeffs, free):
+    """The Jacobi inverse diagonal and the constrained CG operator of one
+    Newton step, both from one linearization at ``u``."""
+    lin = eng.linearize(u, coeffs)
+    dinv = _inv_diagonal(eng, u, coeffs, free, lin)
+    Araw = eng.make_tangent(u, coeffs, lin)
+    del lin  # staged: Araw holds it; fused: free it before CG
+
+    def A(v):
+        av = Araw(v * free)
+        return av * free + v * (1.0 - free)
+
+    return dinv, A
+
+
+def _cg_chunk(eng, nsteps, A, M, state, tol2):
+    """``nsteps`` preconditioned CG iterations, all enqueued without a host
+    read. Once rr2 <= tol2 the step coefficients become (alpha, beta, c)
+    = (0, 1, 0), which leaves x, r, z, p bitwise unchanged and stops the
+    counter."""
+    x, r, z, pvec, rz, rr2, k = state
+    zero = torch.zeros_like(rz)
+    one = torch.ones_like(rz)
+    for _ in range(nsteps):
+        active = rr2 > tol2
+        Ap = A(pvec)
+        alpha = torch.where(active, rz / eng.dot(pvec, Ap), zero)
+        x = x + alpha * pvec
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = eng.dot(r, z)
+        beta = torch.where(active, rz_new / rz, one)
+        pvec = torch.where(active, one, zero) * z + beta * pvec
+        rz = torch.where(active, rz_new, rz)
+        rr2 = torch.where(active, eng.dot(r, r), rr2)
+        k = k + active
+    return (x, r, z, pvec, rz, rr2, k)
+
+
+def _chunked_pcg(eng, A, M, b, z0, tol, maxit, chunk):
+    """Preconditioned CG on A x = b from x = 0 (``z0`` = M(b)) to
+    |r| <= tol, in chunks of ``chunk`` iterations between two host reads;
+    the tolerance is tested every iteration on the device, so the exit
+    iteration does not depend on ``chunk``. Stall guard: after four chunks
+    in a row that each end above 0.9 x the best residual so far, it stops
+    and returns the partial solution (CG on a branch-switched tangent can
+    plateau; Newton corrects a partial step). Returns (x, iterations,
+    iterations enqueued)."""
+    state = (torch.zeros_like(b), b, z0, z0, eng.dot(b, z0), eng.dot(b, b),
+             torch.zeros((), dtype=torch.int64, device=b.device))
+    tol2 = torch.as_tensor(tol * tol, dtype=b.dtype, device=b.device)
+    k = enq = stall = 0
+    best_rr = float("inf")
+    while k < maxit:
+        nsteps = min(chunk, maxit - k)
+        state = _cg_chunk(eng, nsteps, A, M, state, tol2)
+        enq += nsteps
+        rr = math.sqrt(float(state[5]))  # blocks on the device
+        kd = int(state[6]) - k  # iterations run this chunk
+        k += kd
+        if rr < tol or kd < nsteps:
+            break
+        if rr > 0.9 * best_rr:
+            stall += 1
+            if stall >= 4:
+                break
+        else:
+            stall = 0
+        best_rr = min(best_rr, rr)
+    return state[0], k, enq
+
+
+def _twolevel(eng, tl, fine_coeffs, nc, u, coeffs, free, dinv, A):
+    """The two-level preconditioner of one Newton step: its geometry built
+    at the first call and kept in ``tl``, its smoother data refreshed from
+    this step's Jacobi diagonal ``dinv`` and CG operator ``A``. Returns
+    (M, seconds of the geometry build, seconds of the refresh)."""
+    from tpufem_torch.lane import twolevel as tlmod
+
+    t0 = time.perf_counter()
+    if "geo" not in tl:
+        tl["static"], tl["geo"] = tlmod.build_twolevel_geo(
+            eng, fine_coeffs, nc=nc)
+    _sync(eng.device)
+    t1 = time.perf_counter()
+    data = tlmod.refresh_twolevel(eng, tl["static"], tl["geo"], u, coeffs,
+                                  inv_d=dinv, A=A)
+    _sync(eng.device)
+
+    def M(r):
+        return tlmod.precondition_with(eng, tl["static"], data, free, r, A)
+
+    return M, t1 - t0, time.perf_counter() - t1
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+
+
+def _sync(device):
+    """Wait for the device, so that a host clock reads its work too."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class LaneEngine:
@@ -225,6 +345,22 @@ class LaneEngine:
         return torch.as_tensor(
             np.asarray(a), dtype=self.dtype, device=self.device
         )
+
+    def with_dtype(self, dtype: torch.dtype) -> "LaneEngine":
+        """This engine with its float device state (geometry, masks, dot
+        weights) in ``dtype``: a shallow copy sharing the plan and the
+        index tables, or ``self`` if it has that dtype already. The mixed
+        solver runs its inner solves on such a view."""
+        if dtype == self.dtype:
+            return self
+        view = copy.copy(self)
+        view.dtype = dtype
+        for name in ("geom_dN", "geom_w", "geom_xq", "fused_geom",
+                     "free_lane", "bc_lane", "owned_w"):
+            t = getattr(self, name)
+            if t is not None:
+                setattr(view, name, t.to(dtype))
+        return view
 
     def _try_specialize_p1(self):
         """If the functional is a single degree-1 cell term on a simplex
@@ -910,36 +1046,6 @@ class LaneEngine:
             b = -r * free
             return b, torch.sqrt(eng.dot(b, b))
 
-        def diag_fn(u, coeffs, free, lin):
-            d = eng.diagonal(u, coeffs, lin)
-            d = d * free + (1.0 - free)
-            one = torch.ones_like(d)
-            return torch.where(d != 0, 1.0 / torch.where(d == 0, one, d),
-                               one)
-
-        def cg_chunk_fn(nsteps, A, M, state, tol2):
-            """``nsteps`` preconditioned CG iterations, all enqueued
-            without a host read. Once rr2 <= tol2 the step coefficients
-            become (alpha, beta, c) = (0, 1, 0), which leaves x, r, z, p
-            bitwise unchanged and stops the counter."""
-            x, r, z, pvec, rz, rr2, k = state
-            zero = torch.zeros_like(rz)
-            one = torch.ones_like(rz)
-            for _ in range(nsteps):
-                active = rr2 > tol2
-                Ap = A(pvec)
-                alpha = torch.where(active, rz / eng.dot(pvec, Ap), zero)
-                x = x + alpha * pvec
-                r = r - alpha * Ap
-                z = M(r)
-                rz_new = eng.dot(r, z)
-                beta = torch.where(active, rz_new / rz, one)
-                pvec = torch.where(active, one, zero) * z + beta * pvec
-                rz = torch.where(active, rz_new, rz)
-                rr2 = torch.where(active, eng.dot(r, r), rr2)
-                k = k + active
-            return (x, r, z, pvec, rz, rr2, k)
-
         def solve(u0_lane, coeff_cells):
             free = eng.free_lane.to(u0_lane.dtype)
             u = torch.where(free > 0, u0_lane,
@@ -961,74 +1067,28 @@ class LaneEngine:
                 if bnorm < max(cfg.newton_rtol * r0, cfg.newton_atol):
                     it -= 1
                     break
-                lin = eng.linearize(u, coeff_cells)
-                dinv = diag_fn(u, coeff_cells, free, lin)
-                Araw = eng.make_tangent(u, coeff_cells, lin)
-                del lin  # staged: Araw holds it; fused: free it before CG
-
-                def A(v):
-                    av = Araw(v * free)
-                    return av * free + v * (1.0 - free)
-
+                dinv, A = _linear_system(eng, u, coeff_cells, free)
                 if use_tl:
-                    from tpufem_torch.lane import twolevel as tlmod
-
-                    t_tl = time.perf_counter()
-                    if "geo" not in _tl:
-                        _tl["static"], _tl["geo"] = tlmod.build_twolevel_geo(
-                            eng, fine_coeffs, nc=twolevel_nc)
-                    data = tlmod.refresh_twolevel(
-                        eng, _tl["static"], _tl["geo"], u, coeff_cells,
-                        inv_d=dinv, A=A)
-                    tl_seconds += time.perf_counter() - t_tl
-
-                    def M(r, data=data):
-                        return tlmod.precondition_with(
-                            eng, _tl["static"], data, free, r, A)
+                    M, t_geo, t_ref = _twolevel(eng, _tl, fine_coeffs,
+                                                twolevel_nc, u, coeff_cells,
+                                                free, dinv, A)
+                    tl_seconds += t_geo + t_ref
                 else:
                     def M(r):
                         return dinv * r
 
                 z0 = M(b)
-                state = (torch.zeros_like(b), b, z0, z0,
-                         eng.dot(b, z0), eng.dot(b, b),
-                         torch.zeros((), dtype=torch.int64,
-                                     device=b.device))
                 tol = max(cfg.cg_rtol * bnorm, cfg.cg_atol)
-                tol2 = torch.as_tensor(tol * tol, dtype=b.dtype,
-                                       device=b.device)
-                k = 0
-                enq = 0
-                stall = 0
-                best_rr = float("inf")
-                if b.is_cuda:  # the set-up above must not count as CG time
-                    torch.cuda.synchronize(b.device)
+                _sync(b.device)  # the set-up above must not count as CG time
                 t_cg = time.perf_counter()
-                while k < cfg.cg_maxit:
-                    nsteps = min(cg_chunk, cfg.cg_maxit - k)
-                    state = cg_chunk_fn(nsteps, A, M, state, tol2)
-                    enq += nsteps
-                    rr = math.sqrt(float(state[5]))  # blocks on the device
-                    kd = int(state[6]) - k  # iterations run this chunk
-                    k += kd
-                    if rr < tol or kd < nsteps:
-                        break
-                    # stall guard: CG on a branch-switched tangent can
-                    # plateau -- take the partial step (Newton is
-                    # self-correcting) instead of burning cg_maxit
-                    if rr > 0.9 * best_rr:
-                        stall += 1
-                        if stall >= 4:
-                            break
-                    else:
-                        stall = 0
-                    best_rr = min(best_rr, rr)
+                x, k, enq = _chunked_pcg(eng, A, M, b, z0, tol, cfg.cg_maxit,
+                                         cg_chunk)
                 cg_seconds += time.perf_counter() - t_cg
                 # backtracking damping: the asym damage law is only
                 # piecewise-smooth (branch flips on eigenvalue signs),
                 # and full Newton steps can overshoot; halve until the
                 # residual norm does not increase (<=6 halvings)
-                step = state[0] * free
+                step = x * free
                 alpha = 1.0
                 for _ in range(6):
                     _, bn_new = rhs(u + alpha * step, coeff_cells, free)
@@ -1059,8 +1119,250 @@ class LaneEngine:
 
         return solve
 
-    def make_mixed_solver(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the mixed-precision defect-correction solver is not ported "
-            "yet (ROADMAP.md: slice 4, make_mixed_solver)"
-        )
+    def make_mixed_solver(self, cfg: Optional[SolverConfig] = None, *,
+                          cg_chunk: int = 20, fine_coeffs=None,
+                          twolevel_nc=None, inner_dtype=None,
+                          f64_batch: int = 65536,
+                          checkpoint_path: Optional[str] = None,
+                          const_residual=None):
+        """Mixed-precision defect-correction Newton-Krylov.
+
+        The outer loop runs in float64: every Newton step takes one
+        residual through the flat ``Assembler`` (in cell slabs of
+        ``f64_batch``) plus ``const_residual`` (a flat float64 vector
+        added to every residual: the constant load vector), tests it
+        against r0 and applies the step to the float64 iterate. Every CG
+        solve runs on this engine in ``inner_dtype`` (default float32)
+        against the right-hand side normalized by ``scale = |b|``, to
+        ``max(cg_rtol, cg_atol / scale)``. So the iterate converges to the
+        float64 root, which the inner dtype alone cannot reach (float32
+        lane solves stop near 1e-6 * r0). The functional must be float64
+        (its geometry feeds the outer residual); the engine may hold its
+        float state in any dtype, and is viewed in ``inner_dtype``
+        (:meth:`with_dtype`).
+
+        Returns ``solve(u0_flat, coeffs_flat, coeff_cells) -> (u, stats)``:
+        ``u0_flat`` the (n_dofs,) byVDIM start (its Dirichlet entries are
+        overwritten), ``coeffs_flat`` the flat coefficient vectors (also
+        the two-level lattice sampling source unless ``fine_coeffs`` is
+        given), ``coeff_cells`` what :meth:`prepare_coeffs` returned; ``u``
+        a float64 tensor. ``stats`` has the reference's keys
+        (``newton_iters``, ``total_cg_iters``, ``cg_iters``,
+        ``final_residual``, ``r0``, ``converged``, ``phase_s``: seconds
+        per stage, each ending on a device sync) and ``residuals`` (|b|
+        at every Newton check) and ``cg_enqueued`` (CG iterations
+        enqueued per Newton step).
+
+        ``cfg.preconditioner``: ``'jacobi'`` or ``'twolevel'`` (geometry
+        built once per solver on the inner view, smoother data every
+        Newton step), with :meth:`make_solver`'s CG loop and operator
+        (``make_tangent``). ``cg_chunk``: CG iterations between two host
+        reads (the reference's callers pass 20 under two-level, 200 under
+        Jacobi); the stall guard reads chunk boundaries, so the chunk size
+        is part of the CG counts. Line search: inner-dtype residual norms
+        at alpha = 1, 1/2, ..., 1/64, taking the first within (1 + 1e-4)
+        of the current norm (1/64 if none is).
+
+        ``checkpoint_path``: after every Newton step the float64 iterate,
+        the step's number, r0 and the CG total go atomically to that file
+        (``io.checkpoint``), with a sha256 fingerprint of the problem and
+        the configuration; a later solve with the same fingerprint resumes
+        after that step, any other ignores the file. A converged solve
+        deletes it."""
+        from tpufem_torch.assemble.assembler import Assembler
+        from tpufem_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+        cfg = cfg or SolverConfig()
+        if cfg.preconditioner == "amg":
+            raise NotImplementedError(
+                "make_mixed_solver(preconditioner='amg'): the smoothed-"
+                "aggregation hierarchy needs la/amg.py and Assembler.matrix, "
+                "not ported yet (ROADMAP.md: item 6, linear algebra)")
+        if cfg.preconditioner not in ("jacobi", "twolevel"):
+            raise NotImplementedError(
+                f"mixed solver preconditioner {cfg.preconditioner!r}: the "
+                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md: "
+                "item 6, linear algebra)")
+        if self.functional.dtype != torch.float64:
+            raise ValueError(
+                "make_mixed_solver: the outer residual runs through the flat "
+                "Assembler in float64; build the functional with "
+                f"dtype=torch.float64 (it has {self.functional.dtype})")
+        use_tl = cfg.preconditioner == "twolevel"
+        idt = inner_dtype or torch.float32
+        ieng = self.with_dtype(idt)
+        asm = Assembler(self.functional, self.bcs)
+        dev, f64 = self.device, torch.float64
+        bc_dofs, bc_vals, _ = combine_bcs(self.bcs, self.space.n_dofs)
+        bc_dofs = torch.as_tensor(bc_dofs.astype(np.int64), device=dev)
+        bc_vals = torch.as_tensor(bc_vals, dtype=f64, device=dev)
+        free64 = asm.free_mask(f64)
+        free_in = ieng.free_lane
+        cr64 = None if const_residual is None else torch.as_tensor(
+            const_residual, dtype=f64, device=dev)
+        cr_in = None if cr64 is None else ieng.to_lane_dev(cr64.to(idt))
+        _tl = {}  # two-level geometry, built at the first Newton step
+
+        def rhs64(u, coeffs64):
+            r = asm.residual(u, coeffs64, batch=f64_batch)
+            if cr64 is not None:
+                r = r + cr64
+            b = -r * free64
+            return b, float(torch.sqrt(torch.dot(b, b)))
+
+        def norm_in(u_in, coeffs_in):
+            r = ieng.residual(u_in, coeffs_in)
+            if cr_in is not None:
+                r = r + cr_in
+            b = r * free_in
+            return float(torch.sqrt(ieng.dot(b, b)))
+
+        def fingerprint(coeffs_flat):
+            h = hashlib.sha256()
+            h.update(repr((
+                int(self.space.n_dofs), int(self.bs),
+                cfg.newton_rtol, cfg.newton_atol, cfg.newton_maxit,
+                cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxit,
+                cfg.preconditioner, str(idt).replace("torch.", ""),
+            )).encode())
+            for k in sorted(coeffs_flat):
+                a = _host(coeffs_flat[k])
+                h.update(k.encode())
+                h.update(repr(a.shape).encode())
+                h.update(np.ascontiguousarray(a).tobytes()[:1 << 20])
+            if const_residual is not None:
+                h.update(b"const_residual")
+                h.update(np.ascontiguousarray(
+                    _host(const_residual)).tobytes()[:1 << 20])
+            return h.hexdigest()
+
+        def solve(u0_flat, coeffs_flat, coeff_cells):
+            ph = dict(rhs=0.0, diag=0.0, tl_setup=0.0, tl_refresh=0.0,
+                      z0=0.0, cg=0.0, linesearch=0.0, transfer=0.0,
+                      checkpoint=0.0)
+            coeffs64 = {k: torch.as_tensor(_host(v), dtype=f64, device=dev)
+                        for k, v in coeffs_flat.items()}
+            coeffs_in = {k: v.to(idt) for k, v in coeff_cells.items()}
+            fine_c = {k: _host(v) for k, v in (
+                fine_coeffs if fine_coeffs is not None else coeffs_flat
+            ).items()}
+            u = torch.as_tensor(u0_flat, dtype=f64, device=dev).clone()
+            u[bc_dofs] = bc_vals
+            r0 = None
+            total_cg = 0
+            cg_iters, cg_enqueued, residuals = [], [], []
+            it = 0
+            it0 = 1
+            fp = None
+            if checkpoint_path is not None:
+                fp = fingerprint(coeffs_flat)
+                if os.path.exists(checkpoint_path):
+                    ck = load_checkpoint(checkpoint_path)
+                    ck_fp = str(ck["fingerprint"]) if "fingerprint" in ck \
+                        else None
+                    if ck_fp != fp:
+                        print(f"mixed Newton: checkpoint {checkpoint_path} "
+                              "has a different problem/config fingerprint "
+                              "-- ignoring it (fresh solve)", flush=True)
+                    else:
+                        u = torch.as_tensor(ck["u"], dtype=f64, device=dev)
+                        r0 = float(ck["r0"])
+                        total_cg = int(ck["total_cg"])
+                        it0 = int(ck["it"]) + 1
+                        # a run that used up newton_maxit leaves the loop
+                        # below empty: report the checkpoint's count
+                        it = it0 - 1
+                        print(f"mixed Newton: resumed from {checkpoint_path}"
+                              f" (after iteration {int(ck['it'])})",
+                              flush=True)
+            for it in range(it0, cfg.newton_maxit + 1):
+                t0 = time.perf_counter()
+                b64, bnorm = rhs64(u, coeffs64)
+                ph["rhs"] += time.perf_counter() - t0
+                residuals.append(bnorm)
+                if r0 is None:
+                    r0 = bnorm
+                if bnorm < max(cfg.newton_rtol * r0, cfg.newton_atol):
+                    it -= 1
+                    break
+                scale = bnorm if bnorm > 0 else 1.0
+                t0 = time.perf_counter()
+                # cast first, so the lane scatters run in the inner dtype
+                u_in = ieng.to_lane_dev(u.to(idt))
+                b_in = ieng.to_lane_dev((b64 * (1.0 / scale)).to(idt))
+                _sync(dev)
+                ph["transfer"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                dinv, A = _linear_system(ieng, u_in, coeffs_in, free_in)
+                _sync(dev)
+                ph["diag"] += time.perf_counter() - t0
+                if use_tl:
+                    M, t_geo, t_ref = _twolevel(ieng, _tl, fine_c,
+                                                twolevel_nc, u_in, coeffs_in,
+                                                free_in, dinv, A)
+                    ph["tl_setup"] += t_geo
+                    ph["tl_refresh"] += t_ref
+                else:
+                    def M(r):
+                        return dinv * r
+                t0 = time.perf_counter()
+                z0 = M(b_in)
+                _sync(dev)
+                ph["z0"] += time.perf_counter() - t0
+                # the inner tolerance is relative to the normalized rhs
+                tol = max(cfg.cg_rtol, cfg.cg_atol / scale)
+                t0 = time.perf_counter()
+                x, k, enq = _chunked_pcg(ieng, A, M, b_in, z0, tol,
+                                         cfg.cg_maxit, cg_chunk)
+                ph["cg"] += time.perf_counter() - t0
+                # backtracking damping on inner-dtype residual norms: the
+                # first alpha in 1, 1/2, ..., 1/64 whose norm does not
+                # exceed the current one by more than 1e-4 (rounding
+                # noise: near the root the full step ties and is taken;
+                # the next float64 residual decides convergence)
+                step_in = x * free_in
+                t0 = time.perf_counter()
+                r_cur = norm_in(u_in, coeffs_in)
+                sc_in = torch.as_tensor(scale, dtype=idt, device=dev)
+                for j in range(7):
+                    alpha = 0.5 ** j
+                    if norm_in(u_in + (sc_in * alpha) * step_in,
+                               coeffs_in) <= r_cur * (1.0 + 1e-4):
+                        break
+                ph["linesearch"] += time.perf_counter() - t0
+                u = u + (alpha * scale) * ieng.from_lane_dev(step_in).to(f64)
+                total_cg += k
+                cg_iters.append(k)
+                cg_enqueued.append(enq)
+                if cfg.verbose:
+                    print(
+                        f"mixed Newton {it}: |r| = {bnorm:.6e} (cg {k}"
+                        + (f", damping {alpha}" if alpha < 1.0 else "")
+                        + ")", flush=True
+                    )
+                if checkpoint_path is not None:
+                    # atomic: a crash mid-write leaves the last complete
+                    # file in place
+                    t0 = time.perf_counter()
+                    tmp = checkpoint_path + ".tmp.npz"
+                    save_checkpoint(tmp, dict(
+                        u=u.cpu().numpy(), it=it, total_cg=total_cg, r0=r0,
+                        fingerprint=fp))
+                    os.replace(tmp, checkpoint_path)
+                    ph["checkpoint"] += time.perf_counter() - t0
+            _, bnorm = rhs64(u, coeffs64)
+            converged = bnorm < max(cfg.newton_rtol * (r0 or bnorm or 1.0),
+                                    cfg.newton_atol)
+            if checkpoint_path is not None and converged:
+                # a converged solve's checkpoint must not seed the next run
+                for path in (checkpoint_path, checkpoint_path + ".tmp.npz"):
+                    if os.path.exists(path):
+                        os.remove(path)
+            return u, dict(
+                newton_iters=it, total_cg_iters=total_cg,
+                cg_iters=cg_iters, cg_enqueued=cg_enqueued,
+                residuals=residuals, final_residual=bnorm, r0=r0 or bnorm,
+                converged=converged, phase_s=ph,
+            )
+
+        return solve

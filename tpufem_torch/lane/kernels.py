@@ -15,6 +15,19 @@ preconditioner's coarse lattice:
 - :func:`lane_gather_weighted` -- out[t,c,k,j] = sum_v wts[t,v,k,j] *
   values[c, starts[t]+idx[t,v,k,j], j]
 
+Three more primitives of the reference have no caller on any path of
+either package (the reference's tests call two of them); they are ported
+with their public signatures so that every kernel of the reference has
+its counterpart:
+
+- :func:`lane_gather`  -- out[t,c,v,k,j] = values[c, starts[t]+idx[t,v,k,j], j]
+  (or summed over v)
+- :func:`lane_scatter` -- out[t,c,q,j] = sum_{r: dest_idx[t,r,j]==q}
+  src[c, starts[t]+r, j]
+- :func:`lane_scatter_weighted` -- out[t,c,q,j] = sum_{(d,r):
+  dest_idx[t,d,r,j]==q} wts[t,d,r,j] * src[c, starts[t]+r, j], the
+  transpose of :func:`lane_gather_weighted`
+
 Each wrapper takes the same arguments as its counterpart in
 ``tpufem/lane/kernels.py``. For a CUDA tensor it launches the kernel
 built from ``tpufem_torch/csrc/<name>.cu`` (on PyTorch's current stream,
@@ -69,7 +82,8 @@ def _raise_on(code: int, name: str):
 
 def _wrappers():
     return (lane_gather_cm, lane_scatter_cm, lane_pass_update,
-            lane_fused_elem, lane_gather_weighted)
+            lane_fused_elem, lane_gather_weighted, lane_gather, lane_scatter,
+            lane_scatter_weighted)
 
 
 def reset_launch_counts() -> None:
@@ -184,21 +198,24 @@ def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int):
 
 def lane_pass_update_plain(values, starts, idx, *, wrs: Sequence[int],
                            wg: int, shifts: Sequence[int], head: bool):
-    """Plain version of :func:`lane_pass_update`."""
+    """Plain version of :func:`lane_pass_update`: every pass gathered at
+    once, then added pass by pass, p ascending -- the kernel's order."""
     C, R, L = values.shape
     P, T, K, _ = idx.shape
     assert len(shifts) == P and len(wrs) == P and R == T * wg
-    lane = torch.arange(L, device=values.device)
-    acc = torch.zeros((C, T, K, L), dtype=values.dtype, device=values.device)
-    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    dev = values.device
+    ii = idx.to(torch.int64)  # (P, T, K, L)
+    wr = torch.as_tensor([int(w) for w in wrs], device=dev).view(P, 1, 1, 1)
+    valid = (ii >= 0) & (ii < wr)
+    rows = starts.to(torch.int64).view(P, T, 1, 1) + ii.clamp(min=0)
+    rows = rows.clamp(max=R - 1)
+    sh = torch.as_tensor([int(s) for s in shifts], device=dev).view(P, 1)
+    src_lane = (torch.arange(L, device=dev) - sh) % L  # (P, L)
+    g = values[:, rows, src_lane.view(P, 1, 1, L)]  # (C, P, T, K, L)
+    g = torch.where(valid, g, torch.zeros((), dtype=g.dtype, device=dev))
+    acc = torch.zeros((C, T, K, L), dtype=values.dtype, device=dev)
     for p in range(P):
-        ii = idx[p].to(torch.int64)  # (T, K, L)
-        valid = (ii >= 0) & (ii < int(wrs[p]))
-        rows = starts[p].to(torch.int64).view(T, 1, 1) + ii.clamp(min=0)
-        rows = rows.clamp(max=R - 1)
-        src_lane = (lane - int(shifts[p])) % L
-        g = values[:, rows, src_lane]  # (C, T, K, L)
-        acc = acc + torch.where(valid, g, zero)
+        acc = acc + g[:, p]
     out = values.reshape(C, T, wg, L).clone()
     if head:
         out[:, :, :K] = out[:, :, :K] + acc
@@ -502,6 +519,181 @@ def lane_gather_weighted(values, starts, idx, wts, *, wr: int):
     _raise_on(code, "lane_gather_weighted")
     lane_gather_weighted.launches += 1
     return out.permute(1, 0, 2, 3)
+
+
+# -- K9: gather, channel-major output ------------------------------------------
+
+
+def lane_gather_plain(values, starts, idx, *, wr: int, sum_v: bool = False):
+    """Plain version of :func:`lane_gather`: advanced indexing, and with
+    ``sum_v`` one add per v, v ascending -- the kernel's order."""
+    C, R, L = values.shape
+    T, V, K, _ = idx.shape
+    ii = idx.to(torch.int64)
+    rows = starts.to(torch.int64).view(T, 1, 1, 1) + ii.clamp(min=0)
+    valid = (ii >= 0) & (ii < wr) & (rows < R)
+    lane = torch.arange(L, device=values.device)
+    g = values[:, rows.clamp(max=R - 1), lane]  # (C, T, V, K, L)
+    g = torch.where(valid, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    if not sum_v:
+        return g.permute(1, 0, 2, 3, 4).contiguous()
+    out = torch.zeros((C, T, K, L), dtype=values.dtype, device=values.device)
+    for v in range(V):
+        out = out + g[:, :, v]
+    return out.permute(1, 0, 2, 3).contiguous()
+
+
+def lane_gather(values, starts, idx, *, wr: int, sum_v: bool = False):
+    """Windowed per-lane gather:
+
+      out[t, c, v, k, j] = values[c, starts[t] + idx[t,v,k,j], j]
+
+    values (C, R, 128); starts (T,) int32 window row starts (>= 0); idx
+    (T, V, K, 128) int8/int32 in [-1, wr). Returns (T, C, V, K, 128), or
+    (T, C, K, 128) summed over v when ``sum_v``. The sum runs over v
+    ascending in kernel and plain version alike; the reference sums window
+    rows ascending (each row's value times its count of hits), so the two
+    agree to rounding, not bitwise.
+    """
+    if values.device.type != "cuda":
+        return lane_gather_plain(values, starts, idx, wr=wr, sum_v=sum_v)
+    dev = values.device
+    _check("values", values, device=dev, dtypes=_VT)
+    C, R, L = values.shape
+    _check("idx", idx, device=dev, dtypes=_IT)
+    T, V, K, L2 = idx.shape
+    if L != N_LANES or L2 != N_LANES:
+        raise ValueError("lane_gather: bad lane width")
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    shape = (T, C, K, L) if sum_v else (T, C, V, K, L)
+    out = torch.empty(shape, dtype=values.dtype, device=dev)
+    lib = _build.load()
+    code = lib.lane_gather(
+        _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
+        starts.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        C, R, T, V, K, int(wr), int(bool(sum_v)), _stream(dev),
+    )
+    _raise_on(code, "lane_gather")
+    lane_gather.launches += 1
+    return out
+
+
+# -- K10 / K11: windowed scatter-adds ------------------------------------------
+
+
+def _scatter_rows_plain(src, starts, dest_idx, wts, *, sk, k_out):
+    """The plain scatter-add of K10 (``wts`` None) and K11: one
+    ``scatter_add_`` per (r, d), r outer and d inner -- each call has at
+    most one source per destination, so the order of additions is exactly
+    the kernels'."""
+    C, S, L = src.shape
+    T, D = dest_idx.shape[:2]
+    ii = dest_idx.to(torch.int64)
+    rows = starts.to(torch.int64).view(T, 1) + torch.arange(
+        sk, device=src.device)  # (T, sk)
+    ok = (ii >= 0) & (ii < k_out) & (rows < S).view(T, 1, sk, 1)
+    ii = torch.where(ok, ii, torch.full_like(ii, k_out))  # dump row
+    vals = src[:, rows.clamp(max=S - 1)].permute(1, 0, 2, 3)  # (T, C, sk, L)
+    out = torch.zeros((T, C, k_out + 1, L), dtype=src.dtype,
+                      device=src.device)
+    for r in range(sk):
+        v = vals[:, :, r:r + 1]  # (T, C, 1, L)
+        for d in range(D):
+            dest = ii[:, d, r].view(T, 1, 1, L).expand(T, C, 1, L)
+            add = v if wts is None else wts[:, d, r].view(T, 1, 1, L) * v
+            out.scatter_add_(2, dest, add)
+    return out[:, :, :k_out].contiguous()
+
+
+def lane_scatter_plain(src, starts, dest_idx, *, sk: int, k_out: int):
+    """Plain version of :func:`lane_scatter` (r ascending)."""
+    if dest_idx.shape[1] != sk:
+        raise ValueError(f"lane_scatter: dest_idx has {dest_idx.shape[1]} "
+                         f"rows, sk = {sk}")
+    return _scatter_rows_plain(src, starts, dest_idx[:, None], None, sk=sk,
+                               k_out=k_out)
+
+
+def lane_scatter(src, starts, dest_idx, *, sk: int, k_out: int):
+    """Windowed per-lane scatter-add (the transpose of :func:`lane_gather`
+    for one v):
+
+      out[t, c, q, j] = sum_{r: dest_idx[t,r,j]==q} src[c, starts[t]+r, j]
+
+    src (C, S, 128); starts (T,) int32 source-window row starts (>= 0);
+    dest_idx (T, sk, 128) int8/int32 in [-1, k_out). Returns
+    (T, C, k_out, 128). Rows are added r ascending, the reference's order:
+    kernel, plain version and reference agree bitwise.
+    """
+    if src.device.type != "cuda":
+        return lane_scatter_plain(src, starts, dest_idx, sk=sk, k_out=k_out)
+    dev = src.device
+    _check("src", src, device=dev, dtypes=_VT)
+    C, S, L = src.shape
+    _check("dest_idx", dest_idx, device=dev, dtypes=_IT)
+    T, SK, L2 = dest_idx.shape
+    if L != N_LANES or L2 != N_LANES or SK != sk:
+        raise ValueError("lane_scatter: bad lane width or dest_idx rows != sk")
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    out = torch.empty((T, C, k_out, L), dtype=src.dtype, device=dev)
+    lib = _build.load()
+    code = lib.lane_scatter(
+        _VT[src.dtype], _IT[dest_idx.dtype], src.data_ptr(),
+        starts.data_ptr(), dest_idx.data_ptr(), out.data_ptr(),
+        C, S, T, int(sk), int(k_out), _stream(dev),
+    )
+    _raise_on(code, "lane_scatter")
+    lane_scatter.launches += 1
+    return out
+
+
+def lane_scatter_weighted_plain(src, starts, dest_idx, wts, *, sk: int,
+                                k_out: int, n_dest: int):
+    """Plain version of :func:`lane_scatter_weighted` (r outer, d inner,
+    each product rounded before its add)."""
+    if tuple(dest_idx.shape[1:3]) != (n_dest, sk):
+        raise ValueError("lane_scatter_weighted: dest_idx must be "
+                         f"(T, n_dest={n_dest}, sk={sk}, 128)")
+    return _scatter_rows_plain(src, starts, dest_idx, wts, sk=sk,
+                               k_out=k_out)
+
+
+def lane_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
+                          n_dest: int):
+    """Weighted multi-destination scatter-add, the transpose of
+    :func:`lane_gather_weighted`:
+
+      out[t, c, q, j] += wts[t,d,r,j] * src[c, starts[t]+r, j]
+        for every (d, r) with dest_idx[t,d,r,j] == q
+
+    src (C, S, 128); starts (T,) int32 (>= 0); dest_idx (T, n_dest, sk,
+    128) int8/int32 in [-1, k_out); wts of that shape in the src's dtype.
+    Returns (T, C, k_out, 128). Products are added r outer, d inner, the
+    reference's order: kernel, plain version and reference agree bitwise.
+    """
+    if src.device.type != "cuda":
+        return lane_scatter_weighted_plain(src, starts, dest_idx, wts, sk=sk,
+                                           k_out=k_out, n_dest=n_dest)
+    dev = src.device
+    _check("src", src, device=dev, dtypes=_VT)
+    C, S, L = src.shape
+    _check("dest_idx", dest_idx, device=dev, dtypes=_IT)
+    T, D, SK, L2 = dest_idx.shape
+    _check("wts", wts, device=dev, dtypes=(src.dtype,), shape=dest_idx.shape)
+    if L != N_LANES or L2 != N_LANES or SK != sk or D != n_dest:
+        raise ValueError("lane_scatter_weighted: bad lane width, or "
+                         "dest_idx not (T, n_dest, sk, 128)")
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    out = torch.empty((T, C, k_out, L), dtype=src.dtype, device=dev)
+    lib = _build.load()
+    code = lib.lane_scatter_weighted(
+        _VT[src.dtype], _IT[dest_idx.dtype], src.data_ptr(),
+        starts.data_ptr(), dest_idx.data_ptr(), wts.data_ptr(),
+        out.data_ptr(), C, S, T, D, int(sk), int(k_out), _stream(dev),
+    )
+    _raise_on(code, "lane_scatter_weighted")
+    lane_scatter_weighted.launches += 1
+    return out
 
 
 reset_launch_counts()
