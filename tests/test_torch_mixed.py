@@ -1,5 +1,5 @@
-"""The mixed-precision solve of tpufem_torch (``LaneEngine.make_mixed_solver``,
-``polycrystal.run(mixed=True)``, checkpoints) against tpufem's (CPU, the
+"""The mixed-precision solver of tpufem_torch (``LaneEngine.make_mixed_solver``
+and its checkpoints) against tpufem's (CPU, the
 reference with x64 on and its Pallas kernels in interpret mode; the port's
 inner solves in float32 on the CPU, through the kernels' plain versions).
 
@@ -13,15 +13,14 @@ Tolerances: each mixed solve reaches the float64 root to rel <= 1e-10
 (the reference's own bound for its mixed solves); the two packages agree
 in the Newton count within 1 and in u to rel <= 1e-9 (float32 inner CG,
 different rounding); a resumed checkpoint lands on the uninterrupted
-solve's root to rel <= 1e-9; ``run(mixed=True)`` against the reference's
-``run``: u and energy rel <= 1e-10 (both solve to newton_rtol 1e-10)."""
+solve's root to rel <= 1e-9. ``run(mixed=True)`` is held against the
+reference's in test_torch_mixed_run.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import tpufem_torch.cases.polycrystal as t_poly
 from tpufem.config import SolverConfig as JSolverConfig
 from tpufem_torch.config import SolverConfig as TSolverConfig
 from tpufem_torch.lane import LaneEngine as TLaneEngine
@@ -82,9 +81,9 @@ def port():
     return dict(F=F, bcs=bcs, V=V, d=d, gold=e64.from_lane(u))
 
 
-def _port_mixed(port, pc, engine_dtype, **kw):
+def _port_mixed(port, pc, **kw):
     eng = TLaneEngine(port["F"], port["bcs"], wg_own=WG_OWN,
-                      dtype=engine_dtype, **CPU)
+                      dtype=torch.float32, **CPU)
     cfg = TSolverConfig(preconditioner=pc, **CFG)
     solve = eng.make_mixed_solver(cfg, cg_chunk=CHUNK[pc], **kw)
     d = port["d"]
@@ -93,13 +92,10 @@ def _port_mixed(port, pc, engine_dtype, **kw):
     return u.numpy(), st
 
 
-@pytest.mark.parametrize("pc,engine_dtype", [
-    ("jacobi", torch.float32), ("twolevel", torch.float64)],
-    ids=["jacobi", "twolevel"])
-def test_mixed_solver_matches_reference(port, pc, engine_dtype):
+@pytest.mark.parametrize("pc", ["jacobi", "twolevel"])
+def test_mixed_solver_matches_reference(port, pc):
     """The reference's make_mixed_solver on its float32-stored engine, the
-    port's on a float32 engine (Jacobi) and on a float64 engine viewed in
-    float32 (two-level): both on the float64 root, and alike."""
+    port's on a float32 engine: both on the float64 root, and alike."""
     from tpufem.lane import LaneEngine as JLaneEngine
 
     Fj, bj, Vj, d = _problem("jax")
@@ -110,7 +106,7 @@ def test_mixed_solver_matches_reference(port, pc, engine_dtype):
         JSolverConfig(preconditioner=pc, error_on_nonconvergence=False,
                       **CFG), cg_chunk=CHUNK[pc])(
         jnp.zeros(Vj.n_dofs, dtype=jnp.float64), cj, ej.prepare_coeffs(cj))
-    ut, st = _port_mixed(port, pc, engine_dtype)
+    ut, st = _port_mixed(port, pc)
     assert sj["converged"] and st["converged"]
     assert set(sj) <= set(st)  # the reference's statistics, and more
     assert set(st["phase_s"]) == set(sj["phase_s"])
@@ -137,7 +133,7 @@ def test_mixed_checkpoint_resumes_onto_the_same_root(port, tmp_path,
     from tpufem_torch.io import load_checkpoint
 
     ckpt = str(tmp_path / "mixed.ckpt.npz")
-    u_gold, s_gold = _port_mixed(port, "jacobi", torch.float32)
+    u_gold, s_gold = _port_mixed(port, "jacobi")
     assert s_gold["converged"] and s_gold["newton_iters"] >= 2
     pcg, calls = t_engine._chunked_pcg, []
 
@@ -150,11 +146,11 @@ def test_mixed_checkpoint_resumes_onto_the_same_root(port, tmp_path,
     with monkeypatch.context() as m:
         m.setattr(t_engine, "_chunked_pcg", crash_in_step_2)
         with pytest.raises(RuntimeError, match="crash"):
-            _port_mixed(port, "jacobi", torch.float32, checkpoint_path=ckpt)
+            _port_mixed(port, "jacobi", checkpoint_path=ckpt)
     ck = load_checkpoint(ckpt)
     assert int(ck["it"]) == 1
     assert int(ck["total_cg"]) == s_gold["cg_iters"][0]
-    u_res, s_res = _port_mixed(port, "jacobi", torch.float32,
+    u_res, s_res = _port_mixed(port, "jacobi",
                                checkpoint_path=ckpt)
     assert s_res["converged"]
     assert s_res["newton_iters"] == s_gold["newton_iters"]
@@ -163,15 +159,28 @@ def test_mixed_checkpoint_resumes_onto_the_same_root(port, tmp_path,
     assert not (tmp_path / "mixed.ckpt.npz").exists()
 
 
+def _scaled(d):
+    return 0.5 * d
+
+
+def _last_entry(d):
+    d2 = d.copy()
+    d2[-1] = 0.3
+    return d2
+
+
+@pytest.mark.parametrize("change", [_scaled, _last_entry],
+                         ids=["scaled", "last_entry"])
 def test_mixed_checkpoint_of_another_problem_is_ignored(port, tmp_path,
-                                                        capsys):
-    """A checkpoint written for other coefficients (same shapes) has
-    another fingerprint: the solve starts afresh instead of resuming."""
+                                                        capsys, change):
+    """A checkpoint written for other coefficients (same shapes: all of d
+    scaled, or only its last entry changed) has another fingerprint: the
+    solve starts afresh instead of resuming."""
     ckpt = str(tmp_path / "mixed.ckpt.npz")
     eng = TLaneEngine(port["F"], port["bcs"], wg_own=WG_OWN,
                       dtype=torch.float32, **CPU)
     d = port["d"]
-    d2 = 0.5 * d
+    d2 = change(d)
     u0 = torch.zeros(port["V"].n_dofs, dtype=torch.float64)
     eng.make_mixed_solver(TSolverConfig(**dict(CFG, newton_maxit=1)),
                           cg_chunk=200, checkpoint_path=ckpt)(
@@ -187,18 +196,30 @@ def test_mixed_checkpoint_of_another_problem_is_ignored(port, tmp_path,
     assert torch.equal(u, fresh)
 
 
+def test_mixed_fingerprint_hashes_whole_arrays():
+    """Two coefficient vectors that differ only past their first MiB (a
+    damage field at n = 1024 holds about 8 MB) give two fingerprints; the
+    same arrays give the same one, as a tensor or as an array."""
+    from tpufem_torch.lane.engine import _fingerprint
+
+    cfg = (2, "jacobi")
+    d = np.random.default_rng(0).random(1 << 18)  # 2 MiB of float64
+    d2 = d.copy()
+    d2[-1] += 1.0
+    assert _fingerprint(cfg, {"d": d}) != _fingerprint(cfg, {"d": d2})
+    assert _fingerprint(cfg, {"d": d}) == _fingerprint(
+        cfg, {"d": torch.as_tensor(d)})
+    assert _fingerprint(cfg, {"d": d}) != _fingerprint((3, "jacobi"),
+                                                       {"d": d})
+
+
 def test_mixed_solver_refuses_what_it_cannot_do(port):
     """amg is not ported (ROADMAP); a float32 functional cannot give the
-    float64 outer residual; the engine's float32 view shares its plan."""
+    float64 outer residual."""
     eng = TLaneEngine(port["F"], port["bcs"], wg_own=WG_OWN,
-                      dtype=torch.float64, **CPU)
+                      dtype=torch.float32, **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.make_mixed_solver(TSolverConfig(preconditioner="amg"))
-    view = eng.with_dtype(torch.float32)
-    assert eng.with_dtype(torch.float64) is eng
-    assert view.plan is eng.plan and view.gather_idx is eng.gather_idx
-    assert view.free_lane.dtype == torch.float32
-    assert torch.equal(view.free_lane.double(), eng.free_lane)
     from tpufem_torch.forms import EnergyFunctional
 
     f32 = EnergyFunctional(port["F"].space, port["F"].terms,
@@ -207,58 +228,3 @@ def test_mixed_solver_refuses_what_it_cannot_do(port):
     with pytest.raises(ValueError, match="float64"):
         TLaneEngine(f32, port["bcs"], wg_own=WG_OWN, **CPU
                     ).make_mixed_solver()
-
-
-def test_run_mixed_matches_reference():
-    """``polycrystal.run(mixed=True)`` (float64 load, functional, energy
-    and DG0 fields; float32 engine) against the reference's, Jacobi, both
-    to newton_rtol 1e-10; the CLI has ``--mixed``."""
-    import tpufem.cases.polycrystal as j_poly
-
-    kw = dict(n_grains=4, smooth_iters=2, use_volume=False, mixed=True)
-    cfg = dict(cg_rtol=1e-6, newton_rtol=1e-10, cg_maxit=5000,
-               newton_maxit=30, preconditioner="jacobi")
-    ref = j_poly.run(8, interpret=True, solver=JSolverConfig(
-        error_on_nonconvergence=False, **cfg), **kw)
-    got = t_poly.run(8, solver=TSolverConfig(**cfg), **CPU, **kw)
-    assert ref.stats["converged"] and got.stats["converged"]
-    assert _rel(got.u_flat, ref.u_flat) <= 1e-10
-    assert abs(got.energy - ref.energy) <= 1e-10 * abs(ref.energy)
-    assert got.u_flat.dtype == np.float64 and got.stress.dtype == np.float64
-    assert np.abs(got.stress - ref.stress).max() <= 1e-8 * np.abs(
-        ref.stress).max()
-
-    from tpufem_torch.cli import build_parser
-
-    ap = build_parser()
-    assert ap.parse_args(["polycrystal", "--mixed"]).mixed
-    assert not ap.parse_args(["polycrystal"]).mixed
-
-
-def _run_pair(n, **kw):
-    """The port's twins of the reference's slow polycrystal tests: the
-    float64 lane solve (the gold) and the mixed solve, both to
-    newton_rtol 1e-10 (tests/test_polycrystal.py:153-239)."""
-    base = dict(n_grains=12, smooth_iters=4, **CPU, **kw)
-    gold = t_poly.run(n, dtype=torch.float64, solver=TSolverConfig(
-        cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=5000, newton_maxit=20,
-        preconditioner="jacobi"), **base)
-    mixed = t_poly.run(n, mixed=True, solver=TSolverConfig(
-        cg_rtol=1e-6, newton_rtol=1e-10, cg_maxit=5000, newton_maxit=30,
-        preconditioner="jacobi"), **base)
-    assert gold.stats["converged"] and mixed.stats["converged"]
-    return gold, mixed
-
-
-@pytest.mark.slow
-def test_run_mixed_unloaded_lands_on_the_float64_root():
-    gold, mixed = _run_pair(20, use_volume=False)
-    assert _rel(mixed.u_flat, gold.u_flat) < 1e-10
-    assert abs(mixed.energy - gold.energy) < 1e-10 * abs(gold.energy)
-
-
-@pytest.mark.slow
-def test_run_mixed_loaded_consistent():
-    gold, mixed = _run_pair(16)
-    assert _rel(mixed.u_flat, gold.u_flat) < 2e-7
-    assert abs(mixed.energy - gold.energy) < 1e-5 * abs(gold.energy)

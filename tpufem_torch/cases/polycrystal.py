@@ -297,7 +297,7 @@ def run(
     t0 = time.perf_counter()
     if mixed:
         solve = eng.make_mixed_solver(
-            cfg, cg_chunk=cg_chunk, fine_coeffs=fine, inner_dtype=dtype,
+            cfg, cg_chunk=cg_chunk, fine_coeffs=fine,
             checkpoint_path=checkpoint_path, const_residual=r_load)
         u_flat_dev, stats = solve(
             torch.zeros(V.n_dofs, dtype=odt, device=dev),

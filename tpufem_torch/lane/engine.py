@@ -43,7 +43,6 @@ back silently to another path.
 
 from __future__ import annotations
 
-import copy
 import hashlib
 import math
 import os
@@ -64,6 +63,9 @@ from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
 from tpufem_torch.lane.plan import LanePlan, N_LANES, build_lane_plan
 from tpufem_torch.mesh.mesh import CellType
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
+
+# cells per slab of the mixed solver's float64 outer residual (Assembler)
+_F64_BATCH = 65536
 
 
 def _inv_diagonal(eng, u, coeffs, free, lin):
@@ -149,25 +151,41 @@ def _chunked_pcg(eng, A, M, b, z0, tol, maxit, chunk):
 
 def _twolevel(eng, tl, fine_coeffs, nc, u, coeffs, free, dinv, A):
     """The two-level preconditioner of one Newton step: its geometry built
-    at the first call and kept in ``tl``, its smoother data refreshed from
-    this step's Jacobi diagonal ``dinv`` and CG operator ``A``. Returns
-    (M, seconds of the geometry build, seconds of the refresh)."""
+    at the first call and kept in ``tl`` (:func:`_twolevel_geo`), its
+    smoother data refreshed from this step's Jacobi diagonal ``dinv`` and
+    CG operator ``A``. Returns M."""
     from tpufem_torch.lane import twolevel as tlmod
 
-    t0 = time.perf_counter()
-    if "geo" not in tl:
-        tl["static"], tl["geo"] = tlmod.build_twolevel_geo(
-            eng, fine_coeffs, nc=nc)
-    _sync(eng.device)
-    t1 = time.perf_counter()
+    _twolevel_geo(eng, tl, fine_coeffs, nc)
     data = tlmod.refresh_twolevel(eng, tl["static"], tl["geo"], u, coeffs,
                                   inv_d=dinv, A=A)
-    _sync(eng.device)
 
     def M(r):
         return tlmod.precondition_with(eng, tl["static"], data, free, r, A)
 
-    return M, t1 - t0, time.perf_counter() - t1
+    return M
+
+
+def _twolevel_geo(eng, tl, fine_coeffs, nc):
+    """Build the two-level geometry into ``tl`` unless it holds one."""
+    from tpufem_torch.lane import twolevel as tlmod
+
+    if "geo" not in tl:
+        tl["static"], tl["geo"] = tlmod.build_twolevel_geo(
+            eng, fine_coeffs, nc=nc)
+
+
+def _fingerprint(config, arrays) -> str:
+    """sha256 of ``config`` (a tuple of plain values) and of each named
+    array of ``arrays`` whole: its name, shape, dtype and every byte."""
+    h = hashlib.sha256()
+    h.update(repr(config).encode())
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(_host(arrays[k]))
+        h.update(k.encode())
+        h.update(repr((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def _host(a) -> np.ndarray:
@@ -345,22 +363,6 @@ class LaneEngine:
         return torch.as_tensor(
             np.asarray(a), dtype=self.dtype, device=self.device
         )
-
-    def with_dtype(self, dtype: torch.dtype) -> "LaneEngine":
-        """This engine with its float device state (geometry, masks, dot
-        weights) in ``dtype``: a shallow copy sharing the plan and the
-        index tables, or ``self`` if it has that dtype already. The mixed
-        solver runs its inner solves on such a view."""
-        if dtype == self.dtype:
-            return self
-        view = copy.copy(self)
-        view.dtype = dtype
-        for name in ("geom_dN", "geom_w", "geom_xq", "fused_geom",
-                     "free_lane", "bc_lane", "owned_w"):
-            t = getattr(self, name)
-            if t is not None:
-                setattr(view, name, t.to(dtype))
-        return view
 
     def _try_specialize_p1(self):
         """If the functional is a single degree-1 cell term on a simplex
@@ -1069,10 +1071,10 @@ class LaneEngine:
                     break
                 dinv, A = _linear_system(eng, u, coeff_cells, free)
                 if use_tl:
-                    M, t_geo, t_ref = _twolevel(eng, _tl, fine_coeffs,
-                                                twolevel_nc, u, coeff_cells,
-                                                free, dinv, A)
-                    tl_seconds += t_geo + t_ref
+                    t_tl = time.perf_counter()
+                    M = _twolevel(eng, _tl, fine_coeffs, twolevel_nc, u,
+                                  coeff_cells, free, dinv, A)
+                    tl_seconds += time.perf_counter() - t_tl
                 else:
                     def M(r):
                         return dinv * r
@@ -1121,25 +1123,21 @@ class LaneEngine:
 
     def make_mixed_solver(self, cfg: Optional[SolverConfig] = None, *,
                           cg_chunk: int = 20, fine_coeffs=None,
-                          twolevel_nc=None, inner_dtype=None,
-                          f64_batch: int = 65536,
                           checkpoint_path: Optional[str] = None,
                           const_residual=None):
         """Mixed-precision defect-correction Newton-Krylov.
 
         The outer loop runs in float64: every Newton step takes one
         residual through the flat ``Assembler`` (in cell slabs of
-        ``f64_batch``) plus ``const_residual`` (a flat float64 vector
-        added to every residual: the constant load vector), tests it
+        ``_F64_BATCH`` cells) plus ``const_residual`` (a flat float64
+        vector added to every residual: the constant load vector), tests it
         against r0 and applies the step to the float64 iterate. Every CG
-        solve runs on this engine in ``inner_dtype`` (default float32)
-        against the right-hand side normalized by ``scale = |b|``, to
+        solve runs on this engine, in its dtype (float32 as ``run`` builds
+        it), against the right-hand side normalized by ``scale = |b|``, to
         ``max(cg_rtol, cg_atol / scale)``. So the iterate converges to the
         float64 root, which the inner dtype alone cannot reach (float32
         lane solves stop near 1e-6 * r0). The functional must be float64
-        (its geometry feeds the outer residual); the engine may hold its
-        float state in any dtype, and is viewed in ``inner_dtype``
-        (:meth:`with_dtype`).
+        (its geometry feeds the outer residual).
 
         Returns ``solve(u0_flat, coeffs_flat, coeff_cells) -> (u, stats)``:
         ``u0_flat`` the (n_dofs,) byVDIM start (its Dirichlet entries are
@@ -1154,21 +1152,21 @@ class LaneEngine:
         enqueued per Newton step).
 
         ``cfg.preconditioner``: ``'jacobi'`` or ``'twolevel'`` (geometry
-        built once per solver on the inner view, smoother data every
-        Newton step), with :meth:`make_solver`'s CG loop and operator
-        (``make_tangent``). ``cg_chunk``: CG iterations between two host
-        reads (the reference's callers pass 20 under two-level, 200 under
-        Jacobi); the stall guard reads chunk boundaries, so the chunk size
-        is part of the CG counts. Line search: inner-dtype residual norms
+        built once per solver, smoother data every Newton step), with
+        :meth:`make_solver`'s CG loop and operator (``make_tangent``).
+        ``cg_chunk``: CG iterations between two host reads (the
+        reference's callers pass 20 under two-level, 200 under Jacobi);
+        the stall guard reads chunk boundaries, so the chunk size is part
+        of the CG counts. Line search: inner-dtype residual norms
         at alpha = 1, 1/2, ..., 1/64, taking the first within (1 + 1e-4)
         of the current norm (1/64 if none is).
 
         ``checkpoint_path``: after every Newton step the float64 iterate,
         the step's number, r0 and the CG total go atomically to that file
-        (``io.checkpoint``), with a sha256 fingerprint of the problem and
-        the configuration; a later solve with the same fingerprint resumes
-        after that step, any other ignores the file. A converged solve
-        deletes it."""
+        (``io.checkpoint``), with a sha256 fingerprint of the configuration
+        and of every coefficient and ``const_residual``, each whole; a
+        later solve with the same fingerprint resumes after that step, any
+        other ignores the file. A converged solve deletes it."""
         from tpufem_torch.assemble.assembler import Assembler
         from tpufem_torch.io.checkpoint import load_checkpoint, save_checkpoint
 
@@ -1189,52 +1187,43 @@ class LaneEngine:
                 "Assembler in float64; build the functional with "
                 f"dtype=torch.float64 (it has {self.functional.dtype})")
         use_tl = cfg.preconditioner == "twolevel"
-        idt = inner_dtype or torch.float32
-        ieng = self.with_dtype(idt)
+        idt = self.dtype
         asm = Assembler(self.functional, self.bcs)
         dev, f64 = self.device, torch.float64
         bc_dofs, bc_vals, _ = combine_bcs(self.bcs, self.space.n_dofs)
         bc_dofs = torch.as_tensor(bc_dofs.astype(np.int64), device=dev)
         bc_vals = torch.as_tensor(bc_vals, dtype=f64, device=dev)
         free64 = asm.free_mask(f64)
-        free_in = ieng.free_lane
+        free_in = self.free_lane
         cr64 = None if const_residual is None else torch.as_tensor(
             const_residual, dtype=f64, device=dev)
-        cr_in = None if cr64 is None else ieng.to_lane_dev(cr64.to(idt))
+        cr_in = None if cr64 is None else self.to_lane_dev(cr64.to(idt))
         _tl = {}  # two-level geometry, built at the first Newton step
 
         def rhs64(u, coeffs64):
-            r = asm.residual(u, coeffs64, batch=f64_batch)
+            r = asm.residual(u, coeffs64, batch=_F64_BATCH)
             if cr64 is not None:
                 r = r + cr64
             b = -r * free64
             return b, float(torch.sqrt(torch.dot(b, b)))
 
         def norm_in(u_in, coeffs_in):
-            r = ieng.residual(u_in, coeffs_in)
+            r = self.residual(u_in, coeffs_in)
             if cr_in is not None:
                 r = r + cr_in
             b = r * free_in
-            return float(torch.sqrt(ieng.dot(b, b)))
+            return float(torch.sqrt(self.dot(b, b)))
 
         def fingerprint(coeffs_flat):
-            h = hashlib.sha256()
-            h.update(repr((
+            arrays = dict(coeffs_flat)
+            if const_residual is not None:
+                arrays["const_residual"] = const_residual
+            return _fingerprint((
                 int(self.space.n_dofs), int(self.bs),
                 cfg.newton_rtol, cfg.newton_atol, cfg.newton_maxit,
                 cfg.cg_rtol, cfg.cg_atol, cfg.cg_maxit,
                 cfg.preconditioner, str(idt).replace("torch.", ""),
-            )).encode())
-            for k in sorted(coeffs_flat):
-                a = _host(coeffs_flat[k])
-                h.update(k.encode())
-                h.update(repr(a.shape).encode())
-                h.update(np.ascontiguousarray(a).tobytes()[:1 << 20])
-            if const_residual is not None:
-                h.update(b"const_residual")
-                h.update(np.ascontiguousarray(
-                    _host(const_residual)).tobytes()[:1 << 20])
-            return h.hexdigest()
+            ), arrays)
 
         def solve(u0_flat, coeffs_flat, coeff_cells):
             ph = dict(rhs=0.0, diag=0.0, tl_setup=0.0, tl_refresh=0.0,
@@ -1288,20 +1277,24 @@ class LaneEngine:
                 scale = bnorm if bnorm > 0 else 1.0
                 t0 = time.perf_counter()
                 # cast first, so the lane scatters run in the inner dtype
-                u_in = ieng.to_lane_dev(u.to(idt))
-                b_in = ieng.to_lane_dev((b64 * (1.0 / scale)).to(idt))
+                u_in = self.to_lane_dev(u.to(idt))
+                b_in = self.to_lane_dev((b64 * (1.0 / scale)).to(idt))
                 _sync(dev)
                 ph["transfer"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
-                dinv, A = _linear_system(ieng, u_in, coeffs_in, free_in)
+                dinv, A = _linear_system(self, u_in, coeffs_in, free_in)
                 _sync(dev)
                 ph["diag"] += time.perf_counter() - t0
                 if use_tl:
-                    M, t_geo, t_ref = _twolevel(ieng, _tl, fine_c,
-                                                twolevel_nc, u_in, coeffs_in,
-                                                free_in, dinv, A)
-                    ph["tl_setup"] += t_geo
-                    ph["tl_refresh"] += t_ref
+                    t0 = time.perf_counter()
+                    _twolevel_geo(self, _tl, fine_c, None)
+                    _sync(dev)
+                    ph["tl_setup"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    M = _twolevel(self, _tl, fine_c, None, u_in, coeffs_in,
+                                  free_in, dinv, A)
+                    _sync(dev)
+                    ph["tl_refresh"] += time.perf_counter() - t0
                 else:
                     def M(r):
                         return dinv * r
@@ -1312,7 +1305,7 @@ class LaneEngine:
                 # the inner tolerance is relative to the normalized rhs
                 tol = max(cfg.cg_rtol, cfg.cg_atol / scale)
                 t0 = time.perf_counter()
-                x, k, enq = _chunked_pcg(ieng, A, M, b_in, z0, tol,
+                x, k, enq = _chunked_pcg(self, A, M, b_in, z0, tol,
                                          cfg.cg_maxit, cg_chunk)
                 ph["cg"] += time.perf_counter() - t0
                 # backtracking damping on inner-dtype residual norms: the
@@ -1330,7 +1323,7 @@ class LaneEngine:
                                coeffs_in) <= r_cur * (1.0 + 1e-4):
                         break
                 ph["linesearch"] += time.perf_counter() - t0
-                u = u + (alpha * scale) * ieng.from_lane_dev(step_in).to(f64)
+                u = u + (alpha * scale) * self.from_lane_dev(step_in).to(f64)
                 total_cg += k
                 cg_iters.append(k)
                 cg_enqueued.append(enq)
