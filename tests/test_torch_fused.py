@@ -342,3 +342,53 @@ def test_fused_engine_refuses_foreign_coefficients(setup):
     s = setup["damage"]
     with pytest.raises(KeyError, match="_cd"):
         s["ef"].residual(torch.from_numpy(s["u"]), s["ccs"])
+
+
+# K4's launch geometry (lane_fused_elem on a CUDA tensor): the wrapper
+# computes it on the host and the kernel checks its shared-memory size
+def _layout(lb, ky, stages, ns, wr, dn, vb, ib):
+    """csrc/lane_fused_elem.cu:fused_layout, region by region."""
+    pad = tk._pad16
+    return (pad(2 * wr * lb * vb) + pad(ns * 2 * wr * lb * vb)
+            + pad(stages * (7 + dn) * ky * lb * vb)
+            + pad(stages * 3 * ky * lb * ib) + pad(2 * ky * 6 * lb * vb)
+            + pad(2 * ky * 3 * lb * 2))
+
+
+def test_fused_geometry_at_the_main_path():
+    """The n = 1024 plan (wr = 40, 4 coefficient rows), float32 values,
+    int8 indices: blocks of 32 lane columns x 4 cells (128 threads), four
+    to a bin, a ring of 3 rounds; the Hessian-vector product's 56 448
+    bytes let four blocks share an SM (228 KB, 1 KB reserved per block)."""
+    for ns, smem in ((1, 46208), (2, 56448)):
+        g = tk.fused_elem_geometry(ns, 40, 4, 4, 1)
+        assert g == dict(lb=32, ky=4, stages=3, smem=smem, grid_y=4,
+                         threads=128)
+        assert smem == _layout(32, 4, 3, ns, 40, 4, 4, 1)
+        assert smem == tk.fused_layout_bytes(32, 4, 3, ns, 40, 4, 4, 1)
+    assert 4 * (56448 + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("vb,ib", [(4, 1), (4, 4), (8, 1), (8, 4)])
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("wr", [9, 40, 126])
+def test_fused_geometry_takes_the_first_layout_that_fits(vb, ib, ns, wr):
+    """Every dtype pair, both modes and windows up to the int8 limit: the
+    first block layout of ``FUSED_CONFIGS`` that fits 227 KB; the float64
+    Hessian-vector product of a 126-row window takes 16 lane columns."""
+    g = tk.fused_elem_geometry(ns, wr, 4, vb, ib)
+    fits = [cfg for cfg in tk.FUSED_CONFIGS
+            if _layout(*cfg, ns, wr, 4, vb, ib) <= tk.SMEM_PER_BLOCK]
+    assert (g["lb"], g["ky"], g["stages"]) == fits[0]
+    assert g["smem"] == _layout(*fits[0], ns, wr, 4, vb, ib)
+    assert g["grid_y"] * g["lb"] == 128 and g["threads"] == g["ky"] * g["lb"]
+    assert (g["lb"] == 16) == (vb == 8 and ns == 2 and wr == 126)
+
+
+def test_fused_geometry_raises_where_no_layout_fits():
+    """A window too tall for every layout: ValueError, no launch and no
+    other kernel in its place."""
+    with pytest.raises(ValueError, match="does not fit"):
+        tk.fused_elem_geometry(2, 400, 4, 8, 4)
+    with pytest.raises(ValueError):
+        tk.fused_elem_geometry(3, 40, 4, 4, 1)

@@ -107,6 +107,69 @@ def test_pass_update_matches_jax(idt, head, sign):
         assert (got.numpy()[:, :, wg - K:][:, none] == 0).all()
 
 
+# K3's launch geometry (lane_pass_update on a CUDA tensor): the wrapper
+# computes it on the host and the kernel checks its shared-memory size
+OWNER_WRS = (3, 5, 7, 10, 9, 7, 16, 19, 12, 13, 14, 14, 12, 10)  # n = 1024
+
+
+def _pass_layout(C, K, wt, vb, ib):
+    """csrc/lane_pass_update.cu: PASS_STAGES ring stages of (index rows,
+    then wt window rows for each of the block's channels)."""
+    rows, cb = min(K, tk.PASS_ROWS), min(C, tk.PASS_CB)
+    return tk.PASS_STAGES * (rows * L * ib + cb * wt * L * vb)
+
+
+def test_pass_update_geometry_at_the_main_path():
+    """The n = 1024 plan's owner-sum (K = 16) and refresh (K = 24) passes,
+    float32 values and int8 indices: one unit per pass, in pass order,
+    the whole window in one stage; one block per bin serves both channels;
+    the staged refresh's shared memory would let three blocks share an SM
+    (228 KB, 1 KB reserved per block)."""
+    g = tk.pass_update_geometry(2, 16, OWNER_WRS, 4, 1)
+    assert g["wt"] == 19 and g["groups"] == 1 and g["channel_blocks"] == 1
+    assert g["units"] == tuple((p, 0, w) for p, w in enumerate(OWNER_WRS))
+    assert g["smem"] == _pass_layout(2, 16, 19, 4, 1) == 64512
+    assert 3 * (g["smem"] + tk.PASS_STATIC_SMEM + 1024) <= 228 * 1024
+    r = tk.pass_update_geometry(2, 24, (16,) * 13 + (15,), 4, 1)
+    assert r["wt"] == 16 and len(r["units"]) == 14
+    assert r["smem"] == _pass_layout(2, 24, 16, 4, 1)
+
+
+@pytest.mark.parametrize("vbytes,ibytes", [(4, 1), (4, 4), (8, 1), (8, 4)])
+@pytest.mark.parametrize("C,K", [(1, 5), (2, 24), (3, 37), (2, 64)])
+def test_pass_update_geometry_tiles_every_window(vbytes, ibytes, C, K):
+    """Windows up to the int8 limit (126 rows): the units tile each pass's
+    window [0, wr) exactly once, in pass order, no tile taller than wt;
+    the layout fits the card's shared memory beside the pass starts, with
+    the tallest tile that does; one block per 32 updated rows and per
+    channel pair."""
+    wrs = (126, 1, 0, 40, 7)
+    g = tk.pass_update_geometry(C, K, wrs, vbytes, ibytes)
+    wt, units = g["wt"], g["units"]
+    assert [u[0] for u in units] == sorted(u[0] for u in units)
+    for p, w in enumerate(wrs):
+        tiles = [(a, n) for q, a, n in units if q == p]
+        assert [a for a, _ in tiles] == list(range(0, w, wt))
+        assert sum(n for _, n in tiles) == w
+        assert all(1 <= n <= wt for _, n in tiles)
+    room = tk.SMEM_PER_BLOCK - tk.PASS_STATIC_SMEM
+    assert g["smem"] == _pass_layout(C, K, wt, vbytes, ibytes) <= room
+    assert wt == 126 or _pass_layout(C, K, wt + 1, vbytes, ibytes) > room
+    assert g["groups"] == -(-K // tk.PASS_ROWS)
+    assert g["channel_blocks"] == -(-C // tk.PASS_CB)
+
+
+def test_pass_update_geometry_raises_where_the_kernel_cannot_launch():
+    """More tiles than the kernel takes, more passes than it takes, or no
+    row: ValueError (the wrapper raises before any launch)."""
+    with pytest.raises(ValueError, match="tiles"):
+        tk.pass_update_geometry(2, 32, (126,) * 64, 8, 4)
+    with pytest.raises(ValueError, match="passes"):
+        tk.pass_update_geometry(2, 16, (4,) * (tk.PASS_MAX + 1), 4, 1)
+    with pytest.raises(ValueError):
+        tk.pass_update_geometry(2, 0, (4,), 4, 1)
+
+
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     rng = np.random.default_rng(5)
     tk.reset_launch_counts()

@@ -200,3 +200,35 @@ def test_full_run_matches_reference_run():
     assert _rel(rt.u_flat, rj.u_flat) <= 1e-9
     assert abs(rt.energy - rj.energy) <= 1e-10 * abs(rj.energy)
     assert _rel(rt.stress, rj.stress) <= 1e-9
+
+
+def test_jacobi_run_takes_the_reference_cg_chunk():
+    """``run`` under Jacobi against the reference's ``run`` (float64; the
+    reference's Pallas kernels in interpret mode; unloaded, since the
+    reference assembles its load vector in float32 even under x64): the
+    same Newton count, per-step CG counts within +-1 and u rel <= 1e-9.
+
+    Both take CG chunks of 200 iterations under Jacobi
+    (tpufem/cases/polycrystal.py:319). The stall guard reads chunk ends and
+    gives up after 4 chunks in a row without progress, so a stalling CG
+    now stops after the reference's 800 iterations, not 200. No small
+    float64 case stalls -- this one converges in under 100 CG iterations
+    per step even at cg_rtol 1e-17 -- so the chunk is pinned through the
+    port's ``stats["cg_enqueued"]``: one chunk of 200 per Newton step
+    (two of 50 with the old default)."""
+    kw = dict(n_grains=4, smooth_iters=2, use_volume=False,
+              postprocess_fields=False)
+    cfg = dict(cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=1000,
+               newton_maxit=20, preconditioner="jacobi")
+    ref = j_poly.run(8, interpret=True, solver=JSolverConfig(
+        error_on_nonconvergence=False, **cfg), **kw)
+    got = t_poly.run(8, solver=TSolverConfig(**cfg), **F64, **kw)
+    sj, st = ref.stats, got.stats
+    assert sj["converged"] and st["converged"]
+    assert st["newton_iters"] == sj["newton_iters"]
+    assert len(st["cg_iters"]) == len(sj["cg_iters"])
+    assert all(abs(a - b) <= 1 for a, b in zip(st["cg_iters"],
+                                               sj["cg_iters"]))
+    assert all(0 < k < 200 for k in st["cg_iters"])
+    assert st["cg_enqueued"] == [200] * len(st["cg_iters"])
+    assert _rel(got.u_flat, ref.u_flat) <= 1e-9

@@ -168,8 +168,10 @@ def run(
     reference's: CG preconditioned by the two-level lattice cycle
     (``preconditioner="twolevel"``), with the per-cell damage and
     modulus sampled onto its lattice. ``cg_chunk`` (CG iterations
-    enqueued between two host reads) defaults to 20 under two-level and
-    50 under Jacobi; the two-level set-up is reported as its own row of
+    enqueued between two host reads) defaults to the reference's: 20
+    under two-level and 200 under Jacobi, so the stall guard, which reads
+    chunk ends, gives up on the same iteration; the two-level set-up is
+    reported as its own row of
     ``timings``, inside "7.3". ``device`` defaults to CUDA and
     ``dtype`` to float32; every device tensor of the run has them.
 
@@ -177,8 +179,7 @@ def run(
     -- a float64 Newton loop on the flat ``Assembler`` around CG solves on
     the lane engine in ``dtype``. The damage, the functional, the load
     vector, the energy and the DG0 fields are then float64 and only the
-    engine holds ``dtype``; ``cg_chunk`` defaults to 200 under Jacobi, as
-    in the reference. ``checkpoint_path`` (mixed only: a ``ValueError``
+    engine holds ``dtype``. ``checkpoint_path`` (mixed only: a ``ValueError``
     otherwise) saves the iterate after every Newton step and resumes from
     it. ``gmsh_roundtrip`` and ``output_path`` are not ported yet and
     raise ``NotImplementedError``.
@@ -292,7 +293,7 @@ def run(
     )
     use_tl = cfg.preconditioner == "twolevel"
     if cg_chunk is None:
-        cg_chunk = 20 if use_tl else (200 if mixed else 50)
+        cg_chunk = 20 if use_tl else 200
     fine = {"d": d, "E": E_cell} if use_tl else None
     t0 = time.perf_counter()
     if mixed:

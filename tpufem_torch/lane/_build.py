@@ -129,13 +129,15 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.lane_scatter_cm.argtypes = [
             ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.lane_pass_update.restype = ci
+        cll = ctypes.c_longlong
         lib.lane_pass_update.argtypes = [
-            ci, ci, vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, ip, ip, ci, ci, cll, ci, ci, ci, ci, ci,
+            ci, vp]
         cd = ctypes.c_double
         lib.lane_fused_elem.restype = ci
         lib.lane_fused_elem.argtypes = [
             ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-            ci, ci, cd, ci, ci, cd, cd, cd, vp]
+            ci, ci, cd, ci, ci, cd, cd, cd, ci, ci, ci, ci, cll, vp]
         lib.lane_gather_weighted.restype = ci
         lib.lane_gather_weighted.argtypes = [
             ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -53,6 +54,8 @@ from tpufem_torch.forms.potentials import (asym_damage_stress_components,
 from tpufem_torch.lane import _build
 
 N_LANES = 128
+# dynamic shared memory one block may use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
 
 _VT = {torch.float32: 0, torch.float64: 1}
 _IT = {torch.int8: 0, torch.int32: 1}
@@ -73,6 +76,17 @@ def _check(name, t, *, device, dtypes=None, shape=None):
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _check_aligned(name, *tensors):
+    """The kernels that stage their inputs by 16-byte asynchronous copies
+    need 16-byte aligned data (a fresh allocation always is)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
 def _raise_on(code: int, name: str):
@@ -224,6 +238,74 @@ def lane_pass_update_plain(values, starts, idx, *, wrs: Sequence[int],
     return out
 
 
+# the constants of csrc/lane_pass_update.cu
+PASS_MAX = 64  # passes
+PASS_MAX_UNITS = 256  # staged units (pass tiles)
+PASS_ROWS = 32  # updated rows per block: 4 thread rows x 8 rows each
+PASS_CB = 2  # channels per block
+PASS_STAGES = 3  # ring depth, in units
+PASS_STATIC_SMEM = 4 * PASS_MAX  # the block's pass starts
+
+
+def pass_smem_bytes(C: int, K: int, wt: int, vbytes: int,
+                    ibytes: int) -> int:
+    """Shared memory of one block of the pass kernel: PASS_STAGES ring
+    stages, each the index rows of a unit (min(K, PASS_ROWS) rows of 128)
+    and its ``wt`` window rows of 128 columns for each of min(C, PASS_CB)
+    channels (csrc/lane_pass_update.cu:pass_stage_bytes)."""
+    rows, cb = min(K, PASS_ROWS), min(C, PASS_CB)
+    return PASS_STAGES * (rows * N_LANES * ibytes
+                          + cb * wt * N_LANES * vbytes)
+
+
+def pass_update_geometry(C: int, K: int, wrs: Tuple[int, ...], vbytes: int,
+                         ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_pass_update`'s kernel for C channels,
+    K updated rows, the passes' window heights ``wrs`` and the value / index
+    element sizes in bytes.
+
+    A block serves one bin, up to PASS_ROWS updated rows of it and
+    PASS_CB channels (``grid`` = (bins, ``groups``, channel pairs)). Its
+    work is a list of ``units``, (pass, first window row, rows) in pass
+    order: one per pass, or one per tile of at most ``wt`` rows where a
+    pass's window is taller than a ring stage can hold; ``wt`` is the
+    tallest tile whose :func:`pass_smem_bytes` (``smem``) fits the card's
+    shared memory beside the pass starts. That is the refresh's kernel;
+    the owner-sum's (``head=True``) reads the passes straight from global
+    memory and takes only the window heights from the units. Raises
+    ``ValueError`` where not even one row fits or the unit list is longer
+    than the kernel takes."""
+    if C < 1 or K < 1 or len(wrs) > PASS_MAX:
+        raise ValueError(f"lane_pass_update: C = {C}, K = {K} (>= 1), "
+                         f"{len(wrs)} passes (<= {PASS_MAX})")
+    room = SMEM_PER_BLOCK - PASS_STATIC_SMEM
+    wt = max(list(wrs) + [1])
+    while wt >= 1 and pass_smem_bytes(C, K, wt, vbytes, ibytes) > room:
+        wt -= 1
+    if wt < 1:
+        raise ValueError(f"lane_pass_update: {min(K, PASS_ROWS)} index "
+                         f"rows of {ibytes} bytes leave no room for a "
+                         "window row")
+    units = tuple((p, a, min(wt, w - a)) for p, w in enumerate(wrs)
+                  for a in range(0, w, wt))
+    if len(units) > PASS_MAX_UNITS:
+        raise ValueError(f"lane_pass_update: {len(units)} window tiles of "
+                         f"{wt} rows, the kernel takes {PASS_MAX_UNITS}")
+    return dict(wt=wt, units=units, groups=-(-K // PASS_ROWS),
+                channel_blocks=-(-C // PASS_CB),
+                smem=pass_smem_bytes(C, K, wt, vbytes, ibytes))
+
+
+@functools.lru_cache(maxsize=64)
+def _pass_update_args(C, K, wrs, shifts, vbytes, ibytes):
+    """The geometry and the ctypes arrays of one K3 launch (cached: the
+    engine repeats two call shapes per solve, each thousands of times)."""
+    g = pass_update_geometry(C, K, wrs, vbytes, ibytes)
+    flat = [x for unit in g["units"] for x in unit]
+    return (g, (ctypes.c_int * len(shifts))(*shifts),
+            (ctypes.c_int * max(len(flat), 1))(*flat))
+
+
 def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
                      shifts: Sequence[int], head: bool):
     """All owner-sum (resp. refresh) passes in ONE kernel, fused with the
@@ -238,7 +320,8 @@ def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
     values (C, R=T*wg, 128); starts (P, T) int32; idx (P, T, K, 128) in
     [-1, wrs[p]); shifts / wrs: P lane shifts and per-pass window
     heights. Returns a new (C, T, wg, 128) tensor -- reshape to
-    (C, R, 128) is free.
+    (C, R, 128) is free. The launch geometry is
+    :func:`pass_update_geometry`'s.
     """
     if values.device.type != "cuda":
         return lane_pass_update_plain(values, starts, idx, wrs=wrs, wg=wg,
@@ -252,14 +335,17 @@ def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
             or len(wrs) != P or K > wg):
         raise ValueError("lane_pass_update: shapes do not match")
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(P, T))
+    _check_aligned("lane_pass_update", values, idx)
+    g, sh, units = _pass_update_args(
+        C, K, tuple(int(w) for w in wrs), tuple(int(s) for s in shifts),
+        values.element_size(), idx.element_size())
     out = torch.empty((C, T, wg, L), dtype=values.dtype, device=dev)
-    arr = ctypes.c_int * P
     lib = _build.load()
     code = lib.lane_pass_update(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
-        starts.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        arr(*[int(s) for s in shifts]), arr(*[int(w) for w in wrs]),
-        C, T, P, K, int(wg), int(bool(head)), _stream(dev),
+        starts.data_ptr(), idx.data_ptr(), out.data_ptr(), sh, units,
+        len(g["units"]), g["wt"], g["smem"], C, T, P, K, int(wg),
+        int(bool(head)), _stream(dev),
     )
     _raise_on(code, "lane_pass_update")
     lane_pass_update.launches += 1
@@ -410,6 +496,53 @@ def lane_fused_elem_plain(values, starts, idx, cell_data, law: FusedLaw, *,
     return out[:, :, :wr, :].contiguous().permute(1, 0, 2, 3)
 
 
+# block layouts csrc/lane_fused_elem.cu instantiates, (lane columns,
+# thread rows = cells of a round, ring depth in rounds), in order of
+# preference: the first whose shared memory fits is taken
+FUSED_CONFIGS = ((32, 4, 3), (16, 4, 3))
+
+
+def fused_layout_bytes(lb, ky, stages, n_states, wr, dn, vbytes, ibytes):
+    """Shared memory of one block of the fused kernel, the layout of
+    csrc/lane_fused_elem.cu:fused_layout: for its ``lb`` columns the
+    (2, wr) accumulator and the states' (2, wr) windows; ``stages`` rounds
+    of cell data (3 index, 7 geometry and ``dn`` coefficient rows of ``ky``
+    cells); two rounds of staged element vectors (6 values) and window
+    rows (3, int16)."""
+    return (_pad16(2 * wr * lb * vbytes)
+            + _pad16(n_states * 2 * wr * lb * vbytes)
+            + _pad16(stages * (7 + dn) * ky * lb * vbytes)
+            + _pad16(stages * 3 * ky * lb * ibytes)
+            + _pad16(2 * ky * 6 * lb * vbytes)
+            + _pad16(2 * ky * 3 * lb * 2))
+
+
+@functools.lru_cache(maxsize=64)
+def fused_elem_geometry(n_states: int, wr: int, dn: int, vbytes: int,
+                        ibytes: int,
+                        configs: Tuple[Tuple[int, int, int], ...]
+                        = FUSED_CONFIGS) -> dict:
+    """Launch geometry of :func:`lane_fused_elem`'s kernel for
+    ``n_states`` states, a window of ``wr`` rows, ``dn`` staged
+    coefficient rows and the value / index element sizes in bytes: the
+    first of ``configs`` whose :func:`fused_layout_bytes` fits the card's
+    227 KB. A block takes ``lb`` of the 128 lane columns of one bin
+    (``grid`` = (bins, 128 / lb)) and ``ky`` cells a round (``ky`` x ``lb``
+    threads). ``ValueError`` where no configuration fits."""
+    if wr < 1 or wr > 32767 or n_states not in (1, 2):
+        raise ValueError(f"lane_fused_elem: wr = {wr}, {n_states} states")
+    for lb, ky, stages in configs:
+        smem = fused_layout_bytes(lb, ky, stages, n_states, wr, dn, vbytes,
+                                  ibytes)
+        if smem <= SMEM_PER_BLOCK:
+            return dict(lb=lb, ky=ky, stages=stages, smem=smem,
+                        grid_y=N_LANES // lb, threads=ky * lb)
+    raise ValueError(
+        f"lane_fused_elem: a window of {wr} rows with {n_states} state(s) "
+        f"does not fit {SMEM_PER_BLOCK} bytes of shared memory in any block "
+        f"layout of {configs}")
+
+
 def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
                     wr: int, nv: int):
     """Fused gather -> element function -> bin scatter, one pass over the
@@ -449,6 +582,10 @@ def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
     def src(s):  # (offset, rows, constant) of a CellScalar
         return (s[0], s[1], 0.0) if isinstance(s, tuple) else (0, 0, float(s))
 
+    _check_aligned("lane_fused_elem", *values, idx, *cell_data)
+    dn = law.rows_needed()
+    g = fused_elem_geometry(len(values), int(wr), dn, values[0].element_size(),
+                            idx.element_size(), FUSED_CONFIGS)
     klam, kmu = law.lame_factors()
     out = torch.empty((C, T, wr, N_LANES), dtype=vdt, device=dev)
     lib = _build.load()
@@ -458,8 +595,10 @@ def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
         values[1].data_ptr() if len(values) == 2 else None,
         starts.data_ptr(), idx.data_ptr(), cell_data[0].data_ptr(),
         cell_data[1].data_ptr() if Dc else None, out.data_ptr(),
-        R, T, K, int(wr), Dc, *src(law.d), *src(law.E), klam, kmu,
-        _stream(dev),
+        R, T, K, int(wr), Dc,
+        *(src(law.d) if law.name == "asym_damage" else (0, 0, 0.0)),
+        *src(law.E), klam, kmu, g["lb"], g["ky"], g["stages"], dn,
+        g["smem"], _stream(dev),
     )
     _raise_on(code, "lane_fused_elem")
     lane_fused_elem.launches += 1

@@ -11,8 +11,9 @@ preconditioner and the CG vector updates ``--iters`` times under
 ``torch.profiler``. Prints one JSON line: wall time per iteration (host
 clock around a synchronize), the device-busy time per iteration (sum of
 kernel times from the profiler), the idle share, the number of kernel
-launches per iteration, and the kernels that take the most device time.
-Under two-level it also splits an iteration into its parts, each run
+launches per iteration, the kernels that take the most device time, and
+the device time of the fine tangent's kernels K4 (``lane_fused_elem``) and
+K3 (``lane_pass_update``) per iteration. Under two-level it also splits an iteration into its parts, each run
 alone (wall and device time, launches) and multiplied by its count per
 iteration: the fine Chebyshev tangents, the lattice V-cycle, K5
 restriction and prolongation (with the selector products), and the rest
@@ -180,6 +181,16 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
         top_kernels=[dict(name=k[:80], ms_per_iter=t / iters,
                           calls_per_iter=c / iters)
                      for k, t, c in rows[:12]],
+        # the fine tangent's two kernels, summed over the iteration (K3's
+        # owner-sum and refresh run as two CUDA kernels)
+        lane_kernel_device_ms_per_iter={
+            name: sum(t for k, t, _ in rows
+                      if any(f"{s}_kernel" in k for s in symbols)) / iters
+            for name, symbols in (
+                ("lane_fused_elem", ("lane_fused_elem",)),
+                ("lane_pass_update", ("lane_pass_update",
+                                      "lane_owner_sum")))}
+        if rows else "not measured",
     )
     if twolevel is not None:
         # the parts of one iteration, each run alone: the fine operator
