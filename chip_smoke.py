@@ -11,6 +11,8 @@ prints one JSON line per phase:
 
 1. ``device``      the card as ``nvidia-smi`` names it, torch/CUDA versions
 2. ``build``       the kernel library built from ``tpufem_torch/csrc/*.cu``
+                   (no spill in any K3 / K4 / K6 / K7 / K8 instance), and
+                   the SASS instructions of K6 / K7 / K8's main loops
 3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
                    card, at the shapes of the n = 1024 polycrystal plan
                    (float32/float64 values, int8/int32 indices, both modes
@@ -54,8 +56,9 @@ prints one JSON line per phase:
                    engine for its time; n = 256 mixed to 1e-10 * r0 held
                    against a float64 lane solve (u rel <= 2e-7)
 10. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
-                   against their plain versions at n = 1024 and two small
-                   odd shapes and against the generic lattice's AD residual
+                   against their plain versions at n = 1024 and six small
+                   or odd shapes (1x1 to 2047x3) and against the generic
+                   lattice's AD residual
                    and tangent, their times warm (inputs in L2) and cold
                    (from HBM), the K6 assembly rate (MDoF/s); path A: the
                    structured nonlinear solve of
@@ -65,7 +68,8 @@ prints one JSON line per phase:
                    iteration under the profiler; the same problem at
                    n = 256 through ``make_grid_solver`` with multigrid
 11. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
-                   n = 160 and 9x7x11, against the stored 27-point stencil,
+                   n = 160, 9x7x11, 1^3, 2^3 and 33x5x17, against the
+                   stored 27-point stencil,
                    the conv3d yardstick; path B: the pulled bar of
                    ``benchmarks/solve3d_bench.py`` at n = 160 (12.5 M dofs)
                    through ``make_grid_solver`` with multigrid and K8 on
@@ -110,6 +114,7 @@ from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
+from tpufem_torch.perf import lattice_bench as LB  # noqa: E402
 from tpufem_torch.mesh import unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
 from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
@@ -203,17 +208,39 @@ for ln in _build.build_log.splitlines():
         ptxas.setdefault(entry, {})["spill_bytes"] = sum(
             int(part.split(" bytes")[0].split()[-1])
             for part in ln.split(",")[1:])
-# K3 / K4 run with no register cap: ptxas must report no spill in any of
+# K3 / K4 run with no register cap, and K6 / K7 / K8 keep their sums and
+# carried stresses in registers: ptxas must report no spill in any of
 # their instances
 REDESIGNED = ("lane_pass_update_kernel", "lane_owner_sum_kernel",
               "lane_fused_elem_kernel")
+LATTICE = ("lattice2d_kernel", "lattice_matvec3d_kernel")
 redesigned = {k: v for k, v in ptxas.items()
               if any(name in k for name in REDESIGNED)}
-spills = {k: v for k, v in redesigned.items() if v.get("spill_bytes", 0)}
-check(len(redesigned) == 4 + 4 + 16 * len(K.FUSED_CONFIGS) and not spills,
-      f"ptxas: {len(redesigned)} K3 / K4 instances, spills: {spills}")
+lattice_ptxas = {k: v for k, v in ptxas.items()
+                 if any(name in k for name in LATTICE)}
+spills = {k: v for k, v in {**redesigned, **lattice_ptxas}.items()
+          if v.get("spill_bytes", 0)}
+check(len(redesigned) == 4 + 4 + 16 * len(K.FUSED_CONFIGS)
+      and len(lattice_ptxas) == 3 and not spills,
+      f"ptxas: {len(redesigned)} K3 / K4 and {len(lattice_ptxas)} K6 / K7 "
+      f"/ K8 instances, spills: {spills}")
+# the SASS of K6 / K7 / K8: instructions of the main loop, one cell or one
+# interior node a thread per pass, and the floor they give over every
+# SM's 128 lanes at the card's top clock
+CLOCK_MHZ = float(subprocess.run(
+    ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+     "nounits"], capture_output=True, text=True,
+    check=True).stdout.split()[0])
+LANES_PER_S = (torch.cuda.get_device_properties(0).multi_processor_count
+               * 128 * CLOCK_MHZ * 1e6)
+SASS = {}
+for name, prefix in LB.KERNELS.items():
+    SASS[name] = LB.sass_counts(
+        f"{_build.BUILD_DIR}/{LB.OBJECTS[name]}", prefix)
+check(all(v["main_loop_instructions"] for v in SASS.values()),
+      f"no main loop found in the SASS of K6 / K7 / K8: {SASS}")
 emit("build", seconds=build_seconds, library=_build.LIB_PATH,
-     k3_k4_spills=spills,
+     k3_k4_k6_k7_k8_spills=spills, sass=SASS, clock_max_mhz=CLOCK_MHZ,
      sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
      ptxas=ptxas)
 
@@ -1470,7 +1497,8 @@ t_phase = time.perf_counter()
 g2 = torch.Generator(device=DEV)
 g2.manual_seed(4321)
 s2_err, s2_shapes = {}, {}
-for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517)):
+for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517), (1, 1), (31, 7),
+                 (33, 9), (2047, 3)):
     u_k = 1e-3 * torch.randn((2, ny_ + 1, nx_ + 1), device=DEV, generator=g2)
     u_k[:, : (ny_ + 1) // 4] = 0.0  # rows of cells on the degenerate branch
     v_k = torch.randn((2, ny_ + 1, nx_ + 1), device=DEV, generator=g2)
@@ -1500,14 +1528,25 @@ for nx_, ny_ in ((N_A, N_A), (13, 9), (1001, 517)):
         sets = itertools.cycle([args] + [tuple(a.clone() for a in args)
                                          for _ in range(COLD_SETS - 1)])
         cold = median_ms(lambda: fn(*next(sets)), 8 * COLD_SETS)
+        # the kernel's own device time (torch.profiler): after the profiled
+        # phases above the host's cost per launch nears K6 / K7's device
+        # time, so back-to-back event timings read the host
+        dev_us = LB.device_us(lambda: fn(*next(sets)), 8 * COLD_SETS,
+                               LB.PROFILED[name])
         pms = time_ms(lambda: plain(*args, fn.consts), 5)
         b = nbytes(*args, out)
         flops = fl * nx_ * ny_
         b_ms = b / HBM_BYTES_PER_S * 1e3
         f_ms = flops / F32_FLOPS_PER_S * 1e3
+        sass_ms = (SASS[name]["main_loop_instructions"] * nx_ * ny_
+                   / LANES_PER_S * 1e3)
         record(name, err, cold[0], pms, b, None, flops=flops,
                ops_bound_ms=f_ms, shape=f"{nx_}x{ny_}", cold_ms_range=cold,
-               warm_ms=warm[0], warm_ms_range=warm)
+               warm_ms=warm[0], warm_ms_range=warm,
+               sass_instructions_per_cell=SASS[name][
+                   "main_loop_instructions"],
+               sass_instruction_floor_ms=sass_ms,
+               device_ms=dev_us and dev_us / 1e3)
         del sets
         results[name].update(bound_ms=max(b_ms, f_ms),
                              bound_by="bytes" if b_ms >= f_ms
@@ -1617,7 +1656,8 @@ emit("structured2d", kernels={k: results[k] for k in
              seconds=mg_secs,
              ms_per_cg_iter=1e3 * rm.cg_seconds / max(rm.total_cg_iters, 1)),
          u_rel_mg_vs_kernel_path=mg_rel),
-     tolerance="K6/K7 exactly equal to their plain versions; against "
+     tolerance="K6/K7 exactly equal to their plain versions at 1024^2, "
+               "13x9, 1001x517, 1x1, 31x7, 33x9 and 2047x3; against "
                "grid2d's AD residual / tangent rel <= 2e-6 / 5e-6 (float32)",
      seconds=time.perf_counter() - t_phase)
 del rs, rm, u_a
@@ -1666,12 +1706,14 @@ def solve_path_b(n, factory=k8_factory):
 
 t_phase = time.perf_counter()
 s3 = {}
-for n3, h3 in ((N_B, None), (9, (0.1, 0.2, 0.15))):
-    dims = (n3, n3, n3) if h3 is None else (9, 7, 11)
-    grid3 = (bar_grid3d(n3) if h3 is None else StructuredGrid3D(
+for dims, h3 in (((N_B,) * 3, None), ((9, 7, 11), (0.1, 0.2, 0.15)),
+                 ((1, 1, 1), None), ((2, 2, 2), None),
+                 ((33, 5, 17), (0.03, 0.2, 0.06))):
+    h3 = h3 or tuple(1 / m for m in dims)
+    grid3 = StructuredGrid3D(
         nx=dims[0], ny=dims[1], nz=dims[2], hx=h3[0], hy=h3[1], hz=h3[2],
         bs=3, energy_density=lambda g, c: linear_elastic_psi(
-            0.5 * (g + g.T), E_S, NU_S), field_kinds={}))
+            0.5 * (g + g.T), E_S, NU_S), field_kinds={})
     mv = make_linear_matvec(grid3, E_S, NU_S)
     x3 = torch.randn((3, dims[2] + 1, dims[1] + 1, dims[0] + 1), device=DEV,
                      generator=g2)
@@ -1680,24 +1722,25 @@ for n3, h3 in ((N_B, None), (9, (0.1, 0.2, 0.15))):
     ref3 = K3.linear_matvec_plain(x3, mv.consts)
     err = float((y3 - ref3).abs().max())
     check(torch.equal(y3, ref3), f"lattice_matvec3d {dims}: {err}")
-    if h3 is not None:
+    if dims != (N_B,) * 3:
         record("lattice_matvec3d", err, None, None, None, None)
         continue
     ms = time_ms(lambda: mv(x3), 20)
+    dev_us = LB.device_us(lambda: mv(x3), 20, LB.PROFILED["lattice_matvec3d"])
     pms = time_ms(lambda: K3.linear_matvec_plain(x3, mv.consts), 2)
     b = nbytes(x3, y3)
-    # the least work: a 3x3 block product per in-lattice neighbour
-    flops = 18 * int(np.prod([3 * (m + 1) - 2 for m in dims]))
-    # what the kernel does in the reference's order: every (delta, chi)
-    # block, separately rounded, zero entries skipped
-    nz_blocks = sum(int(np.count_nonzero(Kb)) for _d, _c, Kb in mv.consts.terms)
+    # the least work: a product and a sum for every entry of each node's
+    # summed blocks that is not zero (153 an interior node)
+    flops = LB.k8_least_flops(mv.consts)
+    interior = int(np.prod([m - 1 for m in dims]))
+    sass_ms = (SASS["lattice_matvec3d"]["main_loop_instructions"] * interior
+               / LANES_PER_S * 1e3)
     b_ms, f_ms = b / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     # yardstick: conv3d, 3 -> 3 channels, 3^3 kernel, padding 1, with the
     # interior stencil (sum over chi per delta): right in the interior only
     wgt = torch.zeros((3, 3, 3, 3, 3), dtype=torch.float64)
-    for (dz, dy, dx), _chi, Kb in mv.consts.terms:
-        wgt[:, :, dz + 1, dy + 1, dx + 1] += torch.as_tensor(
-            Kb, dtype=torch.float64)
+    for (dz, dy, dx), Sb in zip(K3.DELTAS, mv.consts.S):
+        wgt[:, :, dz + 1, dy + 1, dx + 1] = torch.as_tensor(Sb)
     wgt = wgt.to(torch.float32).to(DEV)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # full float32, as K8
@@ -1709,9 +1752,12 @@ for n3, h3 in ((N_B, None), (9, (0.1, 0.2, 0.15))):
     lms = time_ms(conv, 20)
     torch.backends.cudnn.allow_tf32 = tf32
     record("lattice_matvec3d", err, ms, pms, b, None, flops=flops,
-           ops_bound_ms=f_ms, kernel_flops_per_interior_node=2 * nz_blocks,
+           ops_bound_ms=f_ms,
+           kernel_flops_per_interior_node=2 * len(K3.INTERIOR_ENTRIES),
+           sass_instructions_per_interior_node=SASS["lattice_matvec3d"][
+               "main_loop_instructions"], sass_instruction_floor_ms=sass_ms,
            conv3d_yardstick_ms=lms, conv3d_interior_rel=crel,
-           shape=f"{n3}^3")
+           device_ms=dev_us and dev_us / 1e3, shape=f"{N_B}^3")
     results["lattice_matvec3d"].update(
         bound_ms=max(b_ms, f_ms),
         bound_by="bytes" if b_ms >= f_ms else "operations")
@@ -1823,9 +1869,9 @@ emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
          k8_factory_seconds=factory_secs_b,
          launches=launches_b, cg_iteration_profile=prof_b,
          u_x_mid_mean=float(mid.mean()), bitwise_equal_runs=True),
-     tolerance="K8 exactly equal to its plain version; against the stored "
-               "stencil rel <= 5e-6 (float32); conv3d yardstick interior "
-               "rel <= 1e-5",
+     tolerance="K8 exactly equal to its plain version at 160^3, 9x7x11, "
+               "1^3, 2^3 and 33x5x17; against the stored stencil rel <= "
+               "5e-6 (float32); conv3d yardstick interior rel <= 1e-5",
      seconds=time.perf_counter() - t_phase)
 del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b, res_b
 torch.cuda.empty_cache()
@@ -1875,7 +1921,7 @@ for name, r in results.items():
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
               "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms",
-              "conv3d_yardstick_ms", "warm_ms", "sum_v_ms",
+              "conv3d_yardstick_ms", "warm_ms", "device_ms", "sum_v_ms",
               "sum_v_plain_ms", "sum_v_bound_ms", "mul_index_add_yardstick_ms",
               "ms_range", "sum_v_ms_range"):
         if k in r:

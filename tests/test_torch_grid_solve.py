@@ -191,14 +191,20 @@ def test_grid_solver_3d_mg_k8_solves_the_reference_problem():
 
 
 def _jax_k8_factory(g):
-    """The port's plain K8 spelled in jnp for the reference's solver."""
-    consts = K3.StencilConsts(g.nx, g.ny, g.nz, K3._stencil_constants(
-        K3._cell_matrix(g, E3, NU)))
+    """The port's plain K8 spelled in jnp for the reference's solver:
+    interior nodes in the pre-summed order, the others per incident
+    cell."""
+    consts = K3.StencilConsts(g.nx, g.ny, g.nz, K3._cell_matrix(g, E3, NU))
 
     def mv(x):
         x32 = x.astype(jnp.float32)
         shape = x32.shape[-3:]
         p = jnp.pad(x32, ((0, 0), (1, 1), (1, 1), (1, 1)))
+
+        def shifted(delta):
+            return [p[(b,) + tuple(slice(1 + o, 1 + o + s)
+                                   for o, s in zip(delta, shape))]
+                    for b in range(3)]
 
         def mask(nn, size, c, dim):
             i = np.arange(size) + c
@@ -212,16 +218,25 @@ def _jax_k8_factory(g):
         mx = {c: mask(g.nx, shape[2], c, 2) for c in (-1, 0)}
         acc = [None] * 3
         for delta, chi, K in consts.terms:
-            xb = [p[(b,) + tuple(slice(1 + o, 1 + o + s)
-                                 for o, s in zip(delta, shape))]
-                  for b in range(3)]
+            xb = shifted(delta)
             m = mz[chi[0]] * my[chi[1]] * mx[chi[2]]
             for b in range(3):
                 for a in range(3):
                     if float(K[a, b]) != 0.0:
                         t = float(K[a, b]) * (m * xb[b])
                         acc[a] = t if acc[a] is None else acc[a] + t
-        return jnp.stack(acc).astype(x.dtype)
+        inner = [None] * 3
+        for d, b, a in K3.INTERIOR_ENTRIES:
+            t = float(consts.S[d, a, b]) * shifted(K3.DELTAS[d])[b]
+            inner[a] = t if inner[a] is None else inner[a] + t
+        m_in = np.ones(shape, bool)
+        for dim, size in enumerate(shape):
+            i = np.arange(size)
+            view = [1, 1, 1]
+            view[dim] = size
+            m_in &= ((i >= 1) & (i <= size - 2)).reshape(view)
+        return jnp.where(jnp.asarray(m_in)[None], jnp.stack(inner),
+                         jnp.stack(acc)).astype(x.dtype)
 
     return mv
 

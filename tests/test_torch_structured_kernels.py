@@ -12,7 +12,12 @@ rolled slabs, its interpreter may contract or reorder products); the
 hand-derived stress JVP against ``torch.func.jvp`` rel <= 1e-12 (float64);
 the K8 cell matrix and stencil constants exactly equal (the same NumPy
 float64 code); K8 plain against the reference's AD tangent rel <= 5e-6
-(float32 constants and sums against float64 AD)."""
+(float32 constants and sums against float64 AD); K8's interior order (the
+pre-summed blocks) against the per-cell order it replaced there rel <= 1e-6
+of the largest value, its boundary nodes exactly equal to that order; the
+launch geometry of K6 / K7 and K8 covers every node exactly once."""
+
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +34,7 @@ from tpufem.forms import linear_elastic_psi as j_linear
 from tpufem.structured.grid3d import StructuredGrid3D as JGrid3D
 from tpufem_torch.structured import kernels2d as K2
 from tpufem_torch.structured import kernels3d as K3
+from tpufem_torch.structured.grid3d import _CORNERS
 from tpufem_torch.structured.grid3d import StructuredGrid3D as TGrid3D
 from test_torch_memory import release_memory  # noqa: F401 (autouse)
 
@@ -225,4 +231,134 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     assert set(K3.launch_counts().values()) == {0}
     assert len(c3.terms) == K3.N_TERMS == 64
     assert len(bytes(k.packed())) == 16 * 4
-    assert len(bytes(c3.packed())) == 64 * 9 * 4
+    assert len(bytes(c3.packed())) == (64 + 27) * 9 * 4
+
+
+# -- K8's interior order ------------------------------------------------------
+
+
+def _old_per_chi_matvec(x, consts):
+    """K8's order before the interior blocks were pre-summed, at every
+    node: delta outer, each incident cell chi in the lattice, b, a inner,
+    zero entries skipped."""
+    nx, ny, nz = consts.nx, consts.ny, consts.nz
+    shape = x.shape[-3:]
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
+
+    def axis_mask(n, size, chi_c, dim):
+        c = torch.arange(size) + chi_c
+        view = [1, 1, 1]
+        view[dim] = size
+        return ((c >= 0) & (c < n)).to(x.dtype).view(view)
+
+    mz = {c: axis_mask(nz, shape[0], c, 0) for c in (-1, 0)}
+    my = {c: axis_mask(ny, shape[1], c, 1) for c in (-1, 0)}
+    mx = {c: axis_mask(nx, shape[2], c, 2) for c in (-1, 0)}
+    acc = [None, None, None]
+    for delta, chi, Kab in consts.terms:
+        xb = [p[(b,) + tuple(slice(1 + o, 1 + o + n)
+                             for o, n in zip(delta, shape))]
+              for b in range(3)]
+        m = mz[chi[0]] * my[chi[1]] * mx[chi[2]]
+        for b in range(3):
+            for a in range(3):
+                if float(Kab[a, b]) != 0.0:
+                    t = float(Kab[a, b]) * (m * xb[b])
+                    acc[a] = t if acc[a] is None else acc[a] + t
+    return torch.stack(acc)
+
+
+@pytest.mark.parametrize("dims,h", [((8, 8, 8), (1 / 8, 1 / 8, 1 / 8)),
+                                    ((9, 7, 11), (0.1, 0.2, 0.15))])
+def test_interior_stencil_presummed_with_structural_zeros(dims, h):
+    """S[delta] is float32 of the float64 sum over the incident cells; the
+    entries zero by symmetry are exactly 0 (float64 residues of ~1e-17 of
+    max |Ke| there); 153 entries remain."""
+    gt = _grid3d(TGrid3D, t_forms.linear_elastic_psi, *dims, h)
+    Ke = K3._cell_matrix(gt, E, NU)
+    S = K3._interior_stencil(Ke)
+    assert S.dtype == np.float32 and S.shape == (27, 3, 3)
+    for d, delta in enumerate(K3.DELTAS):
+        want = np.zeros((3, 3))
+        for chi in itertools.product((-1, 0), repeat=3):
+            a = tuple(-c for c in chi)
+            b = tuple(ai + di for ai, di in zip(a, delta))
+            if all(v in (0, 1) for v in b):
+                want += Ke[_CORNERS.index(a), :, _CORNERS.index(b), :]
+        for a in range(3):
+            for b in range(3):
+                if K3._structural(delta, a, b):
+                    assert S[d, a, b] == np.float32(want[a, b])
+                else:
+                    assert S[d, a, b] == 0.0
+                    assert abs(want[a, b]) <= 1e-15 * np.abs(Ke).max()
+    assert np.count_nonzero(S) == len(K3.INTERIOR_ENTRIES) == 153
+
+
+def test_interior_stencil_raises_on_a_residue():
+    """A cell matrix whose entry zero by symmetry is not (x-y coupling of
+    corners 0 and 2, offset (0, 1, 0)) is refused."""
+    gt = _grid3d(TGrid3D, t_forms.linear_elastic_psi, 3, 3, 3)
+    Ke = K3._cell_matrix(gt, E, NU)
+    Ke[0, 0, 2, 1] += 1e-6 * np.abs(Ke).max()
+    with pytest.raises(NotImplementedError, match="not zero by symmetry"):
+        K3._interior_stencil(Ke)
+    with pytest.raises(NotImplementedError, match="not zero by symmetry"):
+        K3.StencilConsts(3, 3, 3, Ke)
+
+
+@pytest.mark.parametrize("dims,h", [((9, 7, 11), (0.1, 0.2, 0.15)),
+                                    ((1, 1, 1), (0.5, 0.3, 0.2)),
+                                    ((2, 2, 2), (0.5, 0.5, 0.5))])
+def test_linear_matvec_plain_interior_and_boundary_orders(dims, h):
+    """Boundary nodes exactly the per-cell order; interior nodes (none on
+    1^3, one on 2^3) within rel 1e-6 of it; both against the port's stored
+    stencil rel <= 5e-6."""
+    gt = _grid3d(TGrid3D, t_forms.linear_elastic_psi, *dims, h)
+    c3 = K3.make_linear_matvec(gt, E, NU).consts
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(3, dims[2] + 1, dims[1] + 1,
+                                         dims[0] + 1)).astype(np.float32))
+    got, old = K3.linear_matvec_plain(x, c3), _old_per_chi_matvec(x, c3)
+    inner = K3._interior_mask(x.shape[1:], x.device)[None].expand_as(x)
+    assert int(inner.sum()) == 3 * int(np.prod([n - 1 for n in dims]))
+    assert torch.equal(got[~inner], old[~inner])
+    assert float((got - old).abs().max()) <= 1e-6 * float(old.abs().max())
+    st = gt.operator(torch.zeros(x.shape, dtype=torch.float64), {})(
+        x.to(torch.float64))
+    assert _rel(got, st) <= 5e-6
+
+
+# -- launch geometry ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nx,ny", [(1, 1), (31, 7), (32, 8), (33, 9),
+                                   (1001, 517), (1024, 1024)])
+def test_lattice2d_walk_covers_every_node_once(nx, ny):
+    """K6 / K7's walk at the card's block counts (and at 1, 7 and more
+    blocks than the walk has rows): every node gathered exactly once,
+    every cell computed, each block's tiles within one of the others'; at
+    1024^2 a cell is computed at most 1.05 times on average."""
+    for slots in (1, 7, 132 * 3, 132 * 4, 10 ** 7):
+        geo = K2.lattice2d_geometry(nx, ny, slots)
+        assert geo["blocks"] == min(slots, geo["walk"])
+        gathers, cells, tiles = K2.lattice2d_cover(nx, ny, geo["blocks"])
+        assert gathers.min() == 1 and gathers.max() == 1
+        assert cells.min() >= 1
+        assert tiles.max() - tiles.min() <= 1
+        if nx == ny == 1024 and slots in (132 * 3, 132 * 4):
+            assert cells.sum() <= 1.05 * cells.size
+
+
+@pytest.mark.parametrize("dims", [(1, 1, 1), (2, 2, 2), (9, 7, 11),
+                                  (160, 160, 160)])
+def test_matvec3d_geometry_covers_every_node_once(dims):
+    """K8's interior blocks and face blocks write every node exactly once;
+    the face blocks hold the nodes outside the interior."""
+    cover = K3.matvec3d_cover(*dims)
+    assert cover.shape == tuple(n + 1 for n in reversed(dims))
+    assert cover.min() == 1 and cover.max() == 1
+    geo = K3.matvec3d_geometry(*dims)
+    assert geo["n_face"] == cover.size - int(np.prod([n - 1 for n in dims]))
+    if dims == (160, 160, 160):
+        assert geo["n_face"] == 153_602 and geo["interior_blocks"] == 1000

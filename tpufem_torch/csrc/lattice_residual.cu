@@ -9,6 +9,11 @@
 
 extern "C" int lattice_residual(const void* u, const void* d, void* out,
                                 int nx, int ny, const float* consts,
-                                void* stream) {
-  return lattice2d_launch<0>(u, nullptr, d, out, nx, ny, consts, stream);
+                                int strips, int blocks, void* stream) {
+  return lattice2d_launch<0>(u, nullptr, d, out, nx, ny, consts, strips,
+                             blocks, stream);
+}
+
+extern "C" int lattice_residual_occupancy(int* blocks_per_sm) {
+  return lattice2d_occupancy<0>(blocks_per_sm);
 }

@@ -12,6 +12,11 @@
 
 extern "C" int lattice_tangent(const void* u, const void* d, const void* v,
                                void* out, int nx, int ny, const float* consts,
-                               void* stream) {
-  return lattice2d_launch<1>(u, v, d, out, nx, ny, consts, stream);
+                               int strips, int blocks, void* stream) {
+  return lattice2d_launch<1>(u, v, d, out, nx, ny, consts, strips, blocks,
+                             stream);
+}
+
+extern "C" int lattice_tangent_occupancy(int* blocks_per_sm) {
+  return lattice2d_occupancy<1>(blocks_per_sm);
 }

@@ -71,9 +71,9 @@ def build(verbose: bool = False) -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     # -fmad=false: products and sums round separately, as they do in the
-    # plain PyTorch versions the kernels are held against, so the fused
-    # element kernel can be bit-equal to its plain version (the other
-    # kernels do no multiply-adds; all are bound by bytes, not arithmetic)
+    # plain PyTorch versions the kernels are held against, so the kernels
+    # that multiply and add (K4, K6, K7, K8) are bit-equal to them; K6 /
+    # K7 / K8 pay for it in instructions (their notes in csrc/ count them)
     common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
               "-Xcompiler", "-fPIC"]
     if verbose:
@@ -152,10 +152,16 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         # structured lattice kernels: the constants are a host float array
         lib.lattice_residual.restype = ci
-        lib.lattice_residual.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        lib.lattice_residual.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp]
         lib.lattice_tangent.restype = ci
-        lib.lattice_tangent.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.lattice_tangent.argtypes = [vp, vp, vp, vp, ci, ci, vp, ci, ci,
+                                        vp]
+        for fn in (lib.lattice_residual_occupancy,
+                   lib.lattice_tangent_occupancy):
+            fn.restype = ci
+            fn.argtypes = [ip]
         lib.lattice_matvec3d.restype = ci
-        lib.lattice_matvec3d.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        lib.lattice_matvec3d.argtypes = [vp, vp, ci, ci, ci, vp, ci, ci, ci,
+                                         ci, vp]
         _lib = lib
         return _lib

@@ -25,6 +25,12 @@ order (the order of ``tpufem/structured/pallas2d.py``): float32 geometry
 constants, the damage mean as a true division by 3, contributions added
 to a node lower vertices 0, 1, 2 then upper 0, 1, 2. The library is built
 without fused multiply-adds, so kernel and plain version are bit-equal.
+
+The launch geometry is computed here (:func:`lattice2d_geometry`): strips
+of STRIP_NODES node columns, walked top to bottom one after another, cut
+into as many equal segments as the card holds blocks at once;
+:func:`lattice2d_walk` lists the tiles each block walks, as
+``csrc/lattice2d.cuh`` does.
 """
 
 from __future__ import annotations
@@ -92,9 +98,24 @@ class LatticeConsts:
                                np.array([*self.w, self.lam, self.mu],
                                         np.float32)])
         self._packed = (ctypes.c_float * 16)(*vals.astype(np.float32))
+        self._launch = {}  # (kernel, device index) -> (strips, blocks)
 
     def packed(self):
         return self._packed
+
+    def launch(self, lib, name: str, dev):
+        """(strips, blocks) of kernel ``name`` on ``dev``: the launch
+        geometry at the blocks the card holds at once, computed once."""
+        key = (name, dev.index)
+        if key not in self._launch:
+            per_sm = ctypes.c_int(0)
+            _raise_on(getattr(lib, name + "_occupancy")(
+                ctypes.byref(per_sm)), name + "_occupancy")
+            geo = lattice2d_geometry(
+                self.nx, self.ny, per_sm.value
+                * torch.cuda.get_device_properties(dev).multi_processor_count)
+            self._launch[key] = (geo["strips"], geo["blocks"])
+        return self._launch[key]
 
 
 # -- plain versions ---------------------------------------------------------
@@ -156,6 +177,61 @@ def tangent_plain(u, d, v, consts: LatticeConsts):
     return _lattice_pass(u, d, v, consts)
 
 
+# -- launch geometry (mirrors csrc/lattice2d.cuh) -----------------------------
+
+STRIP_NODES = 31  # node columns of a strip (a tile is 32 cell columns)
+TILE_ROWS = 8  # cell rows of a tile (one cell per thread of 256)
+
+
+def lattice2d_geometry(nx: int, ny: int, slots: int) -> dict:
+    """Strips, the walk's length in node rows, and the blocks: ``slots``
+    (the blocks the card holds at once), but no more than the walk has
+    rows."""
+    strips = -(-(nx + 1) // STRIP_NODES)
+    walk = strips * (ny + 1)
+    return dict(strips=strips, walk=walk, blocks=max(1, min(slots, walk)))
+
+
+def lattice2d_walk(nx: int, ny: int, blocks: int):
+    """Yields (block, strip, ra, rb, c0) for every tile in the order the
+    kernel walks them: block b's segment [b W / G, (b+1) W / G) of the walk
+    cut into pieces of one strip each (node rows ra .. rb-1), each piece
+    into tiles of cell rows c0 .. c0 + TILE_ROWS - 1 from c0 = ra - 1."""
+    H = ny + 1
+    walk = lattice2d_geometry(nx, ny, blocks)["walk"]
+    for b in range(blocks):
+        pos, end = b * walk // blocks, (b + 1) * walk // blocks
+        while pos < end:
+            s, ra = divmod(pos, H)
+            rb = min(H, ra + (end - pos))
+            c0 = ra - 1
+            while True:
+                yield b, s, ra, rb, c0
+                if c0 + TILE_ROWS > rb - 1:
+                    break
+                c0 += TILE_ROWS
+            pos += rb - ra
+
+
+def lattice2d_cover(nx: int, ny: int, blocks: int):
+    """What the walk does: how many times each node (ny+1, nx+1) is
+    gathered, how many times each cell (ny, nx) is computed, and the
+    tiles of each block."""
+    gathers = np.zeros((ny + 1, nx + 1), np.int64)
+    cells = np.zeros((ny, nx), np.int64)
+    tiles = np.zeros(blocks, np.int64)
+    for b, s, ra, rb, c0 in lattice2d_walk(nx, ny, blocks):
+        tiles[b] += 1
+        j0 = s * STRIP_NODES
+        # lanes 1..31 gather node columns j0 .. j0 + 30 of rows ra .. rb-1
+        rows = slice(max(c0, ra), min(c0 + TILE_ROWS, rb))
+        gathers[rows, j0: min(j0 + STRIP_NODES, nx + 1)] += 1
+        # every lane computes its cell: columns j0 - 1 .., rows c0 .. rb-1
+        cells[max(c0, 0): min(c0 + TILE_ROWS, rb, ny),
+              max(j0 - 1, 0): min(j0 + STRIP_NODES, nx)] += 1
+    return gathers, cells, tiles
+
+
 # -- kernels ------------------------------------------------------------------
 
 
@@ -172,6 +248,7 @@ def lattice_residual(u, d, consts: LatticeConsts):
     lib = _build.load()
     code = lib.lattice_residual(u.data_ptr(), d.data_ptr(), out.data_ptr(),
                                 consts.nx, consts.ny, consts.packed(),
+                                *consts.launch(lib, "lattice_residual", dev),
                                 _stream(dev))
     _raise_on(code, "lattice_residual")
     lattice_residual.launches += 1
@@ -192,7 +269,9 @@ def lattice_tangent(u, d, v, consts: LatticeConsts):
     lib = _build.load()
     code = lib.lattice_tangent(u.data_ptr(), d.data_ptr(), v.data_ptr(),
                                out.data_ptr(), consts.nx, consts.ny,
-                               consts.packed(), _stream(dev))
+                               consts.packed(),
+                               *consts.launch(lib, "lattice_tangent", dev),
+                               _stream(dev))
     _raise_on(code, "lattice_tangent")
     lattice_tangent.launches += 1
     return out
