@@ -11,7 +11,8 @@ prints one JSON line per phase:
 
 1. ``device``      the card as ``nvidia-smi`` names it, torch/CUDA versions
 2. ``build``       the kernel library built from ``tpufem_torch/csrc/*.cu``
-                   (no spill in any K3 / K4 / K6 / K7 / K8 instance), and
+                   (no spill in any K1 / K3 / K4 / K5 / K6 / K7 / K8
+                   instance), and
                    the SASS instructions of K6 / K7 / K8's main loops
 3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
                    card, at the shapes of the n = 1024 polycrystal plan
@@ -23,7 +24,9 @@ prints one JSON line per phase:
                    tables in both modes, K10 lane_scatter at their
                    transpose, K11 lane_scatter_weighted as the adjoint of
                    the prolongation, checked as such against K5 in
-                   float64), with times, the bound and a yardstick
+                   float64), with times, the bound and a yardstick; K1 /
+                   K3 / K4 / K5 also at edge shapes; for K1 / K5 the mean
+                   number of 128-byte lines a warp's direct gather touches
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
                    the fused engine against the staged one and the
@@ -114,6 +117,7 @@ from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
+from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
 from tpufem_torch.perf import lattice_bench as LB  # noqa: E402
 from tpufem_torch.mesh import unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
@@ -208,11 +212,12 @@ for ln in _build.build_log.splitlines():
         ptxas.setdefault(entry, {})["spill_bytes"] = sum(
             int(part.split(" bytes")[0].split()[-1])
             for part in ln.split(",")[1:])
-# K3 / K4 run with no register cap, and K6 / K7 / K8 keep their sums and
-# carried stresses in registers: ptxas must report no spill in any of
-# their instances
+# K1 / K3 / K4 / K5 run with no register cap, and K6 / K7 / K8 keep their
+# sums and carried stresses in registers: ptxas must report no spill in any
+# of their instances
 REDESIGNED = ("lane_pass_update_kernel", "lane_owner_sum_kernel",
-              "lane_fused_elem_kernel")
+              "lane_fused_elem_kernel", "lane_gather_cm_kernel",
+              "lane_gather_weighted_kernel")
 LATTICE = ("lattice2d_kernel", "lattice_matvec3d_kernel")
 redesigned = {k: v for k, v in ptxas.items()
               if any(name in k for name in REDESIGNED)}
@@ -220,10 +225,12 @@ lattice_ptxas = {k: v for k, v in ptxas.items()
                  if any(name in k for name in LATTICE)}
 spills = {k: v for k, v in {**redesigned, **lattice_ptxas}.items()
           if v.get("spill_bytes", 0)}
-check(len(redesigned) == 4 + 4 + 16 * len(K.FUSED_CONFIGS)
+# K1: 4 instances; K3: 4 + 4; K4: 16 per block layout; K5: 4 with its
+# tables staged and 4 with them in registers
+check(len(redesigned) == 4 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8
       and len(lattice_ptxas) == 3 and not spills,
-      f"ptxas: {len(redesigned)} K3 / K4 and {len(lattice_ptxas)} K6 / K7 "
-      f"/ K8 instances, spills: {spills}")
+      f"ptxas: {len(redesigned)} K1 / K3 / K4 / K5 and {len(lattice_ptxas)} "
+      f"K6 / K7 / K8 instances, spills: {spills}")
 # the SASS of K6 / K7 / K8: instructions of the main loop, one cell or one
 # interior node a thread per pass, and the floor they give over every
 # SM's 128 lanes at the card's top clock
@@ -240,7 +247,7 @@ for name, prefix in LB.KERNELS.items():
 check(all(v["main_loop_instructions"] for v in SASS.values()),
       f"no main loop found in the SASS of K6 / K7 / K8: {SASS}")
 emit("build", seconds=build_seconds, library=_build.LIB_PATH,
-     k3_k4_k6_k7_k8_spills=spills, sass=SASS, clock_max_mhz=CLOCK_MHZ,
+     k1_k3_k4_k5_k6_k7_k8_spills=spills, sass=SASS, clock_max_mhz=CLOCK_MHZ,
      sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
      ptxas=ptxas)
 
@@ -348,7 +355,7 @@ for vdt in (torch.float32, torch.float64):
         err = float((out - ref).abs().max())
         check(torch.equal(out, ref), f"lane_gather_cm {vdt} {idt}: {err}")
         if main:
-            ms = time_ms(lambda: K.lane_gather_cm(
+            ms_r = median_ms(lambda: K.lane_gather_cm(
                 values, starts, gidx, wr=wg, n_ch=C * V_), 20)
             pms = time_ms(lambda: K.lane_gather_cm_plain(
                 values, starts, gidx, wr=wg, n_ch=C * V_), 3)
@@ -365,8 +372,15 @@ for vdt in (torch.float32, torch.float64):
                 .permute(1, 0, 2, 3, 4).reshape(V_ * C, G, kc, 128)
             check(torch.equal(lib, ref), "gather yardstick disagrees")
             lms = time_ms(lambda: torch.gather(vext, 1, flat), 10)
-            record("lane_gather_cm", err, ms, pms,
-                   nbytes(values, starts, gidx, out), lms)
+            # the 128-byte lines a warp load touches where the lanes gather
+            # straight from global memory, per load and in all
+            lpw, lines = GB.lines_per_warp_load(starts, gidx, wg, p.R)
+            record("lane_gather_cm", err, ms_r[0], pms,
+                   nbytes(values, starts, gidx, out), lms, ms_range=ms_r,
+                   lines_per_warp_load=lpw, direct_load_lines=lines * C,
+                   geometry=K.gather_cm_geometry(
+                       C, V_, wg, kc, values.element_size(),
+                       gidx.element_size()))
             del flat, vext, lib, ii
         else:
             record("lane_gather_cm", err, None, None, None, None)
@@ -558,9 +572,14 @@ for vdt in (torch.float32, torch.float64):
             if not main:
                 record("lane_gather_weighted", err, None, None, None, None)
                 continue
-            ms = time_ms(lambda: K.lane_gather_weighted(*args, wr=wr5), 20)
+            ms_r = median_ms(lambda: K.lane_gather_weighted(*args, wr=wr5), 20)
+            ms = ms_r[0]
             pms = time_ms(lambda: K.lane_gather_weighted_plain(*args, wr=wr5),
                           3)
+            lpw, lines = GB.lines_per_warp_load(st5, ix, wr5, vshape[1])
+            geo5 = K.gather_weighted_geometry(C, ix.shape[1], wr5,
+                                              ix.shape[2], vals.element_size(),
+                                              ix.element_size())
             b = nbytes(vals, st5, ix, w, out)
             # yardstick (two PyTorch calls, not one: no library_ms): a
             # torch.gather over int64 global indices expanded outside the
@@ -587,13 +606,18 @@ for vdt in (torch.float32, torch.float64):
             if which == "restrict":
                 record("lane_gather_weighted", err, ms, pms, b, None,
                        gather_sum_yardstick_ms=yms, shape="restrict",
-                       idx_dtype=str(idt))
+                       idx_dtype=str(idt), ms_range=ms_r,
+                       lines_per_warp_load=lpw, direct_load_lines=lines * C,
+                       geometry=geo5)
             else:
                 results["lane_gather_weighted"].update(
-                    prolong_ms=ms, prolong_plain_ms=pms,
+                    prolong_ms=ms, prolong_ms_range=ms_r, prolong_plain_ms=pms,
                     prolong_bound_ms=b / HBM_BYTES_PER_S * 1e3,
                     prolong_bound_bytes=b,
-                    prolong_gather_sum_yardstick_ms=yms)
+                    prolong_gather_sum_yardstick_ms=yms,
+                    prolong_lines_per_warp_load=lpw,
+                    prolong_direct_load_lines=lines * C,
+                    prolong_geometry=geo5)
                 record("lane_gather_weighted", err, None, None, None, None)
             del out, ref, vals
 
@@ -882,16 +906,68 @@ for tag, (T_, K_, wr_, last) in K4_EDGES.items():
     cd_[:, 3] = 1e6 * (1.0 + cd_[:, 3])
     k4_edge(tag, on_card(st_, torch.int32), on_card(ix_.astype(np.int8)),
             on_card(geom_), on_card(cd_), R_, wr_)
+# K1 / K5 at edge shapes, exactly equal to their plain versions in float32
+# and float64 with int8 and int32 indices: one bin; K not a multiple of the
+# block's thread rows (8 or 16); wr not a multiple of 8; windows that run past
+# the last row, one with R < wr; a window that starts at the last row (K1
+# clamps, K5 adds nothing); indices of -1 and of wr and above; C = 1 and
+# C = 4 (K5 takes at most 4); K5 with its tables staged and in registers
+# (each path in float32 and float64)
+GATHER_EDGES = {  # tag: (bins, V, K, wr, R, C, start of the last bin)
+    "T=1": (1, 3, 32, 40, 40, 2, None),
+    "K=17": (9, 3, 17, 40, 400, 2, None),
+    "K=1, wr=13": (7, 4, 1, 13, 120, 2, None),
+    "R < wr, K=40": (3, 4, 40, 72, 50, 2, 47),
+    "C=1, V=24, window past the last row": (11, 24, 16, 45, 300, 1, 280),
+    "C=4, K=21, wr=37": (11, 5, 21, 37, 300, 4, 300),
+    "int8 window of 126 rows": (5, 3, 45, 126, 700, 2, 650),
+    "K5 tables in registers, K=40": (3, 24, 40, 200, 250, 2, 240),
+}
+k5_paths = set()
+for tag, (T_, V_e, K_, wr_, R_, C_, last) in GATHER_EDGES.items():
+    st_ = edge_rng.integers(0, max(R_ - wr_, 0) + 1, size=T_)
+    if last is not None:
+        st_[-1] = last
+    ix_ = edge_rng.integers(-1, min(wr_ + 2, 127) + 1, size=(T_, V_e, K_, 128))
+    w_ = edge_rng.standard_normal((T_, V_e, K_, 128))
+    st_ = on_card(st_, torch.int32)
+    for vdt in (torch.float32, torch.float64):
+        vals_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
+                            generator=gen)
+        for idt in (torch.int8, torch.int32):
+            ix_t = on_card(ix_.astype(IDX_NP[idt]))
+            out = K.lane_gather_cm(vals_, st_, ix_t, wr=wr_, n_ch=C_ * V_e)
+            torch.cuda.synchronize()
+            ref = K.lane_gather_cm_plain(vals_, st_, ix_t, wr=wr_,
+                                         n_ch=C_ * V_e)
+            check(torch.equal(out, ref), f"lane_gather_cm {tag} {vdt} {idt}: "
+                  f"{float((out - ref).abs().max())}")
+            k5_paths.add((str(vdt), K.gather_weighted_geometry(
+                C_, V_e, wr_, K_, vals_.element_size(),
+                ix_t.element_size())["tiles"]))
+            out = K.lane_gather_weighted(vals_, st_, ix_t, on_card(w_, vdt),
+                                         wr=wr_)
+            torch.cuda.synchronize()
+            ref = K.lane_gather_weighted_plain(vals_, st_, ix_t,
+                                               on_card(w_, vdt), wr=wr_)
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"lane_gather_weighted {tag} {vdt} {idt}: "
+                  f"{float((out - ref).abs().max())}")
+check(len(k5_paths) == 4,
+      f"K5 edge shapes: {k5_paths}: not both paths in both dtypes")
+k5_paths = sorted(k5_paths)
 shapes.update(k3_edges=dict(K3_EDGES, n256=dict(
     owner=list(eng_256._owner_idx.shape),
     refresh=list(eng_256._refresh_idx.shape))),
-    k4_edges=dict(K4_EDGES, n256=list(eng_256.gather_idx.shape)))
+    k4_edges=dict(K4_EDGES, n256=list(eng_256.gather_idx.shape)),
+    k1_k5_edges=GATHER_EDGES, k5_edge_paths=k5_paths)
 del eng_256, F_256, cd_256
 
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
      k11_adjoint_of_k5_rel=adjoint_rel,
-     tolerance="exactly equal (0) for every kernel, K3 and K4 also at "
-               "the edge shapes; K11 adjoint of K5 rel <= 1e-12 (float64)")
+     tolerance="exactly equal (0) for every kernel, K1, K3, K4 and K5 "
+               "also at the edge shapes; K11 adjoint of K5 rel <= 1e-12 "
+               "(float64)")
 torch.cuda.empty_cache()
 
 # -- 4. engine against the flat assembler (n = 64, float64) ---------------------
@@ -1923,7 +1999,8 @@ for name, r in results.items():
               "gather_sum_yardstick_ms", "prolong_gather_sum_yardstick_ms",
               "conv3d_yardstick_ms", "warm_ms", "device_ms", "sum_v_ms",
               "sum_v_plain_ms", "sum_v_bound_ms", "mul_index_add_yardstick_ms",
-              "ms_range", "sum_v_ms_range"):
+              "ms_range", "sum_v_ms_range", "prolong_ms_range",
+              "lines_per_warp_load", "prolong_lines_per_warp_load"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

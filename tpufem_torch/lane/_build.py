@@ -123,13 +123,13 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.lane_gather_cm.restype = ci
+        cll = ctypes.c_longlong
         lib.lane_gather_cm.argtypes = [
-            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cll, vp]
         lib.lane_scatter_cm.restype = ci
         lib.lane_scatter_cm.argtypes = [
             ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.lane_pass_update.restype = ci
-        cll = ctypes.c_longlong
         lib.lane_pass_update.argtypes = [
             ci, ci, vp, vp, vp, vp, ip, ip, ci, ci, cll, ci, ci, ci, ci, ci,
             ci, vp]
@@ -140,7 +140,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             ci, ci, cd, ci, ci, cd, cd, cd, ci, ci, ci, ci, cll, vp]
         lib.lane_gather_weighted.restype = ci
         lib.lane_gather_weighted.argtypes = [
-            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cll,
+            vp]
         lib.lane_gather.restype = ci
         lib.lane_gather.argtypes = [
             ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]

@@ -46,6 +46,7 @@ import dataclasses
 import functools
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from tpufem_torch.forms.potentials import (asym_damage_stress_components,
@@ -130,31 +131,151 @@ def lane_gather_cm_plain(values, starts, idx, *, wr: int, n_ch: int):
 def lane_gather_cm(values, starts, idx, *, wr: int, n_ch: int):
     """Cells-minor windowed gather.
 
-    values (C, R, 128); starts (T,) int32 window row-starts; idx
-    (T, V, K, 128) int8/int32 in [-1, wr). Returns (V*C, T, K, 128) with
-    dof row v*C+c leading, so the (nd, M) cells-minor view the physics
-    works on is a free reshape.
+    values (C, R, 128) and idx 16-byte aligned; starts (T,) int32 window
+    row-starts (>= 0); idx (T, V, K, 128) int8/int32 in [-1, wr). Returns
+    (V*C, T, K, 128) with dof row v*C+c leading, so the (nd, M)
+    cells-minor view the physics works on is a free reshape. The launch
+    geometry is :func:`gather_cm_geometry`'s.
     """
     if values.device.type != "cuda":
         return lane_gather_cm_plain(values, starts, idx, wr=wr, n_ch=n_ch)
+    geo = check_gather_cm(values, starts, idx, wr=wr, n_ch=n_ch)
     dev = values.device
-    _check("values", values, device=dev, dtypes=_VT)
     C, R, L = values.shape
-    _check("idx", idx, device=dev, dtypes=_IT)
-    T, V, K, L2 = idx.shape
-    if L != N_LANES or L2 != N_LANES or n_ch != C * V:
-        raise ValueError("lane_gather_cm: bad lane width or n_ch")
-    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    T, V, K, _ = idx.shape
     out = torch.empty((V * C, T, K, L), dtype=values.dtype, device=dev)
     lib = _build.load()
     code = lib.lane_gather_cm(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
         starts.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        C, R, T, V, K, int(wr), _stream(dev),
+        C, R, T, V, K, int(wr), geo["ky"], geo["smem"], _stream(dev),
     )
     _raise_on(code, "lane_gather_cm")
     lane_gather_cm.launches += 1
     return out
+
+
+# -- K1 / K5: the bin's window and tables staged in shared memory -------------
+
+# the constants of csrc/lane_gather_cm.cu and csrc/lane_gather_weighted.cu
+GATHER_LB = 32  # lane columns of a block: a slab of a bin
+GATHER_KY = 8  # thread rows of a block that stages its tables ...
+GATHER_KY_REGS = 16  # ... and of one that loads them into registers (K5)
+SMEM_PER_SM = 233472  # shared memory an SM shares among its blocks (228 KB)
+SMEM_RESERVED = 1024  # what the card keeps of it for each block
+
+
+def gather_layout_bytes(C: int, V: int, wr: int, K: int, vbytes: int,
+                        ibytes: int, weighted: bool, tiles: bool = True) -> int:
+    """Shared memory of one block of the windowed gathers: the window (C
+    channels x wr rows x GATHER_LB values) and, where the block stages its
+    tables (``tiles``), its index rows (V x K x GATHER_LB) and, for the
+    weighted gather, their weights
+    (csrc/lane_gather_{cm,weighted}.cu:*_smem_bytes)."""
+    tile = V * K * GATHER_LB if tiles else 0
+    return (C * wr * GATHER_LB * vbytes + _pad16(tile * ibytes)
+            + (tile * vbytes if weighted else 0))
+
+
+def _window_geometry(name: str, C: int, V: int, wr: int, K: int,
+                     vbytes: int, ibytes: int, weighted: bool) -> dict:
+    if (C < 1 or V < 0 or K < 1 or wr < 0 or vbytes not in (4, 8)
+            or ibytes not in (1, 4)):
+        raise ValueError(f"{name}: C = {C}, K = {K} (>= 1), V = {V}, "
+                         f"wr = {wr} (>= 0), {vbytes}-byte values, "
+                         f"{ibytes}-byte indices")
+    staged = gather_layout_bytes(C, V, wr, K, vbytes, ibytes, weighted)
+    # the weighted gather stages its tables where two blocks still share an
+    # SM, else loads them into registers; the gather always stages them
+    tiles = not weighted or 2 * (staged + SMEM_RESERVED) <= SMEM_PER_SM
+    smem = gather_layout_bytes(C, V, wr, K, vbytes, ibytes, weighted, tiles)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name}: the window of C = {C} channels x wr = {wr} rows"
+            f"{'' if weighted else f' and the V = {V} x K = {K} index rows'}"
+            f" of {GATHER_LB} lanes, {vbytes}-byte values and {ibytes}-byte"
+            f" indices, take {smem} bytes; a block holds {SMEM_PER_BLOCK} "
+            "bytes of shared memory")
+    passes = -(-K // (GATHER_KY if tiles else GATHER_KY_REGS))
+    ky = -(-K // passes)
+    return dict(block=(GATHER_LB, ky), ky=ky, tiles=tiles,
+                rows_per_thread=passes, slabs=N_LANES // GATHER_LB,
+                smem=smem)
+
+
+@functools.lru_cache(maxsize=64)
+def gather_cm_geometry(C: int, V: int, wr: int, K: int, vbytes: int,
+                       ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_gather_cm`'s kernel for C channels,
+    V cells' vertices, a window of ``wr`` rows, K cell rows and the value /
+    index element sizes in bytes. The grid is bins x ``slabs`` blocks, the
+    slabs of a bin neighbours: a block serves one bin and GATHER_LB of its
+    lane columns, with ``block`` = (GATHER_LB, ``ky``) threads, and stages
+    the window and the index rows of its slab, ``smem`` bytes
+    (:func:`gather_layout_bytes`). Thread (x, y) writes rows y, y + ky, ...
+    of column x (``rows_per_thread`` at most), ``ky`` about GATHER_KY,
+    spread evenly over the K rows. ``ValueError`` where the window and the
+    index rows do not fit a block's shared memory."""
+    return _window_geometry("lane_gather_cm", C, V, wr, K, vbytes, ibytes,
+                            False)
+
+
+@functools.lru_cache(maxsize=64)
+def gather_weighted_geometry(C: int, V: int, wr: int, K: int, vbytes: int,
+                             ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_gather_weighted`'s kernel, laid out
+    as :func:`gather_cm_geometry`'s (C <= 4 channels). Where the window and
+    the index and weight rows leave room for two blocks an SM, the block
+    stages them all (``tiles``, about GATHER_KY thread rows); else it
+    stages the window alone and loads the tables into registers, where
+    more threads keep more loads in flight (about GATHER_KY_REGS thread
+    rows). ``ValueError`` where the window does not fit a block's shared
+    memory."""
+    if C > 4:
+        raise ValueError(f"lane_gather_weighted: C = {C} channels, the "
+                         "kernel takes at most 4")
+    return _window_geometry("lane_gather_weighted", C, V, wr, K, vbytes,
+                            ibytes, True)
+
+
+def gather_cover(geo: dict, T: int, K: int):
+    """How many times the kernel of ``geo`` (:func:`gather_cm_geometry`,
+    :func:`gather_weighted_geometry`) writes each output (t, k, lane) of T
+    bins of K rows: block (t, s), thread (x, y) writes lane s * lb + x of
+    rows y, y + ky, ... below K."""
+    lb, ky = geo["block"]
+    counts = np.zeros((T, K, N_LANES), np.int64)
+    for s in range(geo["slabs"]):
+        for y in range(ky):
+            for k in range(y, K, ky):
+                counts[:, k, s * lb:(s + 1) * lb] += 1
+    return counts
+
+
+def _check_window_args(name, values, starts, idx):
+    dev = values.device
+    _check("values", values, device=dev, dtypes=_VT)
+    C, R, L = values.shape
+    _check("idx", idx, device=dev, dtypes=_IT)
+    T, V, K, L2 = idx.shape
+    if L != N_LANES or L2 != N_LANES or R < 1:
+        raise ValueError(f"{name}: bad lane width or no rows")
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    # the kernel stages the window and the index rows by 16-byte
+    # asynchronous copies
+    _check_aligned(name, values, idx)
+    return C, V, K
+
+
+def check_gather_cm(values, starts, idx, *, wr: int, n_ch: int) -> dict:
+    """The host-side checks of :func:`lane_gather_cm` (device, dtypes,
+    shapes, contiguity, 16-byte alignment of ``values`` and ``idx``);
+    returns the launch geometry. Raises ``ValueError`` / ``TypeError``."""
+    C, V, K = _check_window_args("lane_gather_cm", values, starts, idx)
+    if n_ch != C * V:
+        raise ValueError(f"lane_gather_cm: n_ch = {n_ch}, expected {C * V}")
+    return gather_cm_geometry(C, V, int(wr), K, values.element_size(),
+                              idx.element_size())
 
 
 # -- K2: scatter --------------------------------------------------------------
@@ -632,32 +753,43 @@ def lane_gather_weighted(values, starts, idx, wts, *, wr: int):
 
       out[t, c, k, j] = sum_v wts[t,v,k,j] * values[c, starts[t]+idx[t,v,k,j], j]
 
-    values (C, R, 128) with C <= 4; starts (T,) int32; idx (T, V, K, 128)
-    int8/int32 in [-1, wr); wts (T, V, K, 128) of the values' dtype.
-    Returns (T, C, K, 128) as a view of channel-leading (C, T, K, 128)
-    storage, so ``out.permute(1, 0, 2, 3)`` is contiguous and free.
+    values (C, R, 128) with C <= 4 and idx 16-byte aligned; starts (T,) int32
+    (>= 0); idx (T, V, K, 128) int8/int32 in [-1, wr) (a row at or past R
+    adds nothing); wts (T, V, K, 128) of the values' dtype. Returns
+    (T, C, K, 128) as a view of channel-leading (C, T, K, 128) storage, so
+    ``out.permute(1, 0, 2, 3)`` is contiguous and free. The launch
+    geometry is :func:`gather_weighted_geometry`'s.
     """
     if values.device.type != "cuda":
         return lane_gather_weighted_plain(values, starts, idx, wts, wr=wr)
+    geo = check_gather_weighted(values, starts, idx, wts, wr=wr)
     dev = values.device
-    _check("values", values, device=dev, dtypes=_VT)
     C, R, L = values.shape
-    _check("idx", idx, device=dev, dtypes=_IT)
-    T, V, K, L2 = idx.shape
-    _check("wts", wts, device=dev, dtypes=(values.dtype,), shape=idx.shape)
-    if L != N_LANES or L2 != N_LANES or not 1 <= C <= 4:
-        raise ValueError("lane_gather_weighted: bad lane width or C > 4")
-    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    T, V, K, _ = idx.shape
     out = torch.empty((C, T, K, L), dtype=values.dtype, device=dev)
     lib = _build.load()
     code = lib.lane_gather_weighted(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
         starts.data_ptr(), idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
-        C, R, T, V, K, int(wr), _stream(dev),
+        C, R, T, V, K, int(wr), geo["ky"], int(geo["tiles"]), geo["smem"],
+        _stream(dev),
     )
     _raise_on(code, "lane_gather_weighted")
     lane_gather_weighted.launches += 1
     return out.permute(1, 0, 2, 3)
+
+
+def check_gather_weighted(values, starts, idx, wts, *, wr: int) -> dict:
+    """The host-side checks of :func:`lane_gather_weighted` (device,
+    dtypes, shapes, contiguity, 16-byte alignment of ``values`` and
+    ``idx``); returns the launch geometry. Raises ``ValueError`` /
+    ``TypeError``."""
+    C, V, K = _check_window_args("lane_gather_weighted", values, starts,
+                                 idx)
+    _check("wts", wts, device=values.device, dtypes=(values.dtype,),
+           shape=idx.shape)
+    return gather_weighted_geometry(C, V, int(wr), K, values.element_size(),
+                                    idx.element_size())
 
 
 # -- K9: gather, channel-major output ------------------------------------------
