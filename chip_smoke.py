@@ -11,8 +11,8 @@ prints one JSON line per phase:
 
 1. ``device``      the card as ``nvidia-smi`` names it, torch/CUDA versions
 2. ``build``       the kernel library built from ``tpufem_torch/csrc/*.cu``
-                   (no spill in any K1 / K3 / K4 / K5 / K6 / K7 / K8
-                   instance), and
+                   (no spill in any K1 / K3 / K4 / K5 / K6 / K7 / K8 / K9 /
+                   K11 instance), and
                    the SASS instructions of K6 / K7 / K8's main loops
 3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
                    card, at the shapes of the n = 1024 polycrystal plan
@@ -25,8 +25,9 @@ prints one JSON line per phase:
                    transpose, K11 lane_scatter_weighted as the adjoint of
                    the prolongation, checked as such against K5 in
                    float64), with times, the bound and a yardstick; K1 /
-                   K3 / K4 / K5 also at edge shapes; for K1 / K5 the mean
-                   number of 128-byte lines a warp's direct gather touches
+                   K3 / K4 / K5 / K9 / K11 also at edge shapes; for K1 / K5
+                   the mean number of 128-byte lines a warp's direct
+                   gather touches
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
                    the fused engine against the staged one and the
@@ -212,12 +213,13 @@ for ln in _build.build_log.splitlines():
         ptxas.setdefault(entry, {})["spill_bytes"] = sum(
             int(part.split(" bytes")[0].split()[-1])
             for part in ln.split(",")[1:])
-# K1 / K3 / K4 / K5 run with no register cap, and K6 / K7 / K8 keep their
-# sums and carried stresses in registers: ptxas must report no spill in any
-# of their instances
+# K1 / K3 / K4 / K5 / K9 / K11 run with no register cap, and K6 / K7 / K8
+# keep their sums and carried stresses in registers: ptxas must report no
+# spill in any of their instances
 REDESIGNED = ("lane_pass_update_kernel", "lane_owner_sum_kernel",
               "lane_fused_elem_kernel", "lane_gather_cm_kernel",
-              "lane_gather_weighted_kernel")
+              "lane_gather_weighted_kernel", "lane_gather_kernel",
+              "lane_scatter_weighted_kernel")
 LATTICE = ("lattice2d_kernel", "lattice_matvec3d_kernel")
 redesigned = {k: v for k, v in ptxas.items()
               if any(name in k for name in REDESIGNED)}
@@ -226,11 +228,12 @@ lattice_ptxas = {k: v for k, v in ptxas.items()
 spills = {k: v for k, v in {**redesigned, **lattice_ptxas}.items()
           if v.get("spill_bytes", 0)}
 # K1: 4 instances; K3: 4 + 4; K4: 16 per block layout; K5: 4 with its
-# tables staged and 4 with them in registers
-check(len(redesigned) == 4 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8
+# tables staged and 4 with them in registers; K9: 4 staged and 4 reading
+# global memory; K11: 4 with its tables staged and 4 without
+check(len(redesigned) == 4 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8 + 8 + 8
       and len(lattice_ptxas) == 3 and not spills,
-      f"ptxas: {len(redesigned)} K1 / K3 / K4 / K5 and {len(lattice_ptxas)} "
-      f"K6 / K7 / K8 instances, spills: {spills}")
+      f"ptxas: {len(redesigned)} K1 / K3 / K4 / K5 / K9 / K11 and "
+      f"{len(lattice_ptxas)} K6 / K7 / K8 instances, spills: {spills}")
 # the SASS of K6 / K7 / K8: instructions of the main loop, one cell or one
 # interior node a thread per pass, and the floor they give over every
 # SM's 128 lanes at the card's top clock
@@ -247,7 +250,7 @@ for name, prefix in LB.KERNELS.items():
 check(all(v["main_loop_instructions"] for v in SASS.values()),
       f"no main loop found in the SASS of K6 / K7 / K8: {SASS}")
 emit("build", seconds=build_seconds, library=_build.LIB_PATH,
-     k1_k3_k4_k5_k6_k7_k8_spills=spills, sass=SASS, clock_max_mhz=CLOCK_MHZ,
+     spills=spills, sass=SASS, clock_max_mhz=CLOCK_MHZ,
      sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
      ptxas=ptxas)
 
@@ -674,6 +677,10 @@ for vdt in (torch.float32, torch.float64):
             ms_r = median_ms(
                 lambda: K.lane_gather(values, starts, gidx, **kw), 20)
             ms = ms_r[0]
+            dus = LB.device_us(
+                lambda: K.lane_gather(values, starts, gidx, **kw), 20,
+                "lane_gather_kernel")
+            dms = None if dus is None else dus / 1e3
             pms = time_ms(lambda: K.lane_gather_plain(values, starts, gidx,
                                                       **kw), 3)
             b = nbytes(values, starts, gidx, out)
@@ -694,13 +701,17 @@ for vdt in (torch.float32, torch.float64):
                 check(torch.equal(lib.permute(1, 0, 2, 3, 4), ref),
                       "lane_gather yardstick disagrees")
                 lms = median_ms(lambda: torch.gather(vext, 1, flat), 10)[0]
-                record("lane_gather", err, ms, pms, b, lms, ms_range=ms_r)
+                record("lane_gather", err, ms, pms, b, lms, ms_range=ms_r,
+                       device_ms=dms, geometry=K.gather_geometry(
+                           C, V_, wg, kc, values.element_size(),
+                           gidx.element_size()))
                 del flat, vext, lib, ii
             else:
                 bms, by = bound_of(b, n_valid)
                 results["lane_gather"].update(
                     sum_v_ms=ms, sum_v_ms_range=ms_r, sum_v_plain_ms=pms,
-                    sum_v_bound_ms=bms, sum_v_bound_by=by)
+                    sum_v_bound_ms=bms, sum_v_bound_by=by,
+                    sum_v_device_ms=dms)
                 record("lane_gather", err, None, None, None, None)
         del values
         # K10 at the transpose of K1's tables
@@ -755,6 +766,8 @@ for vdt in (torch.float32, torch.float64):
             ms_r = median_ms(lambda: K.lane_scatter_weighted(*args11, **kw),
                              20)
             ms = ms_r[0]
+            dus = LB.device_us(lambda: K.lane_scatter_weighted(*args11, **kw),
+                               20, "lane_scatter_weighted_kernel")
             pms = time_ms(lambda: K.lane_scatter_weighted_plain(*args11,
                                                                 **kw), 2)
             # yardstick (two PyTorch calls, not one: no library_ms): the
@@ -777,7 +790,11 @@ for vdt in (torch.float32, torch.float64):
             b = nbytes(*args11, out)
             bms, by = bound_of(b, 2 * int((ix11 >= 0).sum()) * C)
             record("lane_scatter_weighted", err, ms, pms, b, None,
-                   mul_index_add_yardstick_ms=yms, ms_range=ms_r)
+                   mul_index_add_yardstick_ms=yms, ms_range=ms_r,
+                   device_ms=None if dus is None else dus / 1e3,
+                   geometry=K.scatter_weighted_geometry(
+                       C, ix11.shape[1], wg, WRP, src.element_size(),
+                       ix11.element_size()))
             results["lane_scatter_weighted"].update(bound_ms=bms,
                                                     bound_by=by)
             del dest, src_t, acc, lib
@@ -956,17 +973,99 @@ for tag, (T_, V_e, K_, wr_, R_, C_, last) in GATHER_EDGES.items():
 check(len(k5_paths) == 4,
       f"K5 edge shapes: {k5_paths}: not both paths in both dtypes")
 k5_paths = sorted(k5_paths)
+# K9 (both modes) / K11 at edge shapes, exactly equal to their plain
+# versions in float32 and float64 with int8 and int32 indices: K not a
+# multiple of the thread rows; D = 1; k_out = 1 and k_out at the first K11's
+# limit (k_out * 128 values in 227 KB: channel groups); windows that run
+# past R or S, and ones that start past the end (a row past the end gives
+# or adds nothing); indices of -1 and past wr or k_out; an int8 window of
+# 126 rows; K9 with a window too large to stage (read from global memory),
+# K11 with D too large to stage its tables and with its window in chunks
+# (as float64 / int32 takes the n = 1024 tables)
+K9_EDGES = {  # tag: (bins, V, K, wr, R, C, start of the last bin)
+    "K=17": (9, 3, 17, 40, 400, 2, None),
+    "window past R": (7, 3, 21, 40, 300, 2, 280),
+    "window starts past the end": (5, 4, 9, 13, 120, 2, 130),
+    "C=1, V=24": (11, 24, 16, 45, 300, 1, None),
+    "int8 window of 126 rows": (5, 3, 45, 126, 700, 2, 650),
+    "window read from global memory": (3, 2, 5, 2000, 2100, 4, 1500),
+}
+K11_EDGES = {  # tag: (bins, C, D, sk, k_out, S, start of the last bin)
+    "D=1, sk=13": (9, 2, 1, 13, 21, 200, None),
+    "k_out=1": (7, 2, 4, 9, 1, 100, None),
+    "k_out at the first design's limit": (3, 2, 4, 40, None, 200, None),
+    "window past S": (7, 3, 3, 40, 30, 200, 185),
+    "window starts past the end": (5, 2, 4, 20, 30, 100, 110),
+    "int8 window of 126 rows": (4, 2, 2, 126, 50, 600, None),
+    "tables not staged (D=600)": (2, 1, 600, 3, 5, 20, None),
+}
+k9_paths, k11_paths = set(), set()
+for tag, (T_, V_e, K_, wr_, R_, C_, last) in K9_EDGES.items():
+    st_ = edge_rng.integers(0, max(R_ - wr_, 0) + 1, size=T_)
+    if last is not None:
+        st_[-1] = last
+    ix_ = edge_rng.integers(-1, min(wr_ + 2, 127) + 1, size=(T_, V_e, K_, 128))
+    st_ = on_card(st_, torch.int32)
+    for vdt in (torch.float32, torch.float64):
+        vals_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
+                            generator=gen)
+        for idt in (torch.int8, torch.int32):
+            ix_t = on_card(ix_.astype(IDX_NP[idt]))
+            k9_paths.add(K.check_gather(vals_, st_, ix_t, wr=wr_)["tiles"])
+            for sum_v in (False, True):
+                out = K.lane_gather(vals_, st_, ix_t, wr=wr_, sum_v=sum_v)
+                torch.cuda.synchronize()
+                ref = K.lane_gather_plain(vals_, st_, ix_t, wr=wr_,
+                                          sum_v=sum_v)
+                check(out.shape == ref.shape and torch.equal(out, ref),
+                      f"lane_gather {tag} sum_v={sum_v} {vdt} {idt}: "
+                      f"{float((out - ref).abs().max())}")
+for tag, (T_, C_, D_, sk_, k_out_, S_, last) in K11_EDGES.items():
+    st_ = edge_rng.integers(0, max(S_ - sk_, 0) + 1, size=T_)
+    if last is not None:
+        st_[-1] = last
+    st_ = on_card(st_, torch.int32)
+    for vdt in (torch.float32, torch.float64):
+        # the first design took k_out * 128 values in 227 KB
+        ko = k_out_ or K.SMEM_PER_BLOCK // (128 * (4 if vdt == torch.float32
+                                                   else 8))
+        ix_ = edge_rng.integers(0, ko + 2, size=(T_, D_, sk_, 128))
+        ix_[edge_rng.random(ix_.shape) < 0.2] = -1
+        w_ = on_card(edge_rng.standard_normal(ix_.shape), vdt)
+        src_ = torch.randn((C_, S_, 128), dtype=vdt, device=DEV,
+                           generator=gen)
+        for idt in (torch.int8, torch.int32):
+            ix_t = on_card(np.minimum(ix_, 127).astype(IDX_NP[idt]))
+            kw = dict(sk=sk_, k_out=ko, n_dest=D_)
+            g11 = K.check_scatter_weighted(src_, st_, ix_t, w_, **kw)
+            k11_paths.add((g11["tiles"], g11["chunks"] > 1,
+                           g11["groups"] > 1))
+            out = K.lane_scatter_weighted(src_, st_, ix_t, w_, **kw)
+            torch.cuda.synchronize()
+            ref = K.lane_scatter_weighted_plain(src_, st_, ix_t, w_, **kw)
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"lane_scatter_weighted {tag} {vdt} {idt}: "
+                  f"{float((out - ref).abs().max())}")
+# and the path float64 / int32 takes at the n = 1024 tables (above)
+g11 = K.scatter_weighted_geometry(C, p_ix.shape[1], wg, WRP, 8, 4)
+k11_paths.add((g11["tiles"], g11["chunks"] > 1, g11["groups"] > 1))
+check(k9_paths == {True, False} and len(k11_paths) >= 4,
+      f"K9 / K11 edge shapes: {k9_paths} / {k11_paths}: not every path")
 shapes.update(k3_edges=dict(K3_EDGES, n256=dict(
     owner=list(eng_256._owner_idx.shape),
     refresh=list(eng_256._refresh_idx.shape))),
     k4_edges=dict(K4_EDGES, n256=list(eng_256.gather_idx.shape)),
-    k1_k5_edges=GATHER_EDGES, k5_edge_paths=k5_paths)
+    k1_k5_edges=GATHER_EDGES, k5_edge_paths=k5_paths, k9_edges=K9_EDGES,
+    k11_edges=K11_EDGES,
+    k11_edge_paths=[dict(zip(("tiles", "chunks", "groups"), p_))
+                    for p_ in sorted(k11_paths)])
 del eng_256, F_256, cd_256
 
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
      k11_adjoint_of_k5_rel=adjoint_rel,
-     tolerance="exactly equal (0) for every kernel, K1, K3, K4 and K5 "
-               "also at the edge shapes; K11 adjoint of K5 rel <= 1e-12 "
+     tolerance="exactly equal (0) for every kernel, K1, K3, K4, K5, K9 "
+               "and K11 also at the edge shapes; K11 adjoint of K5 rel "
+               "<= 1e-12 "
                "(float64)")
 torch.cuda.empty_cache()
 
@@ -2000,6 +2099,7 @@ for name, r in results.items():
               "conv3d_yardstick_ms", "warm_ms", "device_ms", "sum_v_ms",
               "sum_v_plain_ms", "sum_v_bound_ms", "mul_index_add_yardstick_ms",
               "ms_range", "sum_v_ms_range", "prolong_ms_range",
+              "sum_v_device_ms",
               "lines_per_warp_load", "prolong_lines_per_warp_load"):
         if k in r:
             entry[k] = r[k]

@@ -1,9 +1,11 @@
 """Host-side launch geometry and argument checks of the windowed gathers
-K1 ``lane_gather_cm`` and K5 ``lane_gather_weighted``, whose kernels stage
-each bin's window in shared memory (blocks of 32 lane columns). No kernel
-runs here: the kernels themselves are held against their plain versions
-on the card by ``chip_smoke.py``, and the plain versions against the
-Pallas kernels in ``test_torch_kernels.py`` / ``test_torch_twolevel.py``."""
+K1 ``lane_gather_cm``, K5 ``lane_gather_weighted`` and K9 ``lane_gather``
+and of the windowed scatter K11 ``lane_scatter_weighted``, whose kernels
+stage each bin's window (and K11 its accumulator) in shared memory (blocks
+of 32 lane columns). No kernel runs here: the kernels themselves are held
+against their plain versions on the card by ``chip_smoke.py``, and the
+plain versions against the Pallas kernels in ``test_torch_kernels.py`` /
+``test_torch_twolevel.py`` / ``test_torch_lane_primitives.py``."""
 
 import pytest
 import torch
@@ -137,3 +139,154 @@ def test_gather_wrappers_refuse_misaligned_or_strided_values():
     with pytest.raises(ValueError, match="shape"):
         tk.check_gather_weighted(good, starts, idx, wts[:, :1].contiguous(),
                                  wr=8)
+
+
+# K9 lane_gather: (T, V, K, wr, C): the n = 1024 plan's K1 tables, small
+# odd ones, and windows or index rows too large to stage (read from global
+# memory instead)
+K9_SHAPES = [(514, 3, 32, 40, 2), (1, 3, 1, 1, 1), (3, 24, 17, 13, 3),
+             (5, 3, 45, 126, 2), (2, 3, 33, 0, 2), (3, 2, 3, 2000, 4),
+             (2, 600, 100, 8, 1)]
+
+
+@pytest.mark.parametrize("vbytes,ibytes", [(4, 1), (4, 4), (8, 1), (8, 4)])
+@pytest.mark.parametrize("T,V,K,wr,C", K9_SHAPES)
+def test_k9_geometry_covers_every_output_once(T, V, K, wr, C, vbytes,
+                                              ibytes):
+    """K9 (both modes): blocks of 32 lane columns, one per (bin, slab); the
+    thread writing (t, k, lane) writes it for every channel and v, so every
+    output (t, c, [v,] k, lane) is written exactly once. The block stages
+    the window and the index rows where they fit a block's shared memory,
+    else reads global memory (no shared memory): no shape raises."""
+    g = tk.gather_geometry(C, V, wr, K, vbytes, ibytes)
+    lb, ky = g["block"]
+    staged = tk.gather_layout_bytes(C, V, wr, K, vbytes, ibytes, False)
+    assert lb == 32 and g["slabs"] * lb == L and lb * ky <= 512
+    assert (g["rows_per_thread"] - 1) * ky < K <= g["rows_per_thread"] * ky
+    assert g["tiles"] == (staged <= tk.SMEM_PER_BLOCK)
+    assert g["smem"] == (staged if g["tiles"] else 0)
+    assert g["wr"] == wr
+    cover = tk.gather_cover(g, T, K)
+    assert cover.min() == 1 and cover.max() == 1
+
+
+# K11 lane_scatter_weighted: (T, C, D, sk, k_out): the n = 1024 prolongation
+# tables in the adjoint direction, odd ones, k_out at the first design's
+# limit (float32), channel groups, and D too large to stage the tables
+K11_SHAPES = [(514, 2, 4, 40, 72), (3, 2, 1, 13, 21), (2, 2, 4, 9, 1),
+              (2, 3, 3, 126, 50), (1, 2, 4, 40, 454), (1, 3, 4, 40, 440),
+              (1, 1, 700, 3, 5), (2, 2, 4, 0, 7), (1, 5, 2, 3000, 3),
+              (1, 40, 2, 8, 6)]
+
+
+@pytest.mark.parametrize("vbytes,ibytes", [(4, 1), (4, 4), (8, 1), (8, 4)])
+@pytest.mark.parametrize("T,C,D,sk,k_out", K11_SHAPES)
+def test_k11_geometry_covers_every_output_once(T, C, D, sk, k_out, vbytes,
+                                               ibytes):
+    """K11: blocks of 32 lane columns per (bin, channel group); thread row
+    y adds channels y, y + ky, ... of the group, and every thread writes
+    back rows of the block's slab: every output (t, c, q, lane) exactly
+    once. The chunks of rc window rows cover the sk rows, equal but for
+    the last. The shared memory is the accumulator and one chunk, and
+    ``blocks`` of them fit an SM: two or more wherever a chunk of
+    SCATTER_MIN_ROWS rows (fewer where sk is smaller) leaves room for
+    two."""
+    g = tk.scatter_weighted_geometry(C, D, sk, k_out, vbytes, ibytes)
+    lb, ky = g["block"]
+    assert lb == 32 and g["slabs"] * lb == L and lb * ky <= 512
+    assert 1 <= g["cb"] <= C and g["groups"] == -(-C // g["cb"])
+    assert ky == min(max(g["cb"], tk.SCATTER_KY), tk.SCATTER_KY_MAX)
+    assert g["rc"] >= 1 and g["chunks"] == -(-sk // g["rc"])
+    assert sk == 0 or (g["chunks"] - 1) * g["rc"] < sk
+    assert g["smem"] == tk.scatter_layout_bytes(
+        g["cb"], k_out, g["rc"], D, vbytes, ibytes, g["tiles"])
+    assert g["smem"] <= tk.SMEM_PER_BLOCK
+    nb = g["blocks"]
+    assert 1 <= nb <= max(tk.SCATTER_REG_ROWS // ky, 1)
+    assert nb * (g["smem"] + tk.SMEM_RESERVED) <= tk.SMEM_PER_SM
+    rmin = min(max(sk, 1), tk.SCATTER_MIN_ROWS)
+    least = tk.scatter_layout_bytes(1, k_out, rmin, D, vbytes, ibytes, False)
+    assert nb >= 2 or 2 * (least + tk.SMEM_RESERVED) > tk.SMEM_PER_SM
+    cover = tk.scatter_cover(g, T if T < 8 else 2, C, k_out)
+    assert cover.min() == 1 and cover.max() == 1
+
+
+@pytest.mark.parametrize("vbytes,ibytes", [(4, 1), (4, 4), (8, 1), (8, 4)])
+def test_k9_k11_geometry_fits_the_main_path(vbytes, ibytes):
+    """The n = 1024 shapes in every type pair: K9 at K1's tables stages
+    its window and index rows at 8 thread rows; K11 at the adjoint of the
+    prolongation keeps both channels in one block (the tables read once)
+    with its tables staged, at 4 thread rows, in four chunks of 10 rows:
+    eight blocks an SM in float32 / int8 (27 392 bytes), four in float64 /
+    int32 (57 344 bytes)."""
+    g9 = tk.gather_geometry(2, 3, 40, 32, vbytes, ibytes)
+    assert g9["tiles"] and g9["ky"] == 8
+    assert g9["smem"] == 2 * 40 * 32 * vbytes + 3 * 32 * 32 * ibytes
+    g11 = tk.scatter_weighted_geometry(2, 4, 40, 72, vbytes, ibytes)
+    assert g11["tiles"] and g11["cb"] == 2 and g11["groups"] == 1
+    assert (g11["ky"], g11["chunks"], g11["rc"]) == (4, 4, 10)
+    assert g11["blocks"] >= 4
+    if (vbytes, ibytes) == (4, 1):
+        assert (g11["blocks"], g11["smem"]) == (8, 27392)
+    if (vbytes, ibytes) == (8, 4):
+        assert (g11["blocks"], g11["smem"]) == (4, 57344)
+
+
+def test_k9_k11_take_every_shape_the_first_designs_took():
+    """The first K9 took any shape (no shared memory), the first K11 any C,
+    D and sk with k_out * 128 values in 227 KB: each now gets a geometry,
+    no ValueError. K11 raises only past that, where one channel's
+    accumulator and one window row of 32 lanes leave no room."""
+    for C, V, wr, K in ((1, 1, 1, 1), (64, 3, 40, 32), (4, 2, 5000, 3),
+                        (2, 500, 40, 200), (2, 3, 0, 4), (2, 3, -5, 4)):
+        for vb, ib in ((4, 1), (8, 4)):
+            assert tk.gather_geometry(C, V, wr, K, vb, ib)["smem"] <= (
+                tk.SMEM_PER_BLOCK)
+    for vb in (4, 8):
+        limit = tk.SMEM_PER_BLOCK // (L * vb)  # the first design's k_out
+        for C in (1, 2, 9):
+            for D in (0, 1, 4, 2000):
+                for sk in (0, 1, 40, 5000):
+                    for k_out in (1, limit):
+                        for ib in (1, 4):
+                            g = tk.scatter_weighted_geometry(C, D, sk, k_out,
+                                                             vb, ib)
+                            assert g["smem"] <= tk.SMEM_PER_BLOCK
+        last = (tk.SMEM_PER_BLOCK - 32 * vb) // (32 * vb)
+        assert tk.scatter_weighted_geometry(1, 4, 8, last, vb, 4)
+        with pytest.raises(ValueError, match=f"k_out = {last + 1} rows"):
+            tk.scatter_weighted_geometry(1, 4, 8, last + 1, vb, 4)
+    with pytest.raises(ValueError):
+        tk.scatter_weighted_geometry(2, 4, 8, 0, 4, 1)
+
+
+def test_k9_k11_wrappers_refuse_misaligned_or_strided_inputs():
+    """K9 and K11 copy the values (src) and the index rows by 16-byte
+    asynchronous copies: their host checks refuse either where it is not
+    16-byte aligned, and values that are not contiguous."""
+    starts, idx, _ = _tables()
+    good = torch.zeros((2, 24, L))
+    shifted = torch.zeros(2 * 24 * L + 1)[1:].view(2, 24, L)
+    strided = torch.zeros((24, 2, L)).transpose(0, 1)
+    idx_shifted = torch.zeros(idx.numel() + 1, dtype=torch.int8)[1:].view(
+        idx.shape)
+    assert tk.check_gather(good, starts, idx, wr=8) == tk.gather_geometry(
+        2, 2, 8, 5, 4, 1)
+    for v, ix, what in ((shifted, idx, "16-byte aligned"),
+                        (good, idx_shifted, "16-byte aligned"),
+                        (strided, idx, "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            tk.check_gather(v, starts, ix, wr=8)
+    # K11: dest (T, D, sk, 128) = the (3, 2, 5, 128) table, k_out 6
+    wts = torch.randn(idx.shape)
+    kw = dict(sk=5, k_out=6, n_dest=2)
+    assert tk.check_scatter_weighted(good, starts, idx, wts, **kw) == (
+        tk.scatter_weighted_geometry(2, 2, 5, 6, 4, 1))
+    for v, ix, what in ((shifted, idx, "16-byte aligned"),
+                        (good, idx_shifted, "16-byte aligned"),
+                        (strided, idx, "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            tk.check_scatter_weighted(v, starts, ix, wts, **kw)
+    with pytest.raises(ValueError, match="n_dest"):
+        tk.check_scatter_weighted(good, starts, idx, wts, sk=5, k_out=6,
+                                  n_dest=3)

@@ -144,13 +144,15 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             vp]
         lib.lane_gather.restype = ci
         lib.lane_gather.argtypes = [
-            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, cll,
+            vp]
         lib.lane_scatter.restype = ci
         lib.lane_scatter.argtypes = [
             ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.lane_scatter_weighted.restype = ci
         lib.lane_scatter_weighted.argtypes = [
-            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+            ci, cll, vp]
         # structured lattice kernels: the constants are a host float array
         lib.lattice_residual.restype = ci
         lib.lattice_residual.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp]

@@ -178,7 +178,8 @@ def gather_layout_bytes(C: int, V: int, wr: int, K: int, vbytes: int,
 
 
 def _window_geometry(name: str, C: int, V: int, wr: int, K: int,
-                     vbytes: int, ibytes: int, weighted: bool) -> dict:
+                     vbytes: int, ibytes: int, weighted: bool,
+                     direct: bool = False) -> dict:
     if (C < 1 or V < 0 or K < 1 or wr < 0 or vbytes not in (4, 8)
             or ibytes not in (1, 4)):
         raise ValueError(f"{name}: C = {C}, K = {K} (>= 1), V = {V}, "
@@ -186,9 +187,12 @@ def _window_geometry(name: str, C: int, V: int, wr: int, K: int,
                          f"{ibytes}-byte indices")
     staged = gather_layout_bytes(C, V, wr, K, vbytes, ibytes, weighted)
     # the weighted gather stages its tables where two blocks still share an
-    # SM, else loads them into registers; the gather always stages them
+    # SM, else loads them into registers; the gathers always stage them
     tiles = not weighted or 2 * (staged + SMEM_RESERVED) <= SMEM_PER_SM
     smem = gather_layout_bytes(C, V, wr, K, vbytes, ibytes, weighted, tiles)
+    if smem > SMEM_PER_BLOCK and direct:
+        # K9 reads the window and the tables from global memory instead
+        tiles, smem = False, 0
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"{name}: the window of C = {C} channels x wr = {wr} rows"
@@ -252,13 +256,13 @@ def gather_cover(geo: dict, T: int, K: int):
     return counts
 
 
-def _check_window_args(name, values, starts, idx):
+def _check_window_args(name, values, starts, idx, min_rows=1):
     dev = values.device
     _check("values", values, device=dev, dtypes=_VT)
     C, R, L = values.shape
     _check("idx", idx, device=dev, dtypes=_IT)
     T, V, K, L2 = idx.shape
-    if L != N_LANES or L2 != N_LANES or R < 1:
+    if L != N_LANES or L2 != N_LANES or R < min_rows:
         raise ValueError(f"{name}: bad lane width or no rows")
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
     # the kernel stages the window and the index rows by 16-byte
@@ -819,34 +823,62 @@ def lane_gather(values, starts, idx, *, wr: int, sum_v: bool = False):
 
       out[t, c, v, k, j] = values[c, starts[t] + idx[t,v,k,j], j]
 
-    values (C, R, 128); starts (T,) int32 window row starts (>= 0); idx
-    (T, V, K, 128) int8/int32 in [-1, wr). Returns (T, C, V, K, 128), or
-    (T, C, K, 128) summed over v when ``sum_v``. The sum runs over v
-    ascending in kernel and plain version alike; the reference sums window
-    rows ascending (each row's value times its count of hits), so the two
-    agree to rounding, not bitwise.
+    values (C, R, 128) and idx 16-byte aligned; starts (T,) int32 window
+    row starts (>= 0); idx (T, V, K, 128) int8/int32 in [-1, wr) (a row at
+    or past R gives 0). Returns (T, C, V, K, 128), or (T, C, K, 128)
+    summed over v when ``sum_v``. The sum runs over v ascending in kernel
+    and plain version alike; the reference sums window rows ascending
+    (each row's value times its count of hits), so the two agree to
+    rounding, not bitwise. The launch geometry is
+    :func:`gather_geometry`'s.
     """
     if values.device.type != "cuda":
         return lane_gather_plain(values, starts, idx, wr=wr, sum_v=sum_v)
+    geo = check_gather(values, starts, idx, wr=wr)
     dev = values.device
-    _check("values", values, device=dev, dtypes=_VT)
     C, R, L = values.shape
-    _check("idx", idx, device=dev, dtypes=_IT)
-    T, V, K, L2 = idx.shape
-    if L != N_LANES or L2 != N_LANES:
-        raise ValueError("lane_gather: bad lane width")
-    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    T, V, K, _ = idx.shape
     shape = (T, C, K, L) if sum_v else (T, C, V, K, L)
     out = torch.empty(shape, dtype=values.dtype, device=dev)
+    if out.numel() == 0:
+        return out
     lib = _build.load()
     code = lib.lane_gather(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
         starts.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        C, R, T, V, K, int(wr), int(bool(sum_v)), _stream(dev),
+        C, R, T, V, K, geo["wr"], int(bool(sum_v)), geo["ky"],
+        int(geo["tiles"]), geo["smem"], _stream(dev),
     )
     _raise_on(code, "lane_gather")
     lane_gather.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def gather_geometry(C: int, V: int, wr: int, K: int, vbytes: int,
+                    ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_gather`'s kernel (K9), laid out as
+    :func:`gather_cm_geometry`'s: blocks of GATHER_LB lane columns of one
+    bin, thread (x, y) writing rows y, y + ky, ... of column x for every
+    channel and v. Where the window and the index rows fit a block's
+    shared memory the block stages them (``tiles``); else it reads both
+    straight from global memory (``smem`` 0), so that every shape gets a
+    geometry (C, K >= 1). ``wr`` <= 0 gives an empty window (no index is
+    valid); the geometry carries the ``wr`` the kernel takes."""
+    wr = max(wr, 0)
+    return dict(_window_geometry("lane_gather", C, V, wr, K, vbytes, ibytes,
+                                 False, direct=True), wr=wr)
+
+
+def check_gather(values, starts, idx, *, wr: int) -> dict:
+    """The host-side checks of :func:`lane_gather` (device, dtypes,
+    shapes, contiguity, 16-byte alignment of ``values`` and ``idx``);
+    returns the launch geometry. Raises ``ValueError`` / ``TypeError``."""
+    C, V, K = _check_window_args("lane_gather", values, starts, idx,
+                                 min_rows=0)
+    # (an empty output launches nothing)
+    return gather_geometry(max(C, 1), V, int(wr), max(K, 1),
+                           values.element_size(), idx.element_size())
 
 
 # -- K10 / K11: windowed scatter-adds ------------------------------------------
@@ -937,14 +969,143 @@ def lane_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
       out[t, c, q, j] += wts[t,d,r,j] * src[c, starts[t]+r, j]
         for every (d, r) with dest_idx[t,d,r,j] == q
 
-    src (C, S, 128); starts (T,) int32 (>= 0); dest_idx (T, n_dest, sk,
-    128) int8/int32 in [-1, k_out); wts of that shape in the src's dtype.
-    Returns (T, C, k_out, 128). Products are added r outer, d inner, the
-    reference's order: kernel, plain version and reference agree bitwise.
+    src (C, S, 128) and dest_idx 16-byte aligned; starts (T,) int32
+    (>= 0); dest_idx (T, n_dest, sk, 128) int8/int32 in [-1, k_out) (a
+    source row at or past S adds nothing); wts of that shape in the src's
+    dtype. Returns (T, C, k_out, 128). Products are added r outer, d inner,
+    the reference's order: kernel, plain version and reference agree
+    bitwise. The launch geometry is :func:`scatter_weighted_geometry`'s.
     """
     if src.device.type != "cuda":
         return lane_scatter_weighted_plain(src, starts, dest_idx, wts, sk=sk,
                                            k_out=k_out, n_dest=n_dest)
+    geo = check_scatter_weighted(src, starts, dest_idx, wts, sk=sk,
+                                 k_out=k_out, n_dest=n_dest)
+    dev = src.device
+    C, S, L = src.shape
+    T, D = dest_idx.shape[:2]
+    out = torch.empty((T, C, k_out, L), dtype=src.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    code = lib.lane_scatter_weighted(
+        _VT[src.dtype], _IT[dest_idx.dtype], src.data_ptr(),
+        starts.data_ptr(), dest_idx.data_ptr(), wts.data_ptr(),
+        out.data_ptr(), C, S, T, D, int(sk), int(k_out), geo["ky"],
+        geo["cb"], geo["rc"], int(geo["tiles"]), geo["smem"], _stream(dev),
+    )
+    _raise_on(code, "lane_scatter_weighted")
+    lane_scatter_weighted.launches += 1
+    return out
+
+
+# the constants of csrc/lane_scatter_weighted.cu
+SCATTER_KY = 4  # thread rows of a block at least (the copies) ...
+SCATTER_KY_MAX = 16  # ... and at most: one a channel of its group between
+SCATTER_MIN_ROWS = 8  # window rows of a chunk at least (where sk has them)
+# blocks of ky thread rows an SM's registers hold: 32 // ky (ptxas gives
+# the kernel at most 64 registers a thread)
+SCATTER_REG_ROWS = 32
+
+
+def scatter_layout_bytes(cb: int, k_out: int, rc: int, D: int, vbytes: int,
+                         ibytes: int, tiles: bool = True) -> int:
+    """Shared memory of one block of :func:`lane_scatter_weighted`'s kernel
+    (csrc/lane_scatter_weighted.cu:gs_smem_bytes): the accumulator (``cb``
+    channels x ``k_out`` rows x GATHER_LB values), a chunk of ``rc`` window
+    rows of those channels and, where the tables are staged (``tiles``),
+    the chunk's D x rc index and weight rows."""
+    lb = GATHER_LB
+    return (cb * k_out * lb * vbytes + cb * rc * lb * vbytes
+            + (D * rc * lb * (ibytes + vbytes) if tiles else 0))
+
+
+@functools.lru_cache(maxsize=64)
+def scatter_weighted_geometry(C: int, D: int, sk: int, k_out: int,
+                              vbytes: int, ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_scatter_weighted`'s kernel for C
+    channels, D destinations a source row, a window of ``sk`` rows,
+    ``k_out`` output rows and the value / index element sizes in bytes.
+
+    A block serves one bin, GATHER_LB lane columns and a group of ``cb``
+    channels (grid: bins x ``slabs`` x ``groups``), with ``block`` =
+    (GATHER_LB, ``ky``) threads, ``ky`` = cb within [SCATTER_KY,
+    SCATTER_KY_MAX]; thread row y adds channels y, y + ky, ... of the
+    group, and every thread copies and writes back. It keeps its (cb,
+    k_out) accumulator in shared memory and walks the window in ``chunks``
+    of ``rc`` rows, staging each chunk's window rows and, where ``tiles``,
+    its index and weight rows (:func:`scatter_layout_bytes`, ``smem``).
+    Each block's walk is serial, so the layout is chosen for ``blocks`` an
+    SM: in this order, the tables staged with every channel in one block
+    (tables read once), fewer channels a block, the tables not staged --
+    the first that holds two blocks an SM with SCATTER_MIN_ROWS rows a
+    chunk (fewer where sk is smaller), then one block of one row; then
+    the chunk height that keeps the most blocks an SM (shared memory, and
+    registers: SCATTER_REG_ROWS // ky blocks), the most rows among those,
+    chunks of equal size. ``ValueError`` where not even one channel and
+    one row fit a block."""
+    if (C < 1 or D < 0 or sk < 0 or k_out < 1 or vbytes not in (4, 8)
+            or ibytes not in (1, 4)):
+        raise ValueError(f"lane_scatter_weighted: C = {C}, k_out = {k_out} "
+                         f"(>= 1), D = {D}, sk = {sk} (>= 0), {vbytes}-byte "
+                         f"values, {ibytes}-byte indices")
+    lb = GATHER_LB
+    rows = max(sk, 1)
+    for need, rmin in ((2, min(rows, SCATTER_MIN_ROWS)), (1, 1)):
+        for tiles in (True, False):
+            for cb in range(C, 0, -1):
+                ky = min(max(cb, SCATTER_KY), SCATTER_KY_MAX)
+                fixed = scatter_layout_bytes(cb, k_out, 0, D, vbytes, ibytes)
+                row = scatter_layout_bytes(cb, 0, 1, D, vbytes, ibytes, tiles)
+
+                def blocks(rc):
+                    return min(max(SCATTER_REG_ROWS // ky, 1),
+                               SMEM_PER_SM // (fixed + rc * row
+                                               + SMEM_RESERVED))
+
+                if (fixed + rmin * row > SMEM_PER_BLOCK
+                        or blocks(rmin) < need):
+                    continue
+                nb = blocks(rmin)
+                rc = min(rows, (SMEM_PER_BLOCK - fixed) // row,
+                         (SMEM_PER_SM // nb - SMEM_RESERVED - fixed) // row)
+                chunks = -(-rows // rc)
+                rc = -(-rows // chunks)
+                return dict(block=(lb, ky), ky=ky, cb=cb, groups=-(-C // cb),
+                            rc=rc, chunks=-(-sk // rc), tiles=tiles,
+                            blocks=nb, slabs=N_LANES // lb,
+                            smem=fixed + rc * row)
+    raise ValueError(
+        f"lane_scatter_weighted: an accumulator of k_out = {k_out} rows and "
+        f"a window row of {GATHER_LB} lanes and {vbytes}-byte values do not "
+        f"fit {SMEM_PER_BLOCK} bytes of shared memory")
+
+
+def scatter_cover(geo: dict, T: int, C: int, k_out: int):
+    """How many times the kernel of ``geo`` (:func:`scatter_weighted_geometry`)
+    writes each output (t, c, q, lane) of T bins: block (t, g, s), thread
+    (x, y) writes lane s * lb + x of the rows i = y, y + ky, ... of the
+    block's (cb, k_out) slab, channel g * cb + i // k_out (below C), row
+    q = i % k_out."""
+    lb, ky = geo["block"]
+    cb = geo["cb"]
+    counts = np.zeros((T, C, k_out, N_LANES), np.int64)
+    for g in range(geo["groups"]):
+        cg = min(cb, C - g * cb)  # the channels of the last group
+        for s in range(geo["slabs"]):
+            for y in range(ky):
+                for i in range(y, cg * k_out, ky):
+                    counts[:, g * cb + i // k_out, i % k_out,
+                           s * lb:(s + 1) * lb] += 1
+    return counts
+
+
+def check_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
+                           n_dest: int) -> dict:
+    """The host-side checks of :func:`lane_scatter_weighted` (device,
+    dtypes, shapes, contiguity, 16-byte alignment of ``src`` and
+    ``dest_idx``); returns the launch geometry. Raises ``ValueError`` /
+    ``TypeError``."""
     dev = src.device
     _check("src", src, device=dev, dtypes=_VT)
     C, S, L = src.shape
@@ -955,16 +1116,13 @@ def lane_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
         raise ValueError("lane_scatter_weighted: bad lane width, or "
                          "dest_idx not (T, n_dest, sk, 128)")
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
-    out = torch.empty((T, C, k_out, L), dtype=src.dtype, device=dev)
-    lib = _build.load()
-    code = lib.lane_scatter_weighted(
-        _VT[src.dtype], _IT[dest_idx.dtype], src.data_ptr(),
-        starts.data_ptr(), dest_idx.data_ptr(), wts.data_ptr(),
-        out.data_ptr(), C, S, T, D, int(sk), int(k_out), _stream(dev),
-    )
-    _raise_on(code, "lane_scatter_weighted")
-    lane_scatter_weighted.launches += 1
-    return out
+    # the kernel stages the window and the index rows by 16-byte
+    # asynchronous copies
+    _check_aligned("lane_scatter_weighted", src, dest_idx)
+    # (an empty output launches nothing)
+    return scatter_weighted_geometry(max(C, 1), D, int(sk),
+                                     max(int(k_out), 1), src.element_size(),
+                                     dest_idx.element_size())
 
 
 reset_launch_counts()

@@ -1,6 +1,10 @@
-"""The windowed gathers K1 ``lane_gather_cm`` and K5
-``lane_gather_weighted`` (the two-level restriction and prolongation)
-alone on the card, at the tables of the n = 1024 polycrystal plan.
+"""The windowed gathers and scatters of the lane layout alone on the card,
+at the tables of the n = 1024 polycrystal plan: K1 ``lane_gather_cm`` and
+K5 ``lane_gather_weighted`` (the two-level restriction and prolongation),
+K9 ``lane_gather`` (per v and summed over v) at K1's tables, K2
+``lane_scatter_cm`` at K1's tables, K10 ``lane_scatter`` at their transpose
+and K11 ``lane_scatter_weighted`` at the prolongation's tables in the
+adjoint direction.
 
     python -m tpufem_torch.perf.lane_gather_bench [--tables FILE]
     PYTHONPATH=<other tree> python <this file> [--tables FILE]
@@ -17,10 +21,11 @@ version. Prints the ``nvidia-smi`` name and power limit first, then one
 JSON line per kernel: the median, least and most of TRIALS event readings
 of 20 launches on one input (warm) and on COLD_SETS input copies in turn
 (cold), the kernel's device time under torch.profiler, the byte and
-operation bounds, what ptxas says of its instances, and the mean number of
-distinct 128-byte lines one warp's load touches where the 32 lanes of a
-slab gather straight from global memory (and, at one line a cycle per
-SM, the time those loads would take). Needs a CUDA device and nvcc.
+operation bounds, what ptxas says of its instances, and, for the gathers
+of K1 and K5, the mean number of distinct 128-byte lines one warp's load
+touches where the 32 lanes of a slab gather straight from global memory
+(and, at one line a cycle per SM, the time those loads would take).
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -39,7 +44,13 @@ REPS = 20
 COLD_SETS = 8
 N_FULL = 1024
 WARP = 32
-ENTRIES = ("lane_gather_cm_kernel", "lane_gather_weighted_kernel")
+# the kernel entry of each case (a part of its name, demangled or not)
+ENTRIES = {"lane_gather_cm": "lane_gather_cm_kernel",
+           "lane_gather_weighted": "lane_gather_weighted_kernel",
+           "lane_gather": "lane_gather_kernel",
+           "lane_scatter_cm": "lane_scatter_cm_kernel",
+           "lane_scatter": "lane_scatter_kernel",
+           "lane_scatter_weighted": "lane_scatter_weighted_kernel"}
 
 
 def build_tables(dev) -> dict:
@@ -112,54 +123,86 @@ def _events(fn, sets):
     return [ts[TRIALS // 2], ts[0], ts[-1]]
 
 
-def bench(tabs: dict, dev) -> dict:
+def cases(tabs: dict, dev) -> dict:
+    """name: (wrapper, plain version, shape of the first argument (made
+    anew for each input copy), the other arguments, keywords, the window
+    height the gather lines are counted for (None: not counted), the
+    operations per valid table entry and channel)."""
     from tpufem_torch.lane import kernels as K
+
+    on = lambda t: t.to(dev)  # noqa: E731
+    C, R, V, wg = tabs["C"], tabs["R"], tabs["V"], tabs["wg"]
+    g_st, g_ix = on(tabs["gather_starts"]), on(tabs["gather_idx"])
+    T, _, kc, _ = g_ix.shape
+    sk10 = V * kc
+    p_ix, p_w = on(tabs["p_idx"]), on(tabs["p_wts"])
+    return {
+        "lane_gather_cm": (
+            K.lane_gather_cm, K.lane_gather_cm_plain, (C, R, 128),
+            (g_st, g_ix), dict(wr=wg, n_ch=C * V), wg, 0),
+        "lane_gather_weighted/restrict": (
+            K.lane_gather_weighted, K.lane_gather_weighted_plain, (C, R, 128),
+            (on(tabs["r_starts"]), on(tabs["r_idx"]), on(tabs["r_wts"])),
+            dict(wr=tabs["WRr"]), tabs["WRr"], 2),
+        "lane_gather_weighted/prolong": (
+            K.lane_gather_weighted, K.lane_gather_weighted_plain,
+            (C, tabs["Rv"], 128),
+            (on(tabs["p_starts"]), p_ix, p_w), dict(wr=tabs["WRp"]),
+            tabs["WRp"], 2),
+        "lane_gather": (
+            K.lane_gather, K.lane_gather_plain, (C, R, 128), (g_st, g_ix),
+            dict(wr=wg), None, 0),
+        "lane_gather/sum_v": (
+            K.lane_gather, K.lane_gather_plain, (C, R, 128), (g_st, g_ix),
+            dict(wr=wg, sum_v=True), None, 1),
+        "lane_scatter_cm": (
+            K.lane_scatter_cm, K.lane_scatter_cm_plain, (V * C, T, kc, 128),
+            (g_ix,), dict(k_out=wg, n_ch=C), None, 1),
+        "lane_scatter": (
+            K.lane_scatter, K.lane_scatter_plain, (C, T * sk10, 128),
+            (on(torch.arange(T, dtype=torch.int32) * sk10),
+             g_ix.reshape(T, sk10, 128)), dict(sk=sk10, k_out=wg), None, 1),
+        "lane_scatter_weighted": (
+            K.lane_scatter_weighted, K.lane_scatter_weighted_plain,
+            (C, T * wg, 128), (on(torch.arange(T, dtype=torch.int32) * wg),
+                               p_ix, p_w),
+            dict(sk=wg, k_out=tabs["WRp"], n_dest=p_ix.shape[1]), None, 2),
+    }
+
+
+def bench(tabs: dict, dev) -> dict:
     from tpufem_torch.perf.lattice_bench import device_us
 
     g = torch.Generator(device=dev)
     g.manual_seed(2468)
-    on = lambda t: t.to(dev)  # noqa: E731
     C = tabs["C"]
-    cases = {
-        "lane_gather_cm": (
-            K.lane_gather_cm, K.lane_gather_cm_plain, (C, tabs["R"], 128),
-            (on(tabs["gather_starts"]), on(tabs["gather_idx"])),
-            dict(wr=tabs["wg"], n_ch=C * tabs["V"]), tabs["wg"],
-            "lane_gather_cm_kernel"),
-        "lane_gather_weighted/restrict": (
-            K.lane_gather_weighted, K.lane_gather_weighted_plain,
-            (C, tabs["R"], 128),
-            (on(tabs["r_starts"]), on(tabs["r_idx"]), on(tabs["r_wts"])),
-            dict(wr=tabs["WRr"]), tabs["WRr"], "lane_gather_weighted_kernel"),
-        "lane_gather_weighted/prolong": (
-            K.lane_gather_weighted, K.lane_gather_weighted_plain,
-            (C, tabs["Rv"], 128),
-            (on(tabs["p_starts"]), on(tabs["p_idx"]), on(tabs["p_wts"])),
-            dict(wr=tabs["WRp"]), tabs["WRp"], "lane_gather_weighted_kernel"),
-    }
     out = {}
-    for name, (fn, plain, vshape, rest, kw, wr, entry) in cases.items():
-        sets = [(torch.randn(vshape, device=dev, generator=g), *rest)
+    for name, (fn, plain, shape, rest, kw, wr, ops) in cases(tabs,
+                                                            dev).items():
+        sets = [(torch.randn(shape, device=dev, generator=g), *rest)
                 for _ in range(COLD_SETS)]
         y = fn(*sets[0], **kw)
         torch.cuda.synchronize()
         exact = bool(torch.equal(y, plain(*sets[0], **kw)))
         warm = _events(lambda *a: fn(*a, **kw), sets[:1])
         cold = _events(lambda *a: fn(*a, **kw), sets)
-        dus = device_us(lambda: fn(*sets[0], **kw), REPS, entry)
-        starts, idx = rest[0], rest[1]
+        dus = device_us(lambda: fn(*sets[0], **kw), REPS,
+                        ENTRIES[name.split("/")[0]])
+        idx = [t for t in rest if t.dtype in (torch.int8, torch.int32)
+               and t.dim() > 1][0]
         ii = idx.to(torch.int64)
-        nvalid = int(((ii >= 0) & (ii < wr)).sum())
-        flops = 0 if len(rest) == 2 else 2 * nvalid * C
+        nvalid = int((ii >= 0).sum() if wr is None
+                     else ((ii >= 0) & (ii < wr)).sum())
         nb = sum(t.numel() * t.element_size() for t in (*sets[0], y))
-        mean, total = lines_per_warp_load(starts, idx, wr, vshape[1])
-        out[name] = dict(
-            exact=exact, ms=warm[0], ms_range=warm, cold_ms=cold[0],
-            cold_ms_range=cold,
-            profiler_device_ms=None if dus is None else dus / 1e3,
-            table=list(idx.shape), idx_dtype=str(idx.dtype), wr=wr,
-            lines_per_warp_load=mean, lines=total * C,
-            **bound(nb, flops))
+        r = dict(exact=exact, ms=warm[0], ms_range=warm, cold_ms=cold[0],
+                 cold_ms_range=cold,
+                 profiler_device_ms=None if dus is None else dus / 1e3,
+                 table=list(idx.shape), idx_dtype=str(idx.dtype),
+                 **bound(nb, ops * nvalid * C))
+        if wr is not None:
+            mean, total = lines_per_warp_load(rest[0], idx, wr, shape[1])
+            r.update(wr=wr, lines_per_warp_load=mean, lines=total * C)
+        out[name] = r
         del sets, y, ii
     return out
 
@@ -180,7 +223,7 @@ def main():
     seconds = _build.build(verbose=True)
     _build.load()
     ptx = {k: v for k, v in ptxas_of(_build.build_log).items()
-           if any(e in k for e in ENTRIES)}
+           if any(e in k for e in ENTRIES.values())}
     if opts.tables and os.path.exists(opts.tables):
         tabs = torch.load(opts.tables)
     else:
@@ -194,10 +237,11 @@ def main():
         os.path.abspath(_build.__file__))))
     lines_per_s = props.multi_processor_count * clock_mhz * 1e6
     for name, r in res.items():
-        entry = ENTRIES[0] if name == "lane_gather_cm" else ENTRIES[1]
+        entry = ENTRIES[name.split("/")[0]]
         r.update(kernel=name, tree=tree, build_seconds=seconds,
-                 direct_load_model_ms=r["lines"] / lines_per_s * 1e3,
                  ptxas={k: v for k, v in ptx.items() if entry in k})
+        if "lines" in r:
+            r["direct_load_model_ms"] = r["lines"] / lines_per_s * 1e3
         print(json.dumps(r), flush=True)
     if not all(r["exact"] for r in res.values()):
         sys.exit(1)
