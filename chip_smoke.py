@@ -1004,13 +1004,15 @@ for tag, (T_, V_e, K_, wr_, R_, C_, last) in K9_EDGES.items():
     st_ = edge_rng.integers(0, max(R_ - wr_, 0) + 1, size=T_)
     if last is not None:
         st_[-1] = last
-    ix_ = edge_rng.integers(-1, min(wr_ + 2, 127) + 1, size=(T_, V_e, K_, 128))
+    # int32 indices over the whole window and past it; int8 ones clamped
+    ix_ = edge_rng.integers(-1, wr_ + 3, size=(T_, V_e, K_, 128))
     st_ = on_card(st_, torch.int32)
     for vdt in (torch.float32, torch.float64):
         vals_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
                             generator=gen)
         for idt in (torch.int8, torch.int32):
-            ix_t = on_card(ix_.astype(IDX_NP[idt]))
+            ix_t = on_card((np.minimum(ix_, 127) if idt == torch.int8
+                            else ix_).astype(IDX_NP[idt]))
             k9_paths.add(K.check_gather(vals_, st_, ix_t, wr=wr_)["tiles"])
             for sum_v in (False, True):
                 out = K.lane_gather(vals_, st_, ix_t, wr=wr_, sum_v=sum_v)
@@ -1035,7 +1037,10 @@ for tag, (T_, C_, D_, sk_, k_out_, S_, last) in K11_EDGES.items():
         src_ = torch.randn((C_, S_, 128), dtype=vdt, device=DEV,
                            generator=gen)
         for idt in (torch.int8, torch.int32):
-            ix_t = on_card(np.minimum(ix_, 127).astype(IDX_NP[idt]))
+            # int32 indices over every row of k_out and past it; int8
+            # ones clamped
+            ix_t = on_card((np.minimum(ix_, 127) if idt == torch.int8
+                            else ix_).astype(IDX_NP[idt]))
             kw = dict(sk=sk_, k_out=ko, n_dest=D_)
             g11 = K.check_scatter_weighted(src_, st_, ix_t, w_, **kw)
             k11_paths.add((g11["tiles"], g11["chunks"] > 1,

@@ -261,9 +261,10 @@ def test_k9_k11_take_every_shape_the_first_designs_took():
 
 
 def test_k9_k11_wrappers_refuse_misaligned_or_strided_inputs():
-    """K9 and K11 copy the values (src) and the index rows by 16-byte
-    asynchronous copies: their host checks refuse either where it is not
-    16-byte aligned, and values that are not contiguous."""
+    """K9 and K11 copy the values (src), the index rows and (K11) the
+    weight rows by 16-byte asynchronous copies: their host checks refuse
+    any of them where it is not 16-byte aligned, and values that are not
+    contiguous."""
     starts, idx, _ = _tables()
     good = torch.zeros((2, 24, L))
     shifted = torch.zeros(2 * 24 * L + 1)[1:].view(2, 24, L)
@@ -287,6 +288,11 @@ def test_k9_k11_wrappers_refuse_misaligned_or_strided_inputs():
                         (strided, idx, "contiguous")):
         with pytest.raises(ValueError, match=what):
             tk.check_scatter_weighted(v, starts, ix, wts, **kw)
+    wts_shifted = torch.zeros(wts.numel() + 1)[1:].view(wts.shape)
+    wts_shifted.copy_(wts)
+    assert wts_shifted.is_contiguous() and wts_shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.check_scatter_weighted(good, starts, idx, wts_shifted, **kw)
     with pytest.raises(ValueError, match="n_dest"):
         tk.check_scatter_weighted(good, starts, idx, wts, sk=5, k_out=6,
                                   n_dest=3)

@@ -969,7 +969,7 @@ def lane_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
       out[t, c, q, j] += wts[t,d,r,j] * src[c, starts[t]+r, j]
         for every (d, r) with dest_idx[t,d,r,j] == q
 
-    src (C, S, 128) and dest_idx 16-byte aligned; starts (T,) int32
+    src (C, S, 128), dest_idx and wts 16-byte aligned; starts (T,) int32
     (>= 0); dest_idx (T, n_dest, sk, 128) int8/int32 in [-1, k_out) (a
     source row at or past S adds nothing); wts of that shape in the src's
     dtype. Returns (T, C, k_out, 128). Products are added r outer, d inner,
@@ -1103,9 +1103,9 @@ def scatter_cover(geo: dict, T: int, C: int, k_out: int):
 def check_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
                            n_dest: int) -> dict:
     """The host-side checks of :func:`lane_scatter_weighted` (device,
-    dtypes, shapes, contiguity, 16-byte alignment of ``src`` and
-    ``dest_idx``); returns the launch geometry. Raises ``ValueError`` /
-    ``TypeError``."""
+    dtypes, shapes, contiguity, 16-byte alignment of ``src``,
+    ``dest_idx`` and ``wts``); returns the launch geometry. Raises
+    ``ValueError`` / ``TypeError``."""
     dev = src.device
     _check("src", src, device=dev, dtypes=_VT)
     C, S, L = src.shape
@@ -1116,9 +1116,9 @@ def check_scatter_weighted(src, starts, dest_idx, wts, *, sk: int, k_out: int,
         raise ValueError("lane_scatter_weighted: bad lane width, or "
                          "dest_idx not (T, n_dest, sk, 128)")
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
-    # the kernel stages the window and the index rows by 16-byte
-    # asynchronous copies
-    _check_aligned("lane_scatter_weighted", src, dest_idx)
+    # the kernel stages the window, the index and the weight rows by
+    # 16-byte asynchronous copies
+    _check_aligned("lane_scatter_weighted", src, dest_idx, wts)
     # (an empty output launches nothing)
     return scatter_weighted_geometry(max(C, 1), D, int(sk),
                                      max(int(k_out), 1), src.element_size(),
