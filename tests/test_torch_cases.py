@@ -108,17 +108,91 @@ def test_run_defaults_to_fused_twolevel_like_the_reference():
      NotImplementedError, "ROADMAP"),
     (dict(mixed=True, solver=TSolverConfig(preconditioner="amg")),
      NotImplementedError, "ROADMAP"),
-    (dict(gmsh_roundtrip=True), NotImplementedError, "ROADMAP"),
-    (dict(output_path="x"), NotImplementedError, "ROADMAP"),
     (dict(checkpoint_path="x"), ValueError, "mixed=True"),
     (dict(mixed=True, fused=False, solver=TSolverConfig(
         preconditioner="amg")), NotImplementedError, "ROADMAP"),
-], ids=["fused", "mixed", "gmsh_roundtrip", "output_path",
-        "checkpoint_path", "twolevel"])
+], ids=["fused", "mixed", "checkpoint_path", "twolevel"])
 def test_run_unported_options_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         t_poly.run(8, n_grains=4, smooth_iters=2, use_volume=False,
                    postprocess_fields=False, **F64, **kw)
+
+
+# one call of both packages' ``run`` with the gmsh round trip and the
+# output phase: unloaded (the reference assembles its load in float32
+# even under x64), Jacobi, one Newton step of two CG iterations -- enough
+# to fill every field; the reference's Pallas kernels run in interpret
+# mode, whose first compile dominates
+ROUNDTRIP = dict(n_grains=4, smooth_iters=2, use_volume=False,
+                 gmsh_roundtrip=True)
+ROUNDTRIP_SOLVER = dict(preconditioner="jacobi", cg_maxit=2, newton_maxit=1)
+
+
+@pytest.fixture(scope="module")
+def roundtrip_runs(tmp_path_factory):
+    import tpufem.cases.polycrystal as j_poly
+    from tpufem.config import SolverConfig as JSolverConfig
+
+    out = tmp_path_factory.mktemp("poly")
+    for sub in ("t", "j"):
+        (out / sub).mkdir()
+    t = t_poly.run(8, output_path=str(out / "t" / "poly.xdmf"),
+                   solver=TSolverConfig(**ROUNDTRIP_SOLVER), **ROUNDTRIP,
+                   **F64)
+    j = j_poly.run(8, output_path=str(out / "j" / "poly.xdmf"),
+                   solver=JSolverConfig(error_on_nonconvergence=False,
+                                        **ROUNDTRIP_SOLVER),
+                   interpret=True, **ROUNDTRIP)
+    return t, j, out
+
+
+def test_run_gmsh_roundtrip(roundtrip_runs):
+    """The mesh after the port's round trip is the reference's (which
+    writes 16 significant digits and so moves x by up to 4 ulps, at a
+    mantissa just above a power of ten; the port's writes 17 and gives the
+    mesh back exactly), and the run is bit for bit the run without the
+    round trip."""
+    t, j, _ = roundtrip_runs
+    np.testing.assert_array_equal(t.mesh.cells, j.mesh.cells)
+    np.testing.assert_array_equal(t.mesh.cell_tags, j.mesh.cell_tags)
+    assert t.mesh.cells.dtype == j.mesh.cells.dtype
+    assert sorted(t.mesh.entity_tags) == sorted(j.mesh.entity_tags)
+    np.testing.assert_array_max_ulp(t.mesh.x, j.mesh.x, maxulp=4)
+    assert "2.1b gmsh roundtrip" in t.timings
+    kw = {**ROUNDTRIP, "gmsh_roundtrip": False}
+    plain = t_poly.run(8, solver=TSolverConfig(**ROUNDTRIP_SOLVER), **kw,
+                       **F64)
+    np.testing.assert_array_equal(t.mesh.x, plain.mesh.x)
+    np.testing.assert_array_equal(t.u_flat, plain.u_flat)
+    assert t.energy == plain.energy
+    for name in ("strain", "stress", "energy_density"):
+        np.testing.assert_array_equal(getattr(t, name), getattr(plain, name))
+
+
+def test_run_output_path_writes_the_reference_s_xdmf(roundtrip_runs):
+    """The XDMF of ``output_path`` is the reference's for the same call
+    (mesh, field names and layout: the same XML), and its fields read back
+    to the run's own result exactly (to the reference's values at the run
+    tolerance)."""
+    from tpufem_torch.io import read_xdmf
+
+    t, j, out = roundtrip_runs
+    xml = (out / "t" / "poly.xdmf").read_text()
+    assert xml == (out / "j" / "poly.xdmf").read_text()
+    mesh, pd, cd = read_xdmf(str(out / "t" / "poly.xdmf"))
+    np.testing.assert_array_equal(mesh.x, t.mesh.x)
+    np.testing.assert_array_equal(mesh.cells, t.mesh.cells)
+    np.testing.assert_array_equal(pd["u"][:, :2].reshape(-1), t.u_flat)
+    fields = dict(E=None, grain=t.mesh.cell_tags.astype(np.float64),
+                  strain=t.strain, stress=t.stress,
+                  energy_density=t.energy_density)
+    assert sorted(cd) == sorted(fields) and sorted(pd) == ["damage", "u"]
+    for name, want in fields.items():
+        if want is not None:
+            np.testing.assert_array_equal(cd[name].reshape(want.shape), want)
+    assert np.abs(pd["u"][:, :2].reshape(-1) - j.u_flat).max() <= (
+        1e-9 * np.abs(j.u_flat).max())
+    assert "8 outputs" in t.timings
 
 
 def test_cli_runs_on_cpu_and_refuses_missing_cuda(capsys):

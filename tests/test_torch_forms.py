@@ -118,6 +118,9 @@ def test_import_pulls_in_neither_jax_nor_tpufem():
         "import tpufem_torch, tpufem_torch.cli, tpufem_torch.cases.polycrystal\n"
         "import tpufem_torch.lane, tpufem_torch.assemble, tpufem_torch.utils.convert\n"
         "import tpufem_torch.perf.cg_profile, tpufem_torch.lane._build\n"
+        "import tpufem_torch.cases.mechanic2d, tpufem_torch.cases.compare\n"
+        "import tpufem_torch.io, tpufem_torch.nls, tpufem_torch.la\n"
+        "import tpufem_torch.mesh, tpufem_torch.perf, tpufem_torch.utils.log\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpufem' or m.startswith('tpufem.')]\n"
         "assert not bad, bad\n"

@@ -12,11 +12,15 @@ Layering (bottom-up):
 - :mod:`tpufem_torch.spaces`    -- function spaces, dofmaps, Dirichlet BCs.
 - :mod:`tpufem_torch.forms`     -- physics as energy densities;
   ``torch.func.grad``/``jvp``/``hessian`` derive residuals and tangents.
-- :mod:`tpufem_torch.assemble`  -- flat (cell-major) assembler: the f64 oracle
-  and the load-vector / postprocess path.
+- :mod:`tpufem_torch.assemble`  -- flat (cell-major) assembler: the f64 oracle,
+  the load-vector / postprocess path and the Dirichlet-lifted Newton system.
+- :mod:`tpufem_torch.la`, :mod:`tpufem_torch.nls` -- CG with the reference's
+  stopping rule, Jacobi, Newton with both convergence conventions.
 - :mod:`tpufem_torch.lane`      -- lane-partitioned unstructured engine and its
   CUDA kernels; Newton-Krylov solver on the lane layout.
-- :mod:`tpufem_torch.cases`     -- complete workloads (polycrystal).
+- :mod:`tpufem_torch.io`        -- VTU / XDMF / HDF5 output, checkpoints.
+- :mod:`tpufem_torch.cases`     -- complete workloads (mechanic2d, polycrystal)
+  and the IN_COMP comparison harness.
 """
 
 __version__ = "0.1.0"

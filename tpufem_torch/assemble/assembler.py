@@ -7,12 +7,15 @@ asym_elasto_damage_model.cc:816-867) onto PyTorch:
 - ``residual``        <-> fem::assemble_vector over ffcx vector kernels (:825)
 - ``tangent_action``  <-> matrix-free J.v (what MFEM's GetGradient + Mult
                         compute without ever forming sparse J)
+- ``lifted_rhs`` / ``constrained_action`` / ``set_bc`` <-> the identity-row
+  Dirichlet method (doc.tex:1670-1741): b <- b - J.(g - x0) on interior
+  rows, then b[bc] = g - x0[bc]; J rows/cols zeroed with unit diagonal.
 
 All element kernels come from ``torch.func.grad`` / ``hessian`` / ``jvp``
 of the single element-energy function (see tpufem_torch.forms.form),
 batched over cells by ``torch.func.vmap``. Scatter is a padded
 gather-sum, deterministic by construction. The assembled sparse matrix
-(``matrix()``) and the Dirichlet lifting helpers are not ported yet.
+(``matrix()``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -75,18 +78,25 @@ class Assembler:
         # BCs
         self.bcs = list(bcs)
         if self.bcs:
-            bc_dofs, _, bc_mask = combine_bcs(self.bcs, self.n_dofs)
+            bc_dofs, bc_vals, bc_mask = combine_bcs(self.bcs, self.n_dofs)
         else:
             bc_dofs = np.zeros(0, dtype=np.int32)
+            bc_vals = np.zeros(0)
             bc_mask = np.zeros(self.n_dofs, dtype=bool)
         self.bc_dofs = torch.as_tensor(
             np.asarray(bc_dofs), dtype=torch.int64, device=self.device
         )
+        self.bc_vals_np = bc_vals
+        self._bc_vals_dev = torch.as_tensor(bc_vals, dtype=torch.float64,
+                                            device=self.device)
         self._free_dev = torch.as_tensor(
             (~bc_mask).astype(np.float64), device=self.device
         )
 
     # -- helpers -------------------------------------------------------------
+
+    def bc_values(self, dtype) -> torch.Tensor:
+        return self._bc_vals_dev.to(dtype)
 
     def free_mask(self, dtype) -> torch.Tensor:
         """1.0 on unconstrained dofs, 0.0 on Dirichlet dofs."""
@@ -142,19 +152,76 @@ class Assembler:
         f = lambda w: self.residual(w, coeffs)
         return jvp(f, (u,), (v,))[1]
 
+    def element_action(self, em, v) -> torch.Tensor:
+        """J.v from the element matrices ``em`` (ndofe, ndofe, nc) of J
+        (``element_matrices``): gather v to the cells, the per-cell
+        products, and the residual's gather-sum. The same operator as
+        ``tangent_action`` at the state ``em`` was taken at, to rounding,
+        with no differentiation per application."""
+        v_cells = self.functional.gather(v)  # (ndofe, nc)
+        return self._r_plan.apply(torch.sum(em * v_cells[None], dim=1))
+
     def matrix(self, u, coeffs, batch: Optional[int] = None):
         raise NotImplementedError(
             "assembled sparse Jacobian is not ported yet (ROADMAP.md: "
             "tpufem_torch.assemble.pattern / Assembler.matrix)"
         )
 
-    def diagonal(self, u, coeffs) -> torch.Tensor:
+    def diagonal(self, u, coeffs, em=None) -> torch.Tensor:
         """Jacobian diagonal (for Jacobi PC) without forming the matrix:
-        element Hessian diagonals scattered; 1.0 on bc dofs."""
-        em = self.element_matrices(u, coeffs)
+        element Hessian diagonals scattered; 1.0 on bc dofs. ``em``: the
+        element matrices at ``u``, if the caller has them already."""
+        if em is None:
+            em = self.element_matrices(u, coeffs)
         ed = torch.diagonal(em, dim1=0, dim2=1).T  # (ndofe, nc)
         diag = self._r_plan.apply(ed.contiguous())
         if len(self.bc_dofs):
             free = self.free_mask(diag.dtype)
             diag = diag * free + (1.0 - free)
         return diag
+
+    # -- Dirichlet application (dolfinx contract) -------------------------------
+
+    def lifted_rhs(self, u, coeffs, r=None):
+        """Newton right-hand side with Dirichlet lifting.
+
+        Builds b such that solving A^ delta = b (with A^ = M J M + (I-M), M
+        the free-dof projector) yields the constrained Newton step:
+        b_free = -r - J.w, b_bc = w, where w[bc] = g - u[bc] (zero
+        elsewhere). This is apply_lifting(b,{J},{bc},{u},-1) + set_bc
+        (FEniCSx/...cc:825-836) expressed matrix-free.
+        """
+        if r is None:
+            r = self.residual(u, coeffs)
+        free = self.free_mask(u.dtype)
+        w = torch.zeros_like(u)
+        if len(self.bc_dofs):
+            w[self.bc_dofs] = self.bc_values(u.dtype) - u[self.bc_dofs]
+        Jw = self.tangent_action(u, coeffs, w)
+        return (-r - Jw) * free + w
+
+    def constrained_action(self, u, coeffs, em=None):
+        """Returns v -> A^ v = M J M v + (I-M) v (SPD if J is). J.v is
+        ``tangent_action`` (a jvp per application, as in the reference),
+        or, given the element matrices ``em`` of J(u), ``element_action``
+        (J linearized once; the same operator to rounding)."""
+        free = self.free_mask(u.dtype)
+        fixed = 1.0 - free
+        if em is None:
+            Jv = lambda v: self.tangent_action(u, coeffs, v)
+        else:
+            Jv = lambda v: self.element_action(em, v)
+
+        def op(v):
+            return Jv(v * free) * free + v * fixed
+
+        return op
+
+    def set_bc(self, u) -> torch.Tensor:
+        """u with Dirichlet values imposed (dolfinx set_bc on a solution
+        vector)."""
+        if not len(self.bc_dofs):
+            return u
+        out = u.clone()
+        out[self.bc_dofs] = self.bc_values(u.dtype)
+        return out

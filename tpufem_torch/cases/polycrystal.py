@@ -181,16 +181,15 @@ def run(
     vector, the energy and the DG0 fields are then float64 and only the
     engine holds ``dtype``. ``checkpoint_path`` (mixed only: a ``ValueError``
     otherwise) saves the iterate after every Newton step and resumes from
-    it. ``gmsh_roundtrip`` and ``output_path`` are not ported yet and
-    raise ``NotImplementedError``.
+    it.
+
+    ``gmsh_roundtrip``: write the mesh as gmsh 2.2 and read it back
+    before the solve (the ingest path the reference's Neper meshes take).
+    ``output_path``: the output phase -- an XDMF file with one HDF5 file
+    of heavy data beside it (u and damage on the nodes; E, grain tag and,
+    with ``postprocess_fields``, strain / stress / energy density on the
+    cells).
     """
-    for flag, name in ((gmsh_roundtrip, "gmsh_roundtrip"),
-                       (output_path, "output_path")):
-        if flag:
-            raise NotImplementedError(
-                f"polycrystal.run({name}=...) is not ported yet "
-                "(ROADMAP.md: remaining modules of tpufem_torch)"
-            )
     if checkpoint_path is not None and not mixed:
         raise ValueError("polycrystal.run(checkpoint_path=...) checkpoints "
                          "the mixed-precision solve: pass mixed=True")
@@ -218,6 +217,19 @@ def run(
     if mesh is None:
         mesh = generate_polycrystal(n, n_grains=n_grains)
     lap("2.1 generate/read mesh", t0)
+
+    if gmsh_roundtrip:
+        import os
+        import tempfile
+
+        from tpufem_torch.mesh.gmsh import read_gmsh, write_gmsh
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "poly.msh")
+            write_gmsh(path, mesh)
+            mesh = read_gmsh(path)
+        lap("2.1b gmsh roundtrip", t0)
 
     t0 = time.perf_counter()
     V = FunctionSpace.create(mesh, 1, bs=2)
@@ -346,6 +358,25 @@ def run(
             asm, u_flat_dev, c_pp, batch=65536
         )
     lap("8.1 strain/stress computation", t0)
+
+    # parallel-output analog of the reference's phase 8 (XDMF/VTX,
+    # FEniCSx/...cc:946-1032): XDMF + HDF5 heavy data (scale-safe)
+    if output_path is not None:
+        from tpufem_torch.io.xdmf import write_xdmf
+
+        t0 = time.perf_counter()
+        point_data = {"u": u_flat.reshape(-1, 2), "damage": d}
+        cell_data = {
+            "E": E_cell,
+            "grain": np.asarray(mesh.cell_tags, np.float64),
+        }
+        if postprocess_fields:
+            cell_data.update(
+                strain=strain, stress=stress, energy_density=endens,
+            )
+        write_xdmf(output_path, mesh, point_data=point_data,
+                   cell_data=cell_data)
+        lap("8 outputs", t0)
 
     return PolycrystalResult(
         mesh=mesh, n_dofs=V.n_dofs, u_flat=u_flat, energy=energy,

@@ -1,12 +1,25 @@
-"""Chebyshev smoothing, the shared smoother of the multilevel
-preconditioners (``structured.mg2d`` and ``lane.twolevel``), and the
-power iteration that sets its interval."""
+"""Preconditioners: Jacobi (the reference workload's), Chebyshev
+smoothing, the shared smoother of the multilevel preconditioners
+(``structured.mg2d`` and ``lane.twolevel``), and the power iteration that
+sets its interval."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+
+def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
+    """M ~ A^-1 as 1/diag (guarded: 1 where the diagonal is 0)."""
+    one = torch.ones_like(diag)
+    inv = torch.where(diag != 0.0, 1.0 / torch.where(diag == 0.0, one, diag),
+                      one)
+
+    def M(r):
+        return inv * r
+
+    return M
 
 
 def chebyshev_iterate(A: Callable, inv_d, lmax, b, x, *, degree: int,
