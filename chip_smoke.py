@@ -14,20 +14,7 @@ prints one JSON line per phase:
                    (no spill in any K1 / K3 / K4 / K5 / K6 / K7 / K8 / K9 /
                    K11 instance), and
                    the SASS instructions of K6 / K7 / K8's main loops
-3. ``mechanic2d``  the reference study's own workload, ``mechanic2d.run``
-                   on square.msh (flat Assembler, Newton with Jacobi CG;
-                   no CUDA kernel of the port on its path): at r = 3
-                   (6 466 dofs), float64, to convergence on the card and
-                   on the CPU (same Newton count, CG +-1 per step, u and
-                   energy), the reference's CG counts beside them; at
-                   r = 7 (1 608 706 dofs), float64, the reference's CG
-                   capped at 2 Newton steps, twice (bitwise equal), the
-                   phase table, ms per CG iteration, peak memory, the
-                   output phase (VTU + XDMF/HDF5 to a temporary directory,
-                   u read back), one CG iteration under the profiler with
-                   the linearized operator and with the jvp one; one
-                   float32 Newton step for its ms per CG iteration
-4. ``kernels``     each CUDA kernel against its plain PyTorch version on the
+3. ``kernels``     each CUDA kernel against its plain PyTorch version on the
                    card, at the shapes of the n = 1024 polycrystal plan
                    (float32/float64 values, int8/int32 indices, both modes
                    of the pass kernel; the fused element kernel in both
@@ -41,29 +28,29 @@ prints one JSON line per phase:
                    K3 / K4 / K5 / K9 / K11 also at edge shapes; for K1 / K5
                    the mean number of 128-byte lines a warp's direct
                    gather touches
-5. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
+4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
                    the fused engine against the staged one and the
                    Assembler; one two-level cycle on the card against the
                    same cycle on the CPU (plain versions)
-6. ``solve_small`` polycrystal n = 256 to convergence: Jacobi staged and
+5. ``solve_small`` polycrystal n = 256 to convergence: Jacobi staged and
                    fused (same Newton count), and fused + two-level
-7. ``solve_full``  polycrystal n = 1024 (about 2.1 M dofs), 200 grains, a few
+6. ``solve_full``  polycrystal n = 1024 (about 2.1 M dofs), 200 grains, a few
                    Newton steps, staged, Jacobi, twice: the kernels' launch
                    counts, the phase table, a bitwise equal residual
                    trajectory
-8. ``solve_full_fused`` the same solve through ``LaneEngine(fused=True)``,
+7. ``solve_full_fused`` the same solve through ``LaneEngine(fused=True)``,
                    twice: launch counts of the fused path, a bitwise equal
                    residual trajectory, and one CG iteration of either
                    engine under the profiler (launches and device time)
-9. ``solve_full_twolevel`` n = 1024 through ``polycrystal.run``'s defaults
+8. ``solve_full_twolevel`` n = 1024 through ``polycrystal.run``'s defaults
                    (fused engine, two-level preconditioner) TO CONVERGENCE,
                    twice: bitwise equal residual trajectory, CG counts and
                    u; launch counts (two weighted gathers per application
                    of the preconditioner), the phase table with the
                    two-level set-up, peak memory, and one CG iteration
                    split into its parts under the profiler
-10. ``solve_full_mixed`` ``polycrystal.run(mixed=True)``: the float64
+9. ``solve_full_mixed`` ``polycrystal.run(mixed=True)``: the float64
                    Newton loop on the flat assembler around float32 lane
                    CG (fused engine, two-level), n = 1024 with ``run``'s
                    defaults to convergence, twice: bitwise equal
@@ -72,7 +59,7 @@ prints one JSON line per phase:
                    launches; the same problem solved in float64 on the lane
                    engine for its time; n = 256 mixed to 1e-10 * r0 held
                    against a float64 lane solve (u rel <= 2e-7)
-11. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
+10. ``structured2d`` K6 / K7 (``lattice_residual``, ``lattice_tangent``)
                    against their plain versions at n = 1024 and six small
                    or odd shapes (1x1 to 2047x3) and against the generic
                    lattice's AD residual
@@ -84,7 +71,7 @@ prints one JSON line per phase:
                    convergence, twice, bitwise equal, launch counts, one CG
                    iteration under the profiler; the same problem at
                    n = 256 through ``make_grid_solver`` with multigrid
-12. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
+11. ``structured3d`` K8 (``lattice_matvec3d``) against its plain version at
                    n = 160, 9x7x11, 1^3, 2^3 and 33x5x17, against the
                    stored 27-point stencil,
                    the conv3d yardstick; path B: the pulled bar of
@@ -94,14 +81,26 @@ prints one JSON line per phase:
                    twice, bitwise equal, K8 launches, the hierarchy build
                    and one residual timed alone, one CG iteration under
                    the profiler
+12. ``mechanic2d`` the reference study's own workload, ``mechanic2d.run``
+                   on square.msh (flat Assembler, Newton with Jacobi CG;
+                   no CUDA kernel of the port on its path): at r = 3
+                   (6 466 dofs), float64, to convergence on the card and
+                   on the CPU (same Newton count, CG +-1 per step, u and
+                   energy), the reference's CG counts beside them; at
+                   r = 7 (1 608 706 dofs), float64, the reference's CG
+                   capped at 2 Newton steps, twice (bitwise equal), the
+                   phase table, ms per CG iteration, peak memory, the
+                   output phase (VTU + XDMF/HDF5 to a temporary directory,
+                   u read back), one CG iteration under the profiler with
+                   the linearized operator and with the jvp one; one
+                   float32 Newton step for its ms per CG iteration
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result line.
 
 ``--until PHASE`` stops after that phase (a short first check of newly
-written kernels; ``--until mechanic2d`` drives the device, build and
-mechanic2d phases only); it then prints no result line either.
+written kernels); it then prints no result line either.
 
 K6 / K7 / K8's inputs on the card come from a seeded ``torch.Generator``;
 the structured problems are the benchmarks' own, made from numpy.
@@ -159,9 +158,9 @@ N_FULL, N_SMALL, N_ENGINE = 1024, 256, 64
 # not convergence): 2 Newton steps of at most 300 CG iterations each
 FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
-PHASES = ("device", "build", "mechanic2d", "kernels", "engine", "solve_small", "solve_full",
+PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
-          "structured2d", "structured3d")
+          "structured2d", "structured3d", "mechanic2d")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -272,143 +271,7 @@ emit("build", seconds=build_seconds, library=_build.LIB_PATH,
      sources=[s.split("tpufem_torch/")[-1] for s in _build.sources()],
      ptxas=ptxas)
 
-# -- 3. mechanic2d: the reference study's own workload (flat Assembler) ---------
-
-# the reference's Newton / CG counts on square.msh refined 3 times
-# (tpufem, float64 on the CPU): 5 Newton steps
-REF_R3_CG = [609, 596, 613, 620, 614]
-R_CHECK, R_FULL = 3, 7  # 6 466 and 1 608 706 dofs
-
-
-def mech_run(r, device, dtype, **solver_kw):
-    """``mechanic2d.run`` on square.msh refined ``r`` times."""
-    cfg = Mechanic2DConfig(max_refine=r, output_dir=solver_kw.pop(
-        "output_dir", None), solver=SolverConfig(**solver_kw))
-    return mechanic2d.run(cfg, device=device, dtype=dtype)
-
-
-def rel(a, b):
-    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
-    return float((a - b).abs().max() / b.abs().max())
-
-
-def mech_cg_step(A, M, b):
-    """One CG iteration of ``la.cg`` (operator, Jacobi, the vector updates
-    with ``torch.dot``) from the state after z0, repeated on the same
-    state: for the profiler."""
-    z = M(b)
-    rz = torch.dot(b, z)
-    x = torch.zeros_like(b)
-
-    def step():
-        Ap = A(z)
-        alpha = rz / torch.dot(z, Ap)
-        x2 = x + alpha * z
-        r2 = b - alpha * Ap
-        z2 = M(r2)
-        rz2 = torch.dot(r2, z2)
-        return x2, z2 + (rz2 / rz) * z, torch.dot(r2, r2)
-
-    return step
-
-
-t_phase = time.perf_counter()
-# (a) card against CPU, converged, float64, the reference's SolverConfig
-m_dev = mech_run(R_CHECK, DEV, torch.float64)
-m_cpu = mech_run(R_CHECK, "cpu", torch.float64)
-u_rel_a = rel(m_dev.u, m_cpu.u)
-e_rel_a = abs(float(m_dev.energy.sum()) - float(m_cpu.energy.sum())) / abs(
-    float(m_cpu.energy.sum()))
-check(m_dev.newton_iterations == m_cpu.newton_iterations
-      and len(m_dev.krylov_iters) == len(m_cpu.krylov_iters)
-      and all(abs(a - b) <= 1 for a, b in zip(m_dev.krylov_iters,
-                                              m_cpu.krylov_iters))
-      and u_rel_a <= 1e-9 and e_rel_a <= 1e-10,
-      f"mechanic2d r = {R_CHECK}: card {m_dev.newton_iterations} / "
-      f"{m_dev.krylov_iters}, CPU {m_cpu.newton_iterations} / "
-      f"{m_cpu.krylov_iters}, u rel {u_rel_a:.3e}, energy rel {e_rel_a:.3e}")
-check_a = dict(
-    r=R_CHECK, n_dofs=m_dev.V.n_dofs, newton_card=m_dev.newton_iterations,
-    newton_cpu=m_cpu.newton_iterations, cg_card=m_dev.krylov_iters,
-    cg_cpu=m_cpu.krylov_iters, cg_reference=REF_R3_CG, newton_reference=5,
-    u_rel=u_rel_a, energy_rel=e_rel_a,
-    energy_card=float(m_dev.energy.sum()),
-    energy_cpu=float(m_cpu.energy.sum()),
-    seconds_card=m_dev.timers.elapsed["total"],
-    seconds_cpu=m_cpu.timers.elapsed["total"])
-del m_dev, m_cpu
-
-# (b) full width: r = 7, float64, the reference's CG (rtol 1e-12, maxit
-# 2000, Jacobi), capped at 2 Newton steps, twice; the second run writes
-# the output phase (VTU + XDMF/HDF5) to a temporary directory
-CAP = dict(newton_maxit=2, error_on_nonconvergence=False)
-full = []
-with tempfile.TemporaryDirectory() as out_dir:
-    for i in range(2):
-        torch.cuda.reset_peak_memory_stats()
-        full.append(mech_run(R_FULL, DEV, torch.float64,
-                             output_dir=out_dir if i else None, **CAP))
-        full[-1].peak = torch.cuda.max_memory_allocated()
-    _, pd_back, _ = read_xdmf(f"{out_dir}/mechanic2d.xdmf")
-    u_back = pd_back["u"][:, :2].reshape(-1)
-    out_bytes = {f: os.path.getsize(f"{out_dir}/{f}")
-                 for f in sorted(os.listdir(out_dir))}
-f0, f1 = full
-check(torch.equal(f0.u, f1.u) and f0.residual_norms == f1.residual_norms
-      and f0.krylov_iters == f1.krylov_iters,
-      f"mechanic2d r = {R_FULL}: two runs differ ({f0.krylov_iters} / "
-      f"{f1.krylov_iters}, {f0.residual_norms} / {f1.residual_norms})")
-check(np.array_equal(u_back, f1.u.cpu().numpy())
-      and bool(torch.isfinite(f1.u).all()) and np.isfinite(f1.energy).all()
-      and f1.strain.shape == (f1.mesh.n_cells, 3),
-      "mechanic2d r = 7: XDMF u read back differs, or fields not finite")
-cg_total = sum(f0.krylov_iters)
-# one CG iteration under the profiler at the first Newton state: the
-# operator run uses (linearized once per step) and the reference's (a jvp
-# of the residual per application), Jacobi and the vector updates
-asm7, c7, V7, _, _ = mechanic2d.setup(
-    Mechanic2DConfig(max_refine=R_FULL), device=DEV, dtype=torch.float64)
-u7 = torch.zeros(V7.n_dofs, dtype=torch.float64, device=DEV)
-em7 = asm7.element_matrices(u7, c7)
-M7 = jacobi_preconditioner(asm7.diagonal(u7, c7, em7))
-b7 = asm7.lifted_rhs(u7, c7)
-step_lin = mech_cg_step(asm7.constrained_action(u7, c7, em7), M7, b7)
-prof_lin = cg_profile._part(step_lin, 10)
-# its kernels by device time (ms per iteration, launches per iteration)
-_, _, rows_lin = cg_profile._device_profile(step_lin, 10)
-prof_lin["top_kernels"] = [
-    (name[:60], ms / 10, calls / 10)
-    for name, ms, calls in sorted(rows_lin, key=lambda r: -r[1])[:8]]
-prof_jvp = cg_profile._part(mech_cg_step(
-    asm7.constrained_action(u7, c7), M7, b7), 3)
-del asm7, c7, em7, M7, b7, u7, step_lin
-# float32: one Newton step of at most 2000 CG iterations, for the time
-f32 = mech_run(R_FULL, DEV, torch.float32, newton_maxit=1,
-               error_on_nonconvergence=False)
-m_secs = lambda res: res.timers.elapsed["7.3 NonLinear resolution"]
-emit("mechanic2d", check_card_vs_cpu=check_a, full=dict(
-    r=R_FULL, n_dofs=f0.V.n_dofs, n_cells=f0.mesh.n_cells,
-    n_nodes=f0.mesh.n_nodes, dtype="float64", newton_iters=
-    f0.newton_iterations, cg_iters=f0.krylov_iters,
-    residual_norms=f0.residual_norms, bitwise_equal_runs=True,
-    phases=[f.timers.elapsed for f in full],
-    ms_per_cg_iter=[1e3 * m_secs(f) / cg_total for f in full],
-    peak_device_bytes=[f.peak for f in full],
-    outputs_seconds=f1.timers.elapsed["8 Outputs"],
-    output_bytes=out_bytes, xdmf_u_read_back_equal=True,
-    energy=float(f0.energy.sum()),
-    cg_iteration_profile=dict(linearized=prof_lin, jvp=prof_jvp),
-    float32=dict(cg_iters=f32.krylov_iters, residual_norms=
-                 f32.residual_norms, phases=f32.timers.elapsed,
-                 ms_per_cg_iter=1e3 * m_secs(f32) / sum(f32.krylov_iters))),
-    tolerance="r = 3, card against CPU (float64): same Newton count, CG "
-              "+-1 per step, u rel <= 1e-9, energy rel <= 1e-10; r = 7: "
-              "two runs bitwise equal in u, CG counts and residuals",
-    nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
-del full, f0, f1, f32
-torch.cuda.empty_cache()
-
-# -- 4. kernels at the shapes of the n = 1024 plan ------------------------------
+# -- 3. kernels at the shapes of the n = 1024 plan ------------------------------
 
 NU = 0.3
 
@@ -1228,7 +1091,7 @@ emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
                "(float64)")
 torch.cuda.empty_cache()
 
-# -- 5. engine against the flat assembler (n = 64, float64) ---------------------
+# -- 4. engine against the flat assembler (n = 64, float64) ---------------------
 
 mesh_e = unit_square(N_ENGINE)
 F_e, bcs_e, V_e, DS_e = damage_problem(mesh_e, torch.float64, False)
@@ -1325,7 +1188,7 @@ emit("engine", n=N_ENGINE, dtype="float64", rel_err=engine_out,
                "two-level cycle, card vs CPU)")
 del eng_e, eng_f, asm_e, eng_c, eng_cf
 
-# -- 6. small solve to convergence, staged and fused ------------------------------
+# -- 5. small solve to convergence, staged and fused ------------------------------
 
 # newton_rtol = 1e-5: in float32 the residual norm of this problem stops
 # falling near 1e-6 * r0, so a tolerance at that floor is met or missed by
@@ -1378,7 +1241,7 @@ emit("solve_small", n=N_SMALL, n_dofs=res_s.n_dofs, dtype="float32",
      **small)
 del res_s, mesh_small
 
-# -- 7./8. full-width solve, staged and fused, each twice -------------------------
+# -- 6./7. full-width solve, staged and fused, each twice -------------------------
 
 cfg_full = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6,
                         cg_maxit=FULL_CG_MAXIT,
@@ -1483,7 +1346,7 @@ emit("solve_full_fused", **out_fused,
      cg_iteration_profile=prof)
 del eng_staged
 
-# -- 9. full-width solve to convergence: polycrystal.run's defaults ----------
+# -- 8. full-width solve to convergence: polycrystal.run's defaults ----------
 
 # fused engine + two-level preconditioner, cg_chunk 20, float32, to
 # newton_rtol = 1e-5 (float32 stops improving near 1e-6 * r0). Should
@@ -1570,7 +1433,7 @@ emit("solve_full_twolevel", n=N_FULL, n_grains=200, n_dofs=r_tl.n_dofs,
      cg_iteration_profile=prof_tl)
 del r_tl, r_tl1, runs, eng_full
 
-# -- 10. the mixed-precision solve: float64 Newton, float32 lane CG ----------
+# -- 8b. the mixed-precision solve: float64 Newton, float32 lane CG ----------
 
 # polycrystal.run(mixed=True) with run's defaults (fused + two-level,
 # cg_rtol 1e-8, newton_rtol 1e-6) at n = 1024, twice, bitwise equal; the
@@ -1709,7 +1572,7 @@ emit("solve_full_mixed", n=N_FULL, n_grains=200, n_dofs=r_mx.n_dofs,
 del runs, r_mx, r_mx1, r_64, r256_mx, r256_64, mesh_256
 torch.cuda.empty_cache()
 
-# -- 11. structured2d: K6 / K7 and the structured nonlinear solve (path A) ------
+# -- 9. structured2d: K6 / K7 and the structured nonlinear solve (path A) ------
 
 E_S, NU_S = 1.0e6, 0.3  # the structured benchmarks' material
 N_A, N_A_SMALL, N_B, N_B_SMALL = 1024, 256, 160, 32
@@ -1997,7 +1860,7 @@ emit("structured2d", kernels={k: results[k] for k in
 del rs, rm, u_a
 torch.cuda.empty_cache()
 
-# -- 12. structured3d: K8 and the 3D multigrid solve (path B) -----------------
+# -- 10. structured3d: K8 and the 3D multigrid solve (path B) -----------------
 
 
 def bar_grid3d(n):
@@ -2208,6 +2071,144 @@ emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
                "5e-6 (float32); conv3d yardstick interior rel <= 1e-5",
      seconds=time.perf_counter() - t_phase)
 del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b, res_b
+torch.cuda.empty_cache()
+
+# -- 12. mechanic2d: the reference study's own workload (flat Assembler) ---------
+
+# the reference's Newton / CG counts on square.msh refined 3 times
+# (tpufem, float64 on the CPU): 5 Newton steps
+REF_R3_CG = [609, 596, 613, 620, 614]
+R_CHECK, R_FULL = 3, 7  # 6 466 and 1 608 706 dofs
+
+
+def mech_run(r, device, dtype, **solver_kw):
+    """``mechanic2d.run`` on square.msh refined ``r`` times."""
+    cfg = Mechanic2DConfig(max_refine=r, output_dir=solver_kw.pop(
+        "output_dir", None), solver=SolverConfig(**solver_kw))
+    return mechanic2d.run(cfg, device=device, dtype=dtype)
+
+
+def rel(a, b):
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def mech_cg_step(A, M, b):
+    """One CG iteration of ``la.cg`` (operator, Jacobi, the vector updates
+    with ``torch.dot``) from the state after z0, repeated on the same
+    state: for the profiler."""
+    z = M(b)
+    rz = torch.dot(b, z)
+    x = torch.zeros_like(b)
+
+    def step():
+        Ap = A(z)
+        alpha = rz / torch.dot(z, Ap)
+        x2 = x + alpha * z
+        r2 = b - alpha * Ap
+        z2 = M(r2)
+        rz2 = torch.dot(r2, z2)
+        return x2, z2 + (rz2 / rz) * z, torch.dot(r2, r2)
+
+    return step
+
+
+t_phase = time.perf_counter()
+# (a) card against CPU, converged, float64, the reference's SolverConfig
+m_dev = mech_run(R_CHECK, DEV, torch.float64)
+m_cpu = mech_run(R_CHECK, "cpu", torch.float64)
+u_rel_a = rel(m_dev.u, m_cpu.u)
+e_rel_a = abs(float(m_dev.energy.sum()) - float(m_cpu.energy.sum())) / abs(
+    float(m_cpu.energy.sum()))
+check(m_dev.newton_iterations == m_cpu.newton_iterations
+      and len(m_dev.krylov_iters) == len(m_cpu.krylov_iters)
+      and all(abs(a - b) <= 1 for a, b in zip(m_dev.krylov_iters,
+                                              m_cpu.krylov_iters))
+      and u_rel_a <= 1e-9 and e_rel_a <= 1e-10,
+      f"mechanic2d r = {R_CHECK}: card {m_dev.newton_iterations} / "
+      f"{m_dev.krylov_iters}, CPU {m_cpu.newton_iterations} / "
+      f"{m_cpu.krylov_iters}, u rel {u_rel_a:.3e}, energy rel {e_rel_a:.3e}")
+check_a = dict(
+    r=R_CHECK, n_dofs=m_dev.V.n_dofs, newton_card=m_dev.newton_iterations,
+    newton_cpu=m_cpu.newton_iterations, cg_card=m_dev.krylov_iters,
+    cg_cpu=m_cpu.krylov_iters, cg_reference=REF_R3_CG, newton_reference=5,
+    u_rel=u_rel_a, energy_rel=e_rel_a,
+    energy_card=float(m_dev.energy.sum()),
+    energy_cpu=float(m_cpu.energy.sum()),
+    seconds_card=m_dev.timers.elapsed["total"],
+    seconds_cpu=m_cpu.timers.elapsed["total"])
+del m_dev, m_cpu
+
+# (b) full width: r = 7, float64, the reference's CG (rtol 1e-12, maxit
+# 2000, Jacobi), capped at 2 Newton steps, twice; the second run writes
+# the output phase (VTU + XDMF/HDF5) to a temporary directory
+CAP = dict(newton_maxit=2, error_on_nonconvergence=False)
+full = []
+with tempfile.TemporaryDirectory() as out_dir:
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        full.append(mech_run(R_FULL, DEV, torch.float64,
+                             output_dir=out_dir if i else None, **CAP))
+        full[-1].peak = torch.cuda.max_memory_allocated()
+    _, pd_back, _ = read_xdmf(f"{out_dir}/mechanic2d.xdmf")
+    u_back = pd_back["u"][:, :2].reshape(-1)
+    out_bytes = {f: os.path.getsize(f"{out_dir}/{f}")
+                 for f in sorted(os.listdir(out_dir))}
+f0, f1 = full
+check(torch.equal(f0.u, f1.u) and f0.residual_norms == f1.residual_norms
+      and f0.krylov_iters == f1.krylov_iters,
+      f"mechanic2d r = {R_FULL}: two runs differ ({f0.krylov_iters} / "
+      f"{f1.krylov_iters}, {f0.residual_norms} / {f1.residual_norms})")
+check(np.array_equal(u_back, f1.u.cpu().numpy())
+      and bool(torch.isfinite(f1.u).all()) and np.isfinite(f1.energy).all()
+      and f1.strain.shape == (f1.mesh.n_cells, 3),
+      "mechanic2d r = 7: XDMF u read back differs, or fields not finite")
+cg_total = sum(f0.krylov_iters)
+# one CG iteration under the profiler at the first Newton state: the
+# operator run uses (linearized once per step) and the reference's (a jvp
+# of the residual per application), Jacobi and the vector updates
+asm7, c7, V7, _, _ = mechanic2d.setup(
+    Mechanic2DConfig(max_refine=R_FULL), device=DEV, dtype=torch.float64)
+u7 = torch.zeros(V7.n_dofs, dtype=torch.float64, device=DEV)
+em7 = asm7.element_matrices(u7, c7)
+M7 = jacobi_preconditioner(asm7.diagonal(u7, c7, em7))
+b7 = asm7.lifted_rhs(u7, c7)
+step_lin = mech_cg_step(asm7.constrained_action(u7, c7, em7), M7, b7)
+prof_lin = cg_profile._part(step_lin, 10)
+# its kernels by device time (ms per iteration, launches per iteration)
+_, _, rows_lin = cg_profile._device_profile(step_lin, 10)
+prof_lin["top_kernels"] = [
+    (name[:60], ms / 10, calls / 10)
+    for name, ms, calls in sorted(rows_lin, key=lambda r: -r[1])[:8]]
+free7 = asm7.free_mask(torch.float64)
+prof_jvp = cg_profile._part(mech_cg_step(
+    lambda v: asm7.tangent_action(u7, c7, v * free7) * free7
+    + v * (1.0 - free7), M7, b7), 3)
+del asm7, c7, em7, M7, b7, u7, free7, step_lin
+# float32: one Newton step of at most 2000 CG iterations, for the time
+f32 = mech_run(R_FULL, DEV, torch.float32, newton_maxit=1,
+               error_on_nonconvergence=False)
+m_secs = lambda res: res.timers.elapsed["7.3 NonLinear resolution"]
+emit("mechanic2d", check_card_vs_cpu=check_a, full=dict(
+    r=R_FULL, n_dofs=f0.V.n_dofs, n_cells=f0.mesh.n_cells,
+    n_nodes=f0.mesh.n_nodes, dtype="float64", newton_iters=
+    f0.newton_iterations, cg_iters=f0.krylov_iters,
+    residual_norms=f0.residual_norms, bitwise_equal_runs=True,
+    phases=[f.timers.elapsed for f in full],
+    ms_per_cg_iter=[1e3 * m_secs(f) / cg_total for f in full],
+    peak_device_bytes=[f.peak for f in full],
+    outputs_seconds=f1.timers.elapsed["8 Outputs"],
+    output_bytes=out_bytes, xdmf_u_read_back_equal=True,
+    energy=float(f0.energy.sum()),
+    cg_iteration_profile=dict(linearized=prof_lin, jvp=prof_jvp),
+    float32=dict(cg_iters=f32.krylov_iters, residual_norms=
+                 f32.residual_norms, phases=f32.timers.elapsed,
+                 ms_per_cg_iter=1e3 * m_secs(f32) / sum(f32.krylov_iters))),
+    tolerance="r = 3, card against CPU (float64): same Newton count, CG "
+              "+-1 per step, u rel <= 1e-9, energy rel <= 1e-10; r = 7: "
+              "two runs bitwise equal in u, CG counts and residuals",
+    nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+del full, f0, f1, f32
 torch.cuda.empty_cache()
 
 # -- summary ------------------------------------------------------------------

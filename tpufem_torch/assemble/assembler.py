@@ -200,20 +200,17 @@ class Assembler:
         Jw = self.tangent_action(u, coeffs, w)
         return (-r - Jw) * free + w
 
-    def constrained_action(self, u, coeffs, em=None):
-        """Returns v -> A^ v = M J M v + (I-M) v (SPD if J is). J.v is
-        ``tangent_action`` (a jvp per application, as in the reference),
-        or, given the element matrices ``em`` of J(u), ``element_action``
-        (J linearized once; the same operator to rounding)."""
+    def constrained_action(self, u, coeffs, em):
+        """Returns v -> A^ v = M J M v + (I-M) v (SPD if J is), J.v by
+        ``element_action`` from the element matrices ``em`` of J(u): J
+        linearized once, where the reference takes a jvp of the residual
+        per application (the same operator to rounding). ``u`` and
+        ``coeffs`` keep the reference's signature."""
         free = self.free_mask(u.dtype)
         fixed = 1.0 - free
-        if em is None:
-            Jv = lambda v: self.tangent_action(u, coeffs, v)
-        else:
-            Jv = lambda v: self.element_action(em, v)
 
         def op(v):
-            return Jv(v * free) * free + v * fixed
+            return self.element_action(em, v * free) * free + v * fixed
 
         return op
 

@@ -115,8 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "bundled workloads",
     )
     ap.add_argument("-v", "--verbose", action="count", default=0,
-                    help="print the Newton trace and log at INFO (-vv: "
-                         "DEBUG)")
+                    help="print the Newton trace")
     ap.add_argument("--x64", action="store_true",
                     help="float64 (reference precision) instead of float32")
     ap.add_argument("--device", default="cuda",

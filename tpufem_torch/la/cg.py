@@ -33,8 +33,12 @@ class CGResult(NamedTuple):
     converged: bool
 
 
-def _chunk(A, M, dot, nsteps, state, tol2):
-    """``nsteps`` CG iterations, frozen once rr <= tol2."""
+def pcg_chunk(A, M, dot, nsteps, state, tol2):
+    """``nsteps`` preconditioned CG iterations under the inner product
+    ``dot``, all enqueued without a host read. Once rr <= tol2 the step
+    coefficients become (alpha, beta) = (0, 1), which leaves x, r, z and
+    p bitwise unchanged and stops the counter. The lane engine's CG runs
+    its chunks through this function too."""
     x, r, z, p, rz, rr, k = state
     zero = torch.zeros_like(rz)
     one = torch.ones_like(rz)
@@ -57,38 +61,30 @@ def _chunk(A, M, dot, nsteps, state, tol2):
 def cg(
     A: Callable,
     b: torch.Tensor,
-    x0: Optional[torch.Tensor] = None,
     *,
     M: Optional[Callable] = None,
     rtol: float = 1.0e-12,
     atol: float = 0.0,
     maxit: int = 2000,
-    dot: Optional[Callable] = None,
     chunk: int = CG_CHUNK,
 ) -> CGResult:
-    """Solve A x = b with (preconditioned) CG.
+    """Solve A x = b with (preconditioned) CG from x = 0.
 
-    ``A`` and ``M`` are linear maps (callables); ``dot`` overrides the
-    inner product (default ``torch.dot``). With ``x0=None`` the loop
-    starts from x = 0 and r = b (A(0) is not applied: it is exactly 0).
+    ``A`` and ``M`` are linear maps (callables). The loop starts from
+    r = b (A(0) is not applied: it is exactly 0).
     """
     if M is None:
         M = lambda v: v
-    if dot is None:
-        dot = torch.dot
-    if x0 is None:
-        x0, r0 = torch.zeros_like(b), b
-    else:
-        r0 = b - A(x0)
-    z0 = M(r0)
+    dot = torch.dot
+    z0 = M(b)
     # PETSc-style: relative to ||b||, on the device like the reference
     tol2 = torch.clamp(rtol * torch.sqrt(dot(b, b)), min=atol) ** 2
-    state = (x0, r0, z0, z0, dot(r0, z0), dot(r0, r0),
+    state = (torch.zeros_like(b), b, z0, z0, dot(b, z0), dot(b, b),
              torch.zeros((), dtype=torch.int64, device=b.device))
     k = 0
     while k < maxit:
         nsteps = min(chunk, maxit - k)
-        state = _chunk(A, M, dot, nsteps, state, tol2)
+        state = pcg_chunk(A, M, dot, nsteps, state, tol2)
         kd = int(state[6]) - k  # blocks on the device
         k += kd
         if kd < nsteps or not bool(state[5] > tol2):

@@ -57,6 +57,7 @@ from tpufem_torch.config import DEFAULT_DTYPE, SolverConfig, resolve_device
 from tpufem_torch.forms.form import QP, EnergyFunctional
 from tpufem_torch.forms.potentials import record_fused_laws
 from tpufem_torch.forms.smat import SMat, SVec
+from tpufem_torch.la.cg import pcg_chunk
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_gather_cm,
                                        lane_pass_update, lane_scatter_cm)
@@ -92,30 +93,6 @@ def _linear_system(eng, u, coeffs, free):
     return dinv, A
 
 
-def _cg_chunk(eng, nsteps, A, M, state, tol2):
-    """``nsteps`` preconditioned CG iterations, all enqueued without a host
-    read. Once rr2 <= tol2 the step coefficients become (alpha, beta, c)
-    = (0, 1, 0), which leaves x, r, z, p bitwise unchanged and stops the
-    counter."""
-    x, r, z, pvec, rz, rr2, k = state
-    zero = torch.zeros_like(rz)
-    one = torch.ones_like(rz)
-    for _ in range(nsteps):
-        active = rr2 > tol2
-        Ap = A(pvec)
-        alpha = torch.where(active, rz / eng.dot(pvec, Ap), zero)
-        x = x + alpha * pvec
-        r = r - alpha * Ap
-        z = M(r)
-        rz_new = eng.dot(r, z)
-        beta = torch.where(active, rz_new / rz, one)
-        pvec = torch.where(active, one, zero) * z + beta * pvec
-        rz = torch.where(active, rz_new, rz)
-        rr2 = torch.where(active, eng.dot(r, r), rr2)
-        k = k + active
-    return (x, r, z, pvec, rz, rr2, k)
-
-
 def _chunked_pcg(eng, A, M, b, z0, tol, maxit, chunk):
     """Preconditioned CG on A x = b from x = 0 (``z0`` = M(b)) to
     |r| <= tol, in chunks of ``chunk`` iterations between two host reads;
@@ -132,7 +109,7 @@ def _chunked_pcg(eng, A, M, b, z0, tol, maxit, chunk):
     best_rr = float("inf")
     while k < maxit:
         nsteps = min(chunk, maxit - k)
-        state = _cg_chunk(eng, nsteps, A, M, state, tol2)
+        state = pcg_chunk(A, M, eng.dot, nsteps, state, tol2)
         enq += nsteps
         rr = math.sqrt(float(state[5]))  # blocks on the device
         kd = int(state[6]) - k  # iterations run this chunk

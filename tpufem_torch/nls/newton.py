@@ -60,8 +60,6 @@ class NewtonSolver:
         rhs: Callable,
         operator: Callable,
         precond: Optional[Callable] = None,
-        dot: Optional[Callable] = None,
-        callback: Optional[Callable] = None,
     ) -> NewtonResult:
         cfg = self.config
         if cfg.convergence not in ("r0", "du0"):
@@ -73,8 +71,7 @@ class NewtonSolver:
         r0_norm = None
         converged = False
         it = 0
-        if dot is None:
-            dot = torch.dot
+        dot = torch.dot
 
         r_new = None
         for it in range(1, cfg.newton_maxit + 1):
@@ -83,7 +80,7 @@ class NewtonSolver:
             M = precond(u) if precond is not None else None
             res = cg(
                 A, b, M=M, rtol=cfg.cg_rtol, atol=cfg.cg_atol,
-                maxit=cfg.cg_maxit, dot=dot,
+                maxit=cfg.cg_maxit,
             )
             u = u + res.x
             kiters.append(res.iters)
@@ -106,8 +103,6 @@ class NewtonSolver:
                     f"(tol = {cfg.newton_atol}) r (rel) = {rel:.6e} "
                     f"(tol = {cfg.newton_rtol})"
                 )
-            if callback is not None:
-                callback(it, rnorm, rel)
             if rel < cfg.newton_rtol or rnorm < cfg.newton_atol:
                 converged = True
                 break

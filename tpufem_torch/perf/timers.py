@@ -7,8 +7,7 @@ reduced across ranks) and the Python mirror
 (``asym_elasto_damage_model_symb_sym.py:407-441``). Host timers; device
 work is asynchronous, so with a CUDA ``device`` every phase ends on
 ``torch.cuda.synchronize`` and the time of the work it queued is booked
-to it, not to the next phase that waits. With per-host readings the
-report reduces over hosts (single-host: trivial).
+to it, not to the next phase that waits.
 """
 
 from __future__ import annotations
@@ -61,37 +60,24 @@ class PhaseTimers:
                 torch.cuda.synchronize(self._sync)
             self.elapsed[name] += time.perf_counter() - start
 
-    def add(self, name: str, dt: float):
-        self.elapsed[name] = self.elapsed.get(name, 0.0) + dt
-        if name not in self.phases:
-            self.phases.append(name)
-
     def finish(self):
         self.elapsed["total"] = time.perf_counter() - self._t0
 
-    def report(self, per_host: Optional[List[Dict[str, float]]] = None) -> str:
-        """Fixed-width table; with per-host measurements, reduce min/max/
-        std/CV/avg like the reference's MPI_Reduce block
-        (FEniCSx/...cc:1184-1220)."""
-        rows = per_host if per_host is not None else [self.elapsed]
-        n = len(rows)
-        total_avg = sum(r.get("total", 0.0) for r in rows) / n or 1.0
+    def report(self) -> str:
+        """Fixed-width table in the layout of the reference's MPI_Reduce
+        block (FEniCSx/...cc:1184-1220); with one process min, max and
+        avg are the phase's time and the spread is 0."""
+        total = self.elapsed.get("total", 0.0) or 1.0
         lines = [
             "| {:>12} | {:>12} | {:>12} | {:>12} | {:>12} | {:>12} | {:>42} |".format(
                 "min", "max", "std dev", "CV(%)", "avg", "%total", "phase"
             )
         ]
         for p in self.phases:
-            vals = [r.get(p, 0.0) for r in rows]
-            mn, mx = min(vals), max(vals)
-            avg = sum(vals) / n
-            var = sum(v * v for v in vals) / n - avg * avg
-            std = var**0.5 if var > 0 else 0.0
-            cv = 100.0 * std / total_avg
-            pct = 100.0 * avg / total_avg
+            t = self.elapsed.get(p, 0.0)
             lines.append(
                 "| {:12.5f} | {:12.5f} | {:12.5f} | {:12.5f} | {:12.5f} | {:12.1f} | {:>42} |".format(
-                    mn, mx, std, cv, avg, pct, p
+                    t, t, 0.0, 0.0, t, 100.0 * t / total, p
                 )
             )
         return "\n".join(lines)

@@ -1,47 +1,24 @@
-"""Structured logging: per-host log files + solver traces.
+"""Logging set-up of the command line (``-v``: INFO, ``-vv``: DEBUG).
 
-Equivalent of the reference's logging stack (SURVEY.md §5.5): loguru
-init with per-rank thread names (FEniCSx/mechanic2d/
-asym_elasto_damage_model.cc:108-132), per-rank stdout redirect with
-ranks>50 silenced (:134-139; MFEM/...cc:967-972), and the verbose Newton
-convergence printer (:869-891).
+The port runs on one GPU, so there is one stream: stdout, in the
+reference's line format (FEniCSx/mechanic2d/
+asym_elasto_damage_model.cc:108-132).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import sys
-from typing import Optional
 
 _FORMAT = "%(asctime)s (%(relativeCreated)8.3fs) [%(name)s] %(levelname)s| %(message)s"
 
 
-def init_logging(
-    level: int = logging.INFO,
-    host_id: Optional[int] = None,
-    n_hosts: int = 1,
-    log_dir: Optional[str] = None,
-    silence_above: int = 50,
-) -> logging.Logger:
-    """Configure the tpufem_torch logger.
-
-    With multiple hosts, each host writes ``proc_<id>_output.txt`` in
-    ``log_dir`` and hosts above ``silence_above`` are silenced — the
-    reference's exact convention (FEniCSx/...cc:134-139).
-    """
+def init_logging(level: int = logging.INFO) -> logging.Logger:
+    """Send the tpufem_torch logger to stdout at ``level``."""
     logger = logging.getLogger("tpufem_torch")
     logger.setLevel(level)
     logger.handlers.clear()
-    if host_id is None or n_hosts == 1:
-        h = logging.StreamHandler(sys.stdout)
-    elif host_id > silence_above:
-        h = logging.NullHandler()
-    else:
-        os.makedirs(log_dir or ".", exist_ok=True)
-        h = logging.FileHandler(
-            os.path.join(log_dir or ".", f"proc_{host_id}_output.txt")
-        )
+    h = logging.StreamHandler(sys.stdout)
     h.setFormatter(logging.Formatter(_FORMAT))
     logger.addHandler(h)
     logger.propagate = False
