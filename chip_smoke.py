@@ -94,6 +94,20 @@ prints one JSON line per phase:
                    u read back), one CG iteration under the profiler with
                    the linearized operator and with the jvp one; one
                    float32 Newton step for its ms per CG iteration
+13. ``flat3d``     BASELINE configs 3 and 4 on the flat Newton solver
+                   (``nls.make_newton_solver``; no CUDA kernel of the
+                   port on its path), float64: card against CPU for
+                   ``elasticity3d`` at n = 6 (hexes, matrix-free Chebyshev
+                   and assembled ELL) and ``neohookean`` 3D at n = 4 (same
+                   Newton count, |d total CG| <= Newton steps, u rel <=
+                   1e-9); ``elasticity3d`` at n = 128 (matrix-free,
+                   Chebyshev) and ``neohookean`` 3D at n = 24 (to
+                   convergence) and n = 64 (ELL, Jacobi, two capped Newton
+                   steps), each twice and bitwise equal, with the stage
+                   seconds, ms per CG iteration, peak memory, and one CG
+                   iteration under the profiler beside the byte bound of
+                   its operator applications; the hex Hessian at n = 64
+                   by slab size (seconds, peak)
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -124,14 +138,17 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from tpufem_torch.assemble import Assembler  # noqa: E402
-from tpufem_torch.cases import mechanic2d, polycrystal  # noqa: E402
+from tpufem_torch.cases import (elasticity3d, mechanic2d,  # noqa: E402
+                                neohookean, polycrystal)
 from tpufem_torch.config import Mechanic2DConfig, SolverConfig  # noqa: E402
 from tpufem_torch.forms import (EnergyFunctional, asym_damage_psi,  # noqa: E402
                                 linear_elastic_psi)
 from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
 from tpufem_torch.io import read_xdmf  # noqa: E402
-from tpufem_torch.la import jacobi_preconditioner  # noqa: E402
+from tpufem_torch.la import (chebyshev_preconditioner,  # noqa: E402
+                             estimate_lambda_max, jacobi_preconditioner)
 from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
+from tpufem_torch.nls.newton_jit import ELEMENT_BATCH  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
@@ -160,7 +177,7 @@ FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
-          "structured2d", "structured3d", "mechanic2d")
+          "structured2d", "structured3d", "mechanic2d", "flat3d")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -2210,6 +2227,213 @@ emit("mechanic2d", check_card_vs_cpu=check_a, full=dict(
     nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 del full, f0, f1, f32
 torch.cuda.empty_cache()
+
+# -- 13. flat3d: BASELINE configs 3 and 4 on the flat Newton solver -----------
+
+# elasticity3d at full width: n = 128 hexes (6 440 067 dofs; its element
+# matrices 9.7 GB in float64), chosen by the phase's time: at n = 160 one
+# solve (284 CG iterations, five element actions each over 18.9 GB of
+# element matrices) takes over 74 s on an H100, so two would take the
+# phase past 230 s (PERF.md)
+N3D_CHECK, N3D_FULL = 6, 128
+# neohookean 3D: 375, 46 875 and 823 875 dofs
+NH_CHECK, NH_CONV, NH_FULL, NH_FULL_STEPS = 4, 24, 64, 2
+
+
+def flat_run(mod, cfg, device):
+    """``mod.run(cfg)`` in float64 on ``device``; the result with its
+    wall seconds and peak device bytes."""
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, V, _ = mod.run(cfg, device=device, dtype=torch.float64)
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() if str(device) != "cpu"
+            else None)
+    return res, V, secs, peak
+
+
+def flat_summary(res, V, secs, peak):
+    return dict(n_dofs=V.n_dofs, newton_iters=res.newton_iters,
+                total_cg_iters=res.total_cg_iters,
+                final_residual=res.final_residual, r0=res.r0,
+                converged=res.converged, seconds=secs, phase_s=res.phase_s,
+                ms_per_cg_iter=1e3 * res.phase_s["cg"]
+                / max(res.total_cg_iters, 1),
+                peak_device_bytes=peak)
+
+
+t_phase = time.perf_counter()
+# (a) card against CPU, float64
+flat_checks = {}
+for name, mod, cfg in (
+        ("elasticity3d_hex_matrix_free", elasticity3d,
+         elasticity3d.Elasticity3DConfig(n=N3D_CHECK)),
+        ("elasticity3d_hex_assembled", elasticity3d,
+         elasticity3d.Elasticity3DConfig(n=N3D_CHECK, matrix_free=False)),
+        ("neohookean_3d", neohookean,
+         neohookean.NeoHookeanConfig(n=NH_CHECK))):
+    rd, Vd, _, _ = flat_run(mod, cfg, DEV)
+    rc, _, _, _ = flat_run(mod, cfg, "cpu")
+    u_rel = rel(rd.u, rc.u)
+    check(rd.converged and rc.converged
+          and rd.newton_iters == rc.newton_iters
+          and abs(rd.total_cg_iters - rc.total_cg_iters) <= rd.newton_iters
+          and u_rel <= 1e-9,
+          f"flat3d {name}: card {rd.newton_iters} / {rd.total_cg_iters}, "
+          f"CPU {rc.newton_iters} / {rc.total_cg_iters}, u rel {u_rel:.3e}")
+    flat_checks[name] = dict(
+        n_dofs=Vd.n_dofs, newton_card=rd.newton_iters,
+        newton_cpu=rc.newton_iters, cg_card=rd.total_cg_iters,
+        cg_cpu=rc.total_cg_iters, u_rel=u_rel,
+        final_residual_card=rd.final_residual,
+        final_residual_cpu=rc.final_residual)
+    del rd, rc
+
+# (b) elasticity3d at full width, matrix-free Chebyshev-CG, twice
+cfg_e = elasticity3d.Elasticity3DConfig(n=N3D_FULL)
+e_runs = [flat_run(elasticity3d, cfg_e, DEV) for _ in range(2)]
+(e0, Ve, *_), (e1, *_) = e_runs
+print(json.dumps({"flat3d_elasticity3d": [flat_summary(*r)
+                                          for r in e_runs]}), flush=True)
+check(e0.converged and torch.equal(e0.u, e1.u)
+      and e0.total_cg_iters == e1.total_cg_iters
+      and e0.final_residual == e1.final_residual,
+      f"elasticity3d n = {N3D_FULL}: not converged or two runs differ "
+      f"({e0.total_cg_iters} / {e1.total_cg_iters} CG, "
+      f"{e0.final_residual} / {e1.final_residual})")
+uu = e0.u.reshape(-1, 3)
+check(bool(torch.isfinite(e0.u).all())
+      and float(uu[:, 0].max()) <= cfg_e.imposed + 1e-12
+      and float(uu[:, 0].min()) > -1e-3,
+      "elasticity3d: u not finite or out of the pulled bar's bounds")
+e_full = dict(n=N3D_FULL, n_cells=N3D_FULL ** 3, runs=[
+    flat_summary(*r) for r in e_runs], bitwise_equal_runs=True)
+del e_runs, e0, e1, uu
+torch.cuda.empty_cache()
+# one CG iteration under the profiler at the solve's first state: the
+# element action (one) and the Chebyshev polynomial (four more), Jacobi
+# scaling and the vector updates
+asm_e, _, _ = elasticity3d.setup(cfg_e, device=DEV, dtype=torch.float64)
+u_e = asm_e.set_bc(torch.zeros(asm_e.n_dofs, dtype=torch.float64,
+                               device=DEV))
+em_e = asm_e.element_matrices(u_e, {}, batch=ELEMENT_BATCH)
+A_e = asm_e.constrained_action(u_e, {}, em_e)
+d_e = asm_e.diagonal(u_e, {}, em_e)
+lmax_e = float(estimate_lambda_max(A_e, d_e, asm_e.n_dofs))
+M_e = chebyshev_preconditioner(A_e, d_e, lmax=lmax_e)
+b_e = -asm_e.residual(u_e, {}, batch=ELEMENT_BATCH) * asm_e.free_mask(
+    torch.float64)
+step_e = mech_cg_step(A_e, M_e, b_e)
+prof_e = cg_profile._part(step_e, 3)
+_, _, rows_e = cg_profile._device_profile(step_e, 3)
+prof_e["top_kernels"] = [
+    (name[:60], ms / 3, calls / 3)
+    for name, ms, calls in sorted(rows_e, key=lambda r: -r[1])[:8]]
+e_bytes = nbytes(em_e)
+prof_e.update(element_matrix_bytes=e_bytes, operator_applications=5,
+              bound_ms=1e3 * 5 * e_bytes / HBM_BYTES_PER_S,
+              lambda_max=lmax_e)
+e_full["cg_iteration_profile"] = prof_e
+del asm_e, u_e, em_e, A_e, d_e, M_e, b_e, step_e
+torch.cuda.empty_cache()
+# the hex Hessian alone at n = 64 (262 144 cells) by slab size: seconds
+# and the peak above what was allocated before (the element matrices
+# themselves, 1.2 GB, and the slabs' temporaries)
+asm_h, _, _ = elasticity3d.setup(elasticity3d.Elasticity3DConfig(n=64),
+                                 device=DEV, dtype=torch.float64)
+u_h = asm_h.set_bc(torch.zeros(asm_h.n_dofs, dtype=torch.float64,
+                               device=DEV))
+asm_h.element_matrices(u_h, {}, batch=1 << 14)  # warm-up
+hess_slabs = []
+for batch in (1 << 14, 1 << 16, 1 << 18):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    em_h = asm_h.element_matrices(u_h, {}, batch=batch)
+    torch.cuda.synchronize()
+    hess_slabs.append(dict(batch=batch, seconds=time.perf_counter() - t0,
+                           peak_above_base_bytes=torch.cuda.max_memory_allocated()
+                           - base, element_matrix_bytes=nbytes(em_h)))
+    del em_h
+e_full["hessian_by_slab_n64"] = hess_slabs
+del asm_h, u_h
+torch.cuda.empty_cache()
+
+# (c) neohookean 3D on the assembled ELL Jacobian with Jacobi, the
+# reference's settings, twice each: to convergence at NH_CONV, and at
+# full width capped at NH_FULL_STEPS Newton steps (at n >= 32 the
+# reference's formulation -- the whole stretch in the last cell layer of
+# the initial guess -- does not converge in its 20 steps: PERF.md)
+def nh_pair(n, **solver_kw):
+    cfg = neohookean.NeoHookeanConfig(n=n)
+    for k, v in solver_kw.items():
+        setattr(cfg.solver, k, v)
+    runs = [flat_run(neohookean, cfg, DEV) for _ in range(2)]
+    (r0_, V_, *_), (r1_, *_) = runs
+    out = dict(n=n, n_cells=n ** 3, runs=[flat_summary(*r) for r in runs],
+               solver=dict(newton_maxit=cfg.solver.newton_maxit,
+                           cg_maxit=cfg.solver.cg_maxit,
+                           cg_rtol=cfg.solver.cg_rtol,
+                           newton_rtol=cfg.solver.newton_rtol))
+    print(json.dumps({"flat3d_neohookean": out}), flush=True)
+    right = torch.as_tensor(np.abs(V_.dof_coords[:, 0] - 1) < 1e-12,
+                            device=DEV)
+    check(torch.equal(r0_.u, r1_.u)
+          and r0_.total_cg_iters == r1_.total_cg_iters
+          and r0_.final_residual == r1_.final_residual
+          and bool(torch.isfinite(r0_.u).all())
+          and bool((r0_.u.reshape(-1, 3)[right, 0] == cfg.stretch).all()),
+          f"neohookean n = {n}: two runs differ, u not finite or the "
+          "pulled face moved")
+    out["bitwise_equal_runs"] = True
+    return out, r0_
+
+
+nh_conv, r_conv = nh_pair(NH_CONV)
+check(r_conv.converged and r_conv.newton_iters >= 2,
+      f"neohookean n = {NH_CONV}: not converged")
+n_full, _ = nh_pair(NH_FULL, newton_maxit=NH_FULL_STEPS)
+n_full["converged_at"] = nh_conv
+del r_conv
+torch.cuda.empty_cache()
+cfg_n = neohookean.NeoHookeanConfig(n=NH_FULL)
+# one Jacobi-CG iteration on the ELL matrix at the first state
+asm_n, _, _ = neohookean.setup(cfg_n, device=DEV, dtype=torch.float64)
+u_n = asm_n.set_bc(torch.zeros(asm_n.n_dofs, dtype=torch.float64,
+                               device=DEV))
+t0 = time.perf_counter()
+asm_n.pattern
+pattern_secs = time.perf_counter() - t0
+mat_n = asm_n.matrix(u_n, {}, batch=ELEMENT_BATCH)
+M_n = jacobi_preconditioner(mat_n.diagonal())
+b_n = -asm_n.residual(u_n, {}, batch=ELEMENT_BATCH) * asm_n.free_mask(
+    torch.float64)
+step_n = mech_cg_step(mat_n.matvec, M_n, b_n)
+prof_n = cg_profile._part(step_n, 10)
+_, _, rows_n = cg_profile._device_profile(step_n, 10)
+prof_n["top_kernels"] = [
+    (name[:60], ms / 10, calls / 10)
+    for name, ms, calls in sorted(rows_n, key=lambda r: -r[1])[:8]]
+# the ELL product reads its values and int32 columns once, x once and
+# writes y
+ell_bytes = nbytes(mat_n.vals, mat_n.cols) + 2 * nbytes(b_n)
+prof_n.update(ell_width=int(mat_n.cols.shape[0]), ell_bytes=ell_bytes,
+              matvec_bound_ms=1e3 * ell_bytes / HBM_BYTES_PER_S,
+              matvec_ms=median_ms(lambda: mat_n.matvec(b_n), 5),
+              pattern_seconds=pattern_secs,
+              nnz=asm_n.pattern.nnz)
+n_full["cg_iteration_profile"] = prof_n
+del asm_n, u_n, mat_n, M_n, b_n, step_n
+torch.cuda.empty_cache()
+emit("flat3d", check_card_vs_cpu=flat_checks, elasticity3d=e_full,
+     neohookean=n_full, path_b=dict(n=N_B, seconds=[secs_b0, secs_b1]),
+     tolerance="card against CPU (float64): same Newton count, |d total "
+               "CG| <= Newton steps, u rel <= 1e-9; full width: two runs "
+               "bitwise equal in u, CG count and final residual",
+     nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
 # -- summary ------------------------------------------------------------------
 

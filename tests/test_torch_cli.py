@@ -1,6 +1,8 @@
 """The port's command line against tpufem's: the ``mechanic2d`` subcommand
 with the reference's flags and defaults and output lines, exit code 2 when
-Newton does not converge, and ``polycrystal --output``."""
+Newton does not converge, ``polycrystal --output``, and the parser
+defaults of ``polycrystal``, ``elasticity3d`` and ``neohookean`` with runs
+of the last two."""
 
 import numpy as np
 import pytest
@@ -69,3 +71,45 @@ def test_polycrystal_output_reads_back(tmp_path, capsys):
     assert pd["u"].shape == (mesh.n_nodes, 3)
     assert np.isfinite(pd["u"]).all() and np.abs(pd["u"][:, :2]).max() > 0
     np.testing.assert_array_equal(pd["u"][:, 2], 0.0)
+
+
+# the keys whose defaults differ from the reference's on purpose: the
+# port's --device; polycrystal's --fused (the port's staged / fused
+# switch) and --pc (the port names its default, twolevel; the reference
+# leaves None and picks twolevel later)
+DIFFERENT_ON_PURPOSE = {"polycrystal": ("device", "fused", "pc"),
+                        "elasticity3d": ("device",),
+                        "neohookean": ("device",)}
+
+
+@pytest.mark.parametrize("cmd", sorted(DIFFERENT_ON_PURPOSE))
+def test_parser_defaults_equal_the_reference_s(cmd):
+    t = vars(t_cli.build_parser().parse_args([cmd]))
+    j = vars(j_cli.build_parser().parse_args([cmd]))
+    t.pop("fn"), j.pop("fn")
+    for k in DIFFERENT_ON_PURPOSE[cmd]:
+        t.pop(k), j.pop(k, None)
+    assert t == j
+    argv = [cmd, "--rel", "1e-6", "--convergence", "du0", "--cg-rtol",
+            "1e-9", "--maxit", "3"]
+    t = vars(t_cli.build_parser().parse_args(argv))
+    j = vars(j_cli.build_parser().parse_args(argv))
+    for k in ("rel", "convergence", "cg_rtol", "maxit"):
+        assert t[k] == j[k], k
+
+
+@pytest.mark.parametrize("argv", [
+    ["elasticity3d", "-n", "2"],
+    ["elasticity3d", "-n", "2", "--matrix", "--cell", "tetra"],
+    ["neohookean", "-n", "2"],
+])
+def test_flat_subcommands_print_the_reference_s_line(argv, capsys):
+    """The reference's result line ``dofs: N  newton=K |r|=R``, then the
+    CG count and the stage seconds; exit 0 when converged and 2 when not
+    (``--maxit 0``: no Newton step)."""
+    assert t_cli.main(["--device", "cpu", "--x64", *argv]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("dofs: 81  newton=") and "|r|=" in out[0]
+    assert out[1].startswith("cg: ") and "converged: True" in out[1]
+    assert t_cli.main(["--device", "cpu", "--x64", *argv, "--maxit",
+                       "0"]) == 2

@@ -233,8 +233,13 @@ def test_unported_paths_raise(setup):
         eng.make_solver(SolverConfig(preconditioner="twolevel"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.make_mixed_solver(SolverConfig(preconditioner="amg"))
+    # the assembled matrix is ported; the block / multilevel
+    # preconditioners of the flat solver are not
+    from tpufem_torch.nls import make_newton_solver
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAssembler(s["Ft"], s["bt"]).matrix(None, None)
+        make_newton_solver(TAssembler(s["Ft"], s["bt"]),
+                           SolverConfig(preconditioner="amg"))
 
 
 def test_default_device_is_cuda_and_absent_cuda_raises(setup):

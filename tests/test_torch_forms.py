@@ -121,6 +121,9 @@ def test_import_pulls_in_neither_jax_nor_tpufem():
         "import tpufem_torch.cases.mechanic2d, tpufem_torch.cases.compare\n"
         "import tpufem_torch.io, tpufem_torch.nls, tpufem_torch.la\n"
         "import tpufem_torch.mesh, tpufem_torch.perf, tpufem_torch.utils.log\n"
+        "import tpufem_torch.cases.elasticity3d, tpufem_torch.cases.neohookean\n"
+        "import tpufem_torch.mesh.reorder, tpufem_torch.forms.expression\n"
+        "import tpufem_torch.spaces.function, tpufem_torch.assemble.pattern\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpufem' or m.startswith('tpufem.')]\n"
         "assert not bad, bad\n"

@@ -4,6 +4,8 @@ fields exactly, the Dirichlet helpers of the flat ``Assembler``, CG and
 Newton, whole runs (traction, compression, one refinement, P2) with their
 output phase, what is not ported, and the phase names."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -211,6 +213,41 @@ def test_run_matches_reference(kw):
     t, j = t_mech.run(t_cfg, **F64), j_mech.run(j_cfg)
     assert_same_run(t, j)
     assert t.V.element.degree == kw.get("degree", 1)
+
+
+def reference_dot(a, b):
+    """The reference's inner product (``jnp.dot`` on the CPU) on the
+    port's tensors: its summation order."""
+    return torch.tensor(float(jnp.dot(jnp.asarray(a.numpy()),
+                                      jnp.asarray(b.numpy()))),
+                        dtype=torch.float64)
+
+
+class _TorchWithReferenceDot:
+    """``torch`` as the CG and Newton modules see it, with the
+    reference's dot in place of ``torch.dot``."""
+
+    dot = staticmethod(reference_dot)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+@pytest.mark.slow
+def test_run_r3_matches_reference_with_its_dot(monkeypatch):
+    """r = 3 (6 466 dofs, the Neper tags): with ``torch.dot`` the port's
+    CG counts move by up to 2 a step from the reference's (the summation
+    order alone: ROADMAP.md Q3); with the reference's dot in place of
+    ``torch.dot`` in ``la.cg`` and ``nls.newton`` (which look it up at
+    call time) every step is within +-1."""
+    t_cfg, j_cfg = configs(max_refine=3)
+    for mod in ("tpufem_torch.la.cg", "tpufem_torch.nls.newton"):
+        monkeypatch.setattr(importlib.import_module(mod), "torch",
+                            _TorchWithReferenceDot())
+    t = t_mech.run(t_cfg, **F64)
+    j = j_mech.run(j_cfg)
+    assert_same_run(t, j)
+    assert j.krylov_iters == [609, 596, 613, 620, 614]
 
 
 def test_output_phase_reads_back(runs_r0):

@@ -5,6 +5,7 @@ Maps the reference's assembly contract (FEniCSx/mechanic2d/
 asym_elasto_damage_model.cc:816-867) onto PyTorch:
 
 - ``residual``        <-> fem::assemble_vector over ffcx vector kernels (:825)
+- ``matrix``          <-> fem::assemble_matrix + set_diagonal (:852-859)
 - ``tangent_action``  <-> matrix-free J.v (what MFEM's GetGradient + Mult
                         compute without ever forming sparse J)
 - ``lifted_rhs`` / ``constrained_action`` / ``set_bc`` <-> the identity-row
@@ -13,9 +14,9 @@ asym_elasto_damage_model.cc:816-867) onto PyTorch:
 
 All element kernels come from ``torch.func.grad`` / ``hessian`` / ``jvp``
 of the single element-energy function (see tpufem_torch.forms.form),
-batched over cells by ``torch.func.vmap``. Scatter is a padded
-gather-sum, deterministic by construction. The assembled sparse matrix
-(``matrix()``) is not ported yet.
+batched over cells by ``torch.func.vmap``. Scatter -- into the
+residual's dofs and into the sparse matrix's nnz slots alike -- is a
+padded gather-sum, deterministic by construction.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jvp, vmap
 
+from tpufem_torch.assemble.pattern import EllMatrix, SparsityPattern
 from tpufem_torch.assemble.scatter import GatherSumPlan
 from tpufem_torch.forms.form import EnergyFunctional
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
@@ -93,6 +95,14 @@ class Assembler:
             (~bc_mask).astype(np.float64), device=self.device
         )
 
+        # sparsity (lazy: built by the first ``pattern`` / ``matrix``)
+        self._pattern: Optional[SparsityPattern] = None
+        self._nnz_plan: Optional[GatherSumPlan] = None
+        self._ell_slots_T = None
+        self._ell_cols_T = None
+        self._pat_rows = None
+        self._pat_cols = None
+
     # -- helpers -------------------------------------------------------------
 
     def bc_values(self, dtype) -> torch.Tensor:
@@ -101,6 +111,39 @@ class Assembler:
     def free_mask(self, dtype) -> torch.Tensor:
         """1.0 on unconstrained dofs, 0.0 on Dirichlet dofs."""
         return self._free_dev.to(dtype)
+
+    @property
+    def pattern(self) -> SparsityPattern:
+        """The matrix's sparsity (host tables, built once), with the
+        gather-sum plan element entry -> nnz slot and the ELL tables on
+        the device."""
+        if self._pattern is None:
+            dm = np.asarray(self.functional.vec_dofmap)
+            # the sorts run where the assembler lives
+            pat = SparsityPattern.from_dofmap(dm, self.n_dofs,
+                                              device=self.device)
+            as_dev = lambda a: torch.as_tensor(  # noqa: E731
+                np.ascontiguousarray(a), dtype=torch.int32,
+                device=self.device)
+            # gather plan: element-matrix entry -> nnz slot, for the
+            # cells-minor (nd, nd, nc) layout: flat source of (c, i, j)
+            # is (i*nd + j)*nc + c
+            entry_slots = torch.empty(len(pat.perm), dtype=torch.int32,
+                                      device=self.device)
+            entry_slots[as_dev(pat.perm).long()] = as_dev(pat.sorted_slots)
+            nc, nd = dm.shape
+            slots_T = entry_slots.reshape(nc, nd * nd).T.contiguous()
+            del entry_slots
+            self._nnz_plan = GatherSumPlan.build(slots_T, pat.nnz,
+                                                 device=self.device)
+            del slots_T
+            # device-resident int32 tables (ELL rows-minor)
+            self._ell_slots_T = as_dev(pat.ell_slots.T)
+            self._ell_cols_T = as_dev(pat.ell_cols.T)
+            self._pat_rows = as_dev(pat.rows)
+            self._pat_cols = as_dev(pat.cols)
+            self._pattern = pat
+        return self._pattern
 
     def _cell_args(self, u, coeffs):
         f = self.functional
@@ -161,11 +204,31 @@ class Assembler:
         v_cells = self.functional.gather(v)  # (ndofe, nc)
         return self._r_plan.apply(torch.sum(em * v_cells[None], dim=1))
 
-    def matrix(self, u, coeffs, batch: Optional[int] = None):
-        raise NotImplementedError(
-            "assembled sparse Jacobian is not ported yet (ROADMAP.md: "
-            "tpufem_torch.assemble.pattern / Assembler.matrix)"
-        )
+    def matrix(self, u, coeffs, batch: Optional[int] = None) -> EllMatrix:
+        """Assembled sparse Jacobian in ELL form, with Dirichlet rows
+        zeroed and unit diagonal (assemble_matrix + set_diagonal
+        semantics, FEniCSx/...cc:852-857). Columns for bc dofs are also
+        zeroed (symmetric elimination) so CG keeps an SPD operator. The
+        element entries are summed into their nnz slots by the
+        gather-sum plan of ``pattern``: a fixed order, no atomics.
+        ``batch``: the element matrices in cell slabs of this size."""
+        pat = self.pattern
+        em = self.element_matrices(u, coeffs, batch=batch)
+        nnz_vals = self._nnz_plan.apply(em)
+        del em
+        if len(self.bc_dofs):
+            rows, cols = self._pat_rows, self._pat_cols
+            free = self.free_mask(nnz_vals.dtype)
+            free_r = free.index_select(0, rows)
+            keep = free_r * free.index_select(0, cols)
+            diag = (rows == cols) & (free_r == 0.0)
+            nnz_vals = nnz_vals * keep + diag.to(nnz_vals.dtype)
+        # scatter nnz slots into the padded ELL layout (rows-minor)
+        padded = torch.cat([nnz_vals, nnz_vals.new_zeros(1)])
+        slots = self._ell_slots_T
+        return EllMatrix(n_rows=pat.n_rows, cols=self._ell_cols_T,
+                         vals=padded.index_select(0, slots.reshape(-1))
+                         .view(slots.shape))
 
     def diagonal(self, u, coeffs, em=None) -> torch.Tensor:
         """Jacobian diagonal (for Jacobi PC) without forming the matrix:
@@ -213,6 +276,11 @@ class Assembler:
             return self.element_action(em, v * free) * free + v * fixed
 
         return op
+
+    def constrained_matvec(self, mat: EllMatrix):
+        """The constrained operator from an assembled matrix (``matrix``
+        already holds the Dirichlet rows and columns)."""
+        return mat.matvec
 
     def set_bc(self, u) -> torch.Tensor:
         """u with Dirichlet values imposed (dolfinx set_bc on a solution

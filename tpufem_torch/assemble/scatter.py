@@ -33,7 +33,7 @@ class GatherSumPlan:
 
     n_targets: int
     n_sources: int
-    idx: torch.Tensor  # (K, n_targets) int64, pad == n_sources
+    idx: torch.Tensor  # (K, n_targets) int32, pad == n_sources
 
     @staticmethod
     def build_table(targets: np.ndarray, n_targets: int) -> np.ndarray:
@@ -59,21 +59,34 @@ class GatherSumPlan:
         return np.ascontiguousarray(idx.T)
 
     @staticmethod
-    def build(targets: np.ndarray, n_targets: int, *,
-              device=None) -> "GatherSumPlan":
-        table = GatherSumPlan.build_table(targets, n_targets)
-        return GatherSumPlan(
-            n_targets=n_targets,
-            n_sources=int(np.asarray(targets).size),
-            idx=torch.as_tensor(table, dtype=torch.int64,
-                                device=resolve_device(device)),
-        )
+    def build(targets, n_targets: int, *, device=None) -> "GatherSumPlan":
+        """The plan for ``targets[e]`` = target row of source entry e (a
+        host array or a tensor): the table of :meth:`build_table` (each
+        target's sources in ascending order), made by one stable sort
+        with torch on ``device``, so that streams too long for the host
+        (the nnz plan of a large assembled matrix) stay on the card."""
+        t = torch.as_tensor(targets, device=resolve_device(device))
+        t = t.reshape(-1).to(torch.int64)
+        n_src = t.numel()
+        dev = t.device
+        counts = torch.bincount(t, minlength=n_targets)
+        K = int(counts.max()) if n_src else 1
+        sorted_t, order = torch.sort(t, stable=True)
+        del t
+        row_start = torch.zeros(n_targets + 1, dtype=torch.int64,
+                                device=dev)
+        torch.cumsum(counts, 0, out=row_start[1:])
+        within = torch.arange(n_src, device=dev) - row_start[sorted_t]
+        idx = torch.full((max(K, 1), n_targets), n_src, dtype=torch.int32,
+                         device=dev)
+        idx[within, sorted_t] = order.to(torch.int32)
+        return GatherSumPlan(n_targets=n_targets, n_sources=n_src, idx=idx)
 
     def apply(self, values: torch.Tensor) -> torch.Tensor:
         ext = torch.cat(
             [values.reshape(-1), values.new_zeros(1)]
         )
-        acc = ext[self.idx[0]]
+        acc = ext.index_select(0, self.idx[0])
         for k in range(1, self.idx.shape[0]):
-            acc = acc + ext[self.idx[k]]
+            acc = acc + ext.index_select(0, self.idx[k])
         return acc

@@ -43,9 +43,9 @@ from tpufem_torch.utils import GlibcRand
 
 NU = 0.3  # Poisson ratio (FEniCSx/...cc:254)
 EPS_GEOM = 1.0e-9  # coordinate predicate tolerance
-# preconditioners of the reference's SolverConfig that the flat Assembler
-# does not have yet: they need the assembled matrix (ROADMAP.md Q1 item
-# 6.4, "Assembled operators and AMG")
+# preconditioners of the reference's SolverConfig that mechanic2d does not
+# run yet (ROADMAP.md Q1 item 6.4b, "Block Jacobi and SA-AMG", which also
+# takes mechanic2d's preconditioner choice)
 _UNPORTED_PC = ("none", "chebyshev", "block_jacobi", "amg")
 
 
@@ -254,7 +254,7 @@ def run(cfg: Optional[Mechanic2DConfig] = None, mesh=None, *, device=None,
         if pc in _UNPORTED_PC:
             raise NotImplementedError(
                 f"mechanic2d with preconditioner={pc!r} is not ported yet "
-                "(ROADMAP.md Q1 item 6.4: Assembled operators and AMG); "
+                "(ROADMAP.md Q1 item 6.4b: Block Jacobi and SA-AMG); "
                 "the port runs 'jacobi'"
             )
         if pc != "jacobi":

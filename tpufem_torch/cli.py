@@ -3,14 +3,16 @@
     python -m tpufem_torch mechanic2d -r 2 --rel 1e-7 --abs 5e-8
     python -m tpufem_torch polycrystal -n 1024 [--pc jacobi] [--no-fused]
         [--mixed] [--output out.xdmf]
+    python -m tpufem_torch --x64 elasticity3d -n 32 [--cell tetra] [--matrix]
+    python -m tpufem_torch --x64 neohookean -n 24
 
-The ``mechanic2d`` and ``polycrystal`` subcommands are ported (the
-reference's ``elasticity3d`` / ``neohookean`` are queued in ROADMAP.md).
-They run on the GPU (``--device cuda``, the default) and exit with an
-error if there is none; ``--device cpu`` runs the same code on the host.
-Each prints the Newton statistics and the reference-schema phase timing
-table (FEniCSx/...cc:1199-1219); ``mechanic2d`` exits with 2 when Newton
-does not converge, as the reference does.
+The reference's four subcommands, with its flags and defaults. They run
+on the GPU (``--device cuda``, the default) and exit with an error if
+there is none; ``--device cpu`` runs the same code on the host. Each
+prints the Newton statistics (``mechanic2d`` and ``polycrystal`` also
+their phase tables, FEniCSx/...cc:1199-1219) and exits with 2 when
+Newton does not converge (the reference's ``mechanic2d`` does so too;
+its other three exit 0).
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import argparse
 import sys
 
 
-def _add_solver_flags(p: argparse.ArgumentParser):
-    """The solver flags both subcommands share; returns their group."""
+def _add_solver_flags(p: argparse.ArgumentParser, pc: bool = True):
+    """The reference's solver flags (tpufem/cli.py:27-48); ``pc=False``
+    leaves --pc to the caller (polycrystal has its own). Returns their
+    group."""
     g = p.add_argument_group("solver (reference: -rel/-abs/-petscopts)")
     g.add_argument("--rel", type=float, default=1e-7,
                    help="Newton relative tolerance (default 1e-7)")
@@ -32,19 +36,18 @@ def _add_solver_flags(p: argparse.ArgumentParser):
                    help="CG relative tolerance (default 1e-12)")
     g.add_argument("--cg-maxit", type=int, default=2000,
                    help="CG max iterations (default 2000)")
-    return g
-
-
-def _add_mechanic2d_pc_flags(g) -> None:
-    """The reference's --pc and --convergence (tpufem/cli.py:40-51)."""
-    g.add_argument("--pc", default=None,
-                   choices=["none", "jacobi", "chebyshev", "block_jacobi",
-                            "amg", "twolevel"],
-                   help="preconditioner (default jacobi, the only one "
-                        "ported for mechanic2d; the others raise)")
+    if pc:
+        g.add_argument("--pc", default=None,
+                       choices=["none", "jacobi", "chebyshev",
+                                "block_jacobi", "amg", "twolevel"],
+                       help="preconditioner (default jacobi, chebyshev on "
+                            "elasticity3d; mechanic2d runs jacobi only, "
+                            "block_jacobi / amg raise)")
     g.add_argument("--convergence", default="r0", choices=["r0", "du0"],
                    help="nonlinear convergence convention: r0 (MFEM) or "
-                        "du0 (dolfinx); doc.tex:2065-2068")
+                        "du0 (dolfinx); doc.tex:2065-2068 (the lane solver "
+                        "of polycrystal judges against r0)")
+    return g
 
 
 def _solver_config(args, **overrides):
@@ -95,7 +98,7 @@ def _cmd_polycrystal(args) -> int:
 
     res = polycrystal.run(
         args.n, n_grains=args.grains, use_ecst=args.ecst,
-        solver=_solver_config(args),
+        solver=_solver_config(args, convergence=args.convergence),
         wg_own=args.wg_own, smooth_iters=args.smooth_iters,
         n_damage_chains=args.chains, fused=args.fused, mixed=args.mixed,
         output_path=args.output, device=args.device,
@@ -106,6 +109,62 @@ def _cmd_polycrystal(args) -> int:
     for k, v in res.timings.items():
         print(f"  {k:<34s} {v:10.3f} s")
     return 0 if res.stats["converged"] else 2
+
+
+def _dtype(args):
+    import torch
+
+    return torch.float64 if args.x64 else torch.float32
+
+
+def _print_flat_solve(res, V) -> int:
+    """The reference's result line, then the CG count, the stage seconds
+    and, on a card, the peak device memory; 2 when Newton did not
+    converge."""
+    import torch
+
+    print(f"dofs: {V.n_dofs}  newton={int(res.newton_iters)} "
+          f"|r|={float(res.final_residual):.3e}")
+    peak = (f"  peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if res.u.is_cuda else "")
+    print(f"cg: {res.total_cg_iters}  converged: {res.converged}  "
+          + "  ".join(f"{k} {v:.3f} s" for k, v in res.phase_s.items())
+          + peak)
+    return 0 if res.converged else 2
+
+
+def _cmd_elasticity3d(args) -> int:
+    from tpufem_torch.cases import elasticity3d
+    from tpufem_torch.mesh.mesh import CellType
+
+    cfg = elasticity3d.Elasticity3DConfig(
+        n=args.n,
+        cell_type=(CellType.hexahedron if args.cell == "hexahedron"
+                   else CellType.tetra),
+        matrix_free=not args.matrix,
+        solver=_solver_config(
+            args, convergence=args.convergence,
+            preconditioner=args.pc if args.pc is not None else "jacobi",
+        ),
+    )
+    res, V, _mesh = elasticity3d.run(cfg, device=args.device,
+                                     dtype=_dtype(args))
+    return _print_flat_solve(res, V)
+
+
+def _cmd_neohookean(args) -> int:
+    from tpufem_torch.cases import neohookean
+
+    cfg = neohookean.NeoHookeanConfig(
+        n=args.n,
+        solver=_solver_config(
+            args, convergence=args.convergence,
+            preconditioner=args.pc if args.pc is not None else "jacobi",
+        ),
+    )
+    res, V, _mesh = neohookean.run(cfg, device=args.device,
+                                   dtype=_dtype(args))
+    return _print_flat_solve(res, V)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,7 +200,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(USE_ECST)")
     m.add_argument("--output", default=None, help="output directory "
                    "(writes VTU + XDMF fields)")
-    _add_mechanic2d_pc_flags(_add_solver_flags(m))
+    _add_solver_flags(m)
     m.set_defaults(fn=_cmd_mechanic2d)
 
     p = sub.add_parser("polycrystal",
@@ -170,11 +229,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(float64 with --x64); reaches float64 accuracy")
     p.add_argument("--output", default=None,
                    help="output path (XDMF + one HDF5 file of heavy data)")
-    _add_solver_flags(p).add_argument(
+    _add_solver_flags(p, pc=False).add_argument(
         "--pc", default="twolevel", choices=["jacobi", "twolevel"],
         help="preconditioner of the lane CG (default twolevel: the "
              "lattice-coarse two-level cycle, as in the reference)")
     p.set_defaults(fn=_cmd_polycrystal)
+
+    e = sub.add_parser("elasticity3d",
+                       help="3D linear elasticity (pulled bar)")
+    e.add_argument("-n", type=int, default=16, help="elements per side")
+    e.add_argument("--cell", default="hexahedron",
+                   choices=["hexahedron", "tetra"])
+    e.add_argument("--matrix", action="store_true",
+                   help="assembled-ELL operator instead of matrix-free")
+    _add_solver_flags(e)
+    e.set_defaults(fn=_cmd_elasticity3d, pc="chebyshev", cg_rtol=1e-10)
+
+    nh = sub.add_parser("neohookean",
+                        help="neo-Hookean hyperelasticity (Newton-Krylov)")
+    nh.add_argument("-n", type=int, default=16)
+    _add_solver_flags(nh)
+    nh.set_defaults(fn=_cmd_neohookean)
     return ap
 
 

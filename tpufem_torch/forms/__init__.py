@@ -11,6 +11,7 @@ from tpufem_torch.forms.potentials import (
     asym_damage_stress_manual,
     asym_damage_stress_jvp_manual,
     lame_parameters,
+    neo_hookean_psi,
 )
 from tpufem_torch.forms.form import EnergyFunctional, Coefficient
 
@@ -20,6 +21,7 @@ __all__ = [
     "asym_damage_stress_manual",
     "asym_damage_stress_jvp_manual",
     "lame_parameters",
+    "neo_hookean_psi",
     "EnergyFunctional",
     "Coefficient",
 ]

@@ -268,3 +268,26 @@ def asym_damage_stress_jvp_manual(eps, t, d, E, nu):
     lam, mu = lame_parameters(E, nu)
     return _sym_matrix(*asym_damage_stress_jvp_components(
         *_sym_components(eps), *_sym_components(t), d, lam, mu))
+
+
+def neo_hookean_psi(grad_u, E, nu):
+    """Compressible neo-Hookean energy (BASELINE.json config 4):
+    psi = mu/2 (I_C - tr I - 2 ln J) + lam/2 (ln J)^2, F = I + grad u.
+
+    The consistent tangent the reference derives with dual numbers
+    (``admfem.hpp`` Hessian path) comes from ``torch.func.hessian`` here.
+    Written against the small-matrix helpers of ``forms.smat`` (trace,
+    matmul, det, add_identity), so it runs on tensors and on SMat
+    containers alike.
+    """
+    from tpufem_torch.forms import smat
+
+    lam, mu = lame_parameters(E, nu)
+    dim = grad_u.shape[0]
+    F = smat.add_identity(grad_u)
+    Ic = smat.trace(smat.matmul(F.T, F))
+    detF = smat.det(F)
+    # clamp for AD safety under inverted trial states
+    J_safe = torch.clamp(detF, min=1e-12)
+    lnJ = torch.log(J_safe)
+    return 0.5 * mu * (Ic - dim - 2.0 * lnJ) + 0.5 * lam * lnJ * lnJ

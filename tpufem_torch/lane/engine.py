@@ -1008,8 +1008,8 @@ class LaneEngine:
         if cfg.preconditioner not in ("jacobi", "twolevel"):
             raise NotImplementedError(
                 f"lane solver preconditioner {cfg.preconditioner!r}: the "
-                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md: "
-                "linear algebra, la/ beyond chebyshev_iterate)"
+                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md Q1 "
+                "item 6.4b: Block Jacobi and SA-AMG)"
             )
         if use_tl and fine_coeffs is None:
             raise ValueError("twolevel needs fine_coeffs")
@@ -1151,13 +1151,13 @@ class LaneEngine:
         if cfg.preconditioner == "amg":
             raise NotImplementedError(
                 "make_mixed_solver(preconditioner='amg'): the smoothed-"
-                "aggregation hierarchy needs la/amg.py and Assembler.matrix, "
-                "not ported yet (ROADMAP.md: item 6, linear algebra)")
+                "aggregation hierarchy needs la/amg.py, not ported yet "
+                "(ROADMAP.md Q1 item 6.4b: Block Jacobi and SA-AMG)")
         if cfg.preconditioner not in ("jacobi", "twolevel"):
             raise NotImplementedError(
                 f"mixed solver preconditioner {cfg.preconditioner!r}: the "
-                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md: "
-                "item 6, linear algebra)")
+                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md Q1 "
+                "item 6.4b: Block Jacobi and SA-AMG)")
         if self.functional.dtype != torch.float64:
             raise ValueError(
                 "make_mixed_solver: the outer residual runs through the flat "

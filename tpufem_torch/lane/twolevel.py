@@ -32,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufem_torch.la.precond import chebyshev_iterate, power_lambda_max
+from tpufem_torch.la.precond import (chebyshev_iterate, inverse_diagonal,
+                                     power_lambda_max)
 from tpufem_torch.lane.kernels import lane_gather_weighted
 from tpufem_torch.lane.plan import N_LANES
 from tpufem_torch.structured.mg2d import _check_matmul_precision
@@ -434,8 +435,7 @@ def _smoother_data(eng, u_lane, coeff_cells, *, power_iters=12,
     if inv_d is None:
         d = eng.diagonal(u_lane, coeff_cells)
         d = d * free + (1.0 - free)
-        one = torch.ones_like(d)
-        inv_d = torch.where(d != 0, 1.0 / torch.where(d == 0, one, d), one)
+        inv_d = inverse_diagonal(d)
     if A is None:
         Araw = eng.make_tangent(u_lane, coeff_cells)
 

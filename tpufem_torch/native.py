@@ -58,6 +58,8 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.rank_by_key.restype = None
             lib.lane_gather_fill.restype = None
             lib.damage_smooth.restype = None
+            lib.rcm_ordering.restype = None
+            lib.morton_order.restype = None
             _lib = lib
         except Exception:
             _build_failed = True
@@ -205,6 +207,78 @@ def lane_gather_fill(g, j, cpos, off, kc: int, G: int):
             _ptr(cell_order, ctypes.c_int64),
         )
     return gather_idx, cell_order
+
+
+def rcm_ordering(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation (perm[new] = old)."""
+    lib = _load()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    n = len(indptr) - 1
+    if lib is None:
+        return _rcm_numpy(indptr, indices, n)
+    out = np.empty(n, dtype=np.int32)
+    lib.rcm_ordering(
+        _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+        ctypes.c_int64(n), _ptr(out, ctypes.c_int32),
+    )
+    return out
+
+
+def _rcm_numpy(indptr, indices, n):
+    """NumPy RCM (the library sorts equal-degree neighbours with an
+    unstable sort, so the two orders may differ; both are RCM orders)."""
+    visited = np.zeros(n, dtype=bool)
+    deg = np.diff(indptr)
+    order = []
+    while len(order) < n:
+        unv = np.nonzero(~visited)[0]
+        start = unv[np.argmin(deg[unv])]
+        queue = [int(start)]
+        visited[start] = True
+        while queue:
+            v = queue.pop(0)
+            order.append(v)
+            nbrs = [
+                int(w)
+                for w in indices[indptr[v]: indptr[v + 1]]
+                if not visited[w]
+            ]
+            for w in nbrs:
+                visited[w] = True
+            nbrs.sort(key=lambda w: deg[w])
+            queue.extend(nbrs)
+    return np.array(order[::-1], dtype=np.int32)
+
+
+def morton_order(coords: np.ndarray) -> np.ndarray:
+    """Morton (Z-curve) order of points in up to 3 dimensions; returns
+    order (rank -> point index). 20 bits a coordinate, ties by index."""
+    lib = _load()
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    n, dim = coords.shape
+    if lib is None:
+        return _morton_numpy(coords)
+    out = np.empty(n, dtype=np.int64)
+    lib.morton_order(_ptr(coords, ctypes.c_double), ctypes.c_int64(n),
+                     ctypes.c_int64(dim), _ptr(out, ctypes.c_int64))
+    return out
+
+
+def _morton_numpy(coords: np.ndarray, bits: int = 20) -> np.ndarray:
+    """The library's ``morton_order`` in NumPy, code for code."""
+    mins = coords.min(axis=0)
+    span = coords.max(axis=0) - mins
+    safe = np.where(span > 0, span, 1.0)
+    x = np.where(span > 0, (coords - mins) / safe, 0.0)
+    q = (x * float((1 << bits) - 1)).astype(np.uint64)
+    code = np.zeros(len(coords), dtype=np.uint64)
+    dim = coords.shape[1]
+    for b in range(bits):
+        for d in range(dim):
+            code |= ((q[:, d] >> np.uint64(b)) & np.uint64(1)) << np.uint64(
+                b * dim + d)
+    return np.argsort(code, kind="stable").astype(np.int64)
 
 
 def damage_smooth(nb: np.ndarray, inv_deg: np.ndarray, d: np.ndarray,

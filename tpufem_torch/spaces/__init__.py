@@ -3,11 +3,12 @@
 with byVDIM interleaving (dof = node * bs + component)."""
 
 from tpufem_torch.spaces.space import FunctionSpace
+from tpufem_torch.spaces.function import Function
 from tpufem_torch.spaces.bc import (
     DirichletBC, locate_dofs_topological, locate_dofs_geometrical,
 )
 
 __all__ = [
-    "FunctionSpace", "DirichletBC", "locate_dofs_topological",
+    "FunctionSpace", "Function", "DirichletBC", "locate_dofs_topological",
     "locate_dofs_geometrical",
 ]
