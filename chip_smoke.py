@@ -108,6 +108,24 @@ prints one JSON line per phase:
                    iteration under the profiler beside the byte bound of
                    its operator applications; the hex Hessian at n = 64
                    by slab size (seconds, peak)
+14. ``amg``        Block Jacobi and SA-AMG (``la.block_jacobi``,
+                   ``la.amg``; no CUDA kernel of the port of their own),
+                   float64 card against CPU: the damaged 2D system of
+                   tests/test_amg.py and ``neohookean`` 3D at n = 4
+                   through ``make_newton_solver`` and
+                   ``make_chunked_solver`` with each (same Newton count,
+                   |d total CG| <= Newton steps, u rel <= 1e-9), one
+                   V-cycle from one host hierarchy on both devices (rel
+                   <= 1e-12), the aggregates that differ between the
+                   card's matrix and the CPU's (printed); the full-width
+                   ``polycrystal.run(mixed=True)`` under AMG at n = 1024
+                   to convergence, and again capped at 2 Newton steps
+                   with a fresh hierarchy (bitwise equal trajectory), its
+                   levels, set-up split, hierarchy bytes, peak memory and
+                   one CG iteration under the profiler beside a V-cycle's
+                   byte bound; ``neohookean`` n = 64 with block Jacobi,
+                   two capped Newton steps twice (bitwise equal), one CG
+                   iteration under the profiler beside its byte bound
 
 then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -147,7 +165,11 @@ from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
 from tpufem_torch.io import read_xdmf  # noqa: E402
 from tpufem_torch.la import (chebyshev_preconditioner,  # noqa: E402
                              estimate_lambda_max, jacobi_preconditioner)
+from tpufem_torch.la import amg as AMG  # noqa: E402
+from tpufem_torch.la.block_jacobi import BlockJacobiPlan  # noqa: E402
 from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
+from tpufem_torch.nls import (make_chunked_solver,  # noqa: E402
+                              make_newton_solver)
 from tpufem_torch.nls.newton_jit import ELEMENT_BATCH  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
@@ -177,7 +199,7 @@ FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
-          "structured2d", "structured3d", "mechanic2d", "flat3d")
+          "structured2d", "structured3d", "mechanic2d", "flat3d", "amg")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -2047,10 +2069,10 @@ check([g.nx for g in grids_b] == HIERARCHY_B
       f"path B hierarchy {[g.nx for g in grids_b]}, coarse "
       f"{tuple(data_b.coarse_inv.shape)}, {k8_levels} K8 levels")
 # K8 on the levels of >= 16 cells: the fine CG operator once per CG
-# iteration, 8 smoother applications per level per V-cycle (one V-cycle
-# per CG iteration and one for z0), and at each Newton step's build the
-# level's power iterations and Rayleigh quotient
-want_k8 = sum(k + (k + 1) * 8 * k8_levels
+# iteration, 2 * degree smoother applications per level per V-cycle (one
+# V-cycle per CG iteration and one for z0), and at each Newton step's
+# build the level's power iterations and Rayleigh quotient
+want_k8 = sum(k + (k + 1) * 2 * CFG_B.mg_degree * k8_levels
               + (mg3d.POWER_ITERS + 1) * k8_levels for k in rb.cg_iters)
 check(launches_b["lattice_matvec3d"] == want_k8,
       f"path B: {launches_b['lattice_matvec3d']} K8 launches, expected "
@@ -2232,8 +2254,8 @@ torch.cuda.empty_cache()
 
 # elasticity3d at full width: n = 128 hexes (6 440 067 dofs; its element
 # matrices 9.7 GB in float64), chosen by the phase's time: at n = 160 one
-# solve (284 CG iterations, five element actions each over 18.9 GB of
-# element matrices) takes over 74 s on an H100, so two would take the
+# solve (284 CG iterations, each then five element actions over 18.9 GB of
+# element matrices) took over 74 s on an H100, so two would take the
 # phase past 230 s (PERF.md)
 N3D_CHECK, N3D_FULL = 6, 128
 # neohookean 3D: 375, 46 875 and 823 875 dofs
@@ -2313,8 +2335,8 @@ e_full = dict(n=N3D_FULL, n_cells=N3D_FULL ** 3, runs=[
 del e_runs, e0, e1, uu
 torch.cuda.empty_cache()
 # one CG iteration under the profiler at the solve's first state: the
-# element action (one) and the Chebyshev polynomial (four more), Jacobi
-# scaling and the vector updates
+# element action (one) and the degree-4 Chebyshev polynomial (three more:
+# its last step makes no product), Jacobi scaling and the vector updates
 asm_e, _, _ = elasticity3d.setup(cfg_e, device=DEV, dtype=torch.float64)
 u_e = asm_e.set_bc(torch.zeros(asm_e.n_dofs, dtype=torch.float64,
                                device=DEV))
@@ -2332,8 +2354,8 @@ prof_e["top_kernels"] = [
     (name[:60], ms / 3, calls / 3)
     for name, ms, calls in sorted(rows_e, key=lambda r: -r[1])[:8]]
 e_bytes = nbytes(em_e)
-prof_e.update(element_matrix_bytes=e_bytes, operator_applications=5,
-              bound_ms=1e3 * 5 * e_bytes / HBM_BYTES_PER_S,
+prof_e.update(element_matrix_bytes=e_bytes, operator_applications=4,
+              bound_ms=1e3 * 4 * e_bytes / HBM_BYTES_PER_S,
               lambda_max=lmax_e)
 e_full["cg_iteration_profile"] = prof_e
 del asm_e, u_e, em_e, A_e, d_e, M_e, b_e, step_e
@@ -2433,6 +2455,304 @@ emit("flat3d", check_card_vs_cpu=flat_checks, elasticity3d=e_full,
      tolerance="card against CPU (float64): same Newton count, |d total "
                "CG| <= Newton steps, u rel <= 1e-9; full width: two runs "
                "bitwise equal in u, CG count and final residual",
+     nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+
+# -- 14. amg: Block Jacobi and SA-AMG in the flat and mixed solvers -----------
+
+# (a) card against CPU, float64: tests/test_amg.py's damaged 2D system at
+# n = 20 (1 764 dofs) and neohookean 3D at n = 4 (375 dofs), with coarse
+# sizes small enough for levels; (b) polycrystal.run(mixed=True) under AMG
+# at n = 1024 (run's defaults otherwise, as solve_full_mixed); (c)
+# neohookean n = 64 with block Jacobi, capped as in flat3d
+AMG_N2D, AMG_COARSE_2D, AMG_COARSE_3D = 20, 64, 24
+AMG_FULL_CAP = 2  # Newton steps of the second full-width run
+
+
+def amg_damage_system(n, device):
+    """tests/test_amg.py's _elastic_system(n, "damage") in float64: the
+    assembler, its coefficients and the space."""
+    V = FunctionSpace.create(unit_square(n), 1, bs=2)
+    DS = FunctionSpace.create(V.mesh, 1, bs=1)
+    d = np.zeros(DS.n_dofs)
+    d[(DS.dof_coords[:, 1] > 0.45) & (DS.dof_coords[:, 1] < 0.55)] = 0.8
+    F = EnergyFunctional(V, [Term(lambda qp: asym_damage_psi(
+        qp.eps, qp.coeff("d"), 1.0e6, NU), 1)], [Coefficient("d", DS)],
+        device=device, dtype=torch.float64)
+    left = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right = locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    return (Assembler(F, [DirichletBC(V, left, [0.0, 0.0]),
+                          DirichletBC(V, right, [0.01, 0.0])]),
+            {"d": torch.as_tensor(d, device=device)}, V)
+
+
+def amg_systems(device):
+    """name -> (assembler, coefficients, space, solver settings)."""
+    asm2, c2, V2 = amg_damage_system(AMG_N2D, device)
+    nh = neohookean.NeoHookeanConfig(n=NH_CHECK)
+    asm3, V3, _ = neohookean.setup(nh, device=device, dtype=torch.float64)
+    return {
+        "damage2d": (asm2, c2, V2, dict(cg_rtol=1e-10,
+                                        amg_coarse_size=AMG_COARSE_2D)),
+        "neohookean3d": (asm3, {}, V3, dict(
+            cg_rtol=nh.solver.cg_rtol, newton_rtol=nh.solver.newton_rtol,
+            newton_maxit=nh.solver.newton_maxit,
+            amg_coarse_size=AMG_COARSE_3D)),
+    }
+
+
+def flat_amg_solve(system, solver, pc):
+    asm, coeffs, V, kw = system
+    cfg = SolverConfig(preconditioner=pc, **kw)
+    make = make_newton_solver if solver == "newton" else make_chunked_solver
+    u0 = torch.zeros(V.n_dofs, dtype=torch.float64, device=asm.device)
+    return make(asm, cfg)(u0, coeffs)
+
+
+def ell_bytes(m, n_in):
+    """Bytes one ELL product moves: values and columns read once, the
+    input vector (``n_in`` entries) read once, the output written once."""
+    return nbytes(m.vals, m.cols) + m.vals.element_size() * (n_in + m.n_rows)
+
+
+def vcycle_bytes(h, degree=2):
+    """Bytes of one V(degree, degree)-cycle's products: per level
+    2 * degree operator products (degree - 1 in the first sweep, which
+    starts from zero, one for the residual, degree in the second, whose
+    last step makes no product), one restriction and one prolongation;
+    and the dense coarse product."""
+    total = nbytes(h.coarse_inv)
+    for L in h.levels:
+        n, nc = L.a.n_rows, L.r.n_rows
+        total += (2 * degree * ell_bytes(L.a, n) + ell_bytes(L.r, n)
+                  + ell_bytes(L.p, nc))
+    return total
+
+
+t_phase = time.perf_counter()
+sys_dev, sys_cpu = amg_systems(DEV), amg_systems("cpu")
+amg_checks = {}
+for name in sys_dev:
+    for solver in ("newton", "chunked"):
+        for pc in ("amg", "block_jacobi"):
+            rd = flat_amg_solve(sys_dev[name], solver, pc)
+            rc = flat_amg_solve(sys_cpu[name], solver, pc)
+            u_rel = rel(rd.u, rc.u)
+            key = f"{name}_{solver}_{pc}"
+            check(rd.converged and rc.converged
+                  and rd.newton_iters == rc.newton_iters
+                  and abs(rd.total_cg_iters - rc.total_cg_iters)
+                  <= rd.newton_iters and u_rel <= 1e-9,
+                  f"amg {key}: card {rd.newton_iters} / "
+                  f"{rd.total_cg_iters}, CPU {rc.newton_iters} / "
+                  f"{rc.total_cg_iters}, u rel {u_rel:.3e}")
+            amg_checks[key] = dict(
+                newton_card=rd.newton_iters, newton_cpu=rc.newton_iters,
+                cg_card=rd.total_cg_iters, cg_cpu=rc.total_cg_iters,
+                u_rel=u_rel)
+            del rd, rc
+# one V-cycle from one host hierarchy (the CPU matrix of the 2D system)
+# on both devices; the hierarchy's levels
+asm_c, c_c, V_c, kw_c = sys_cpu["damage2d"]
+asm_d, c_d, _, _ = sys_dev["damage2d"]
+A_cpu = AMG.ell_to_scipy(asm_c.matrix(asm_c.set_bc(torch.zeros(
+    V_c.n_dofs, dtype=torch.float64)), c_c))
+A_dev = AMG.ell_to_scipy(asm_d.matrix(asm_d.set_bc(torch.zeros(
+    V_c.n_dofs, dtype=torch.float64, device=DEV)), c_d))
+h_cpu = AMG.build_hierarchy(
+    A_cpu, V_c.dof_coords, 2, free_mask=asm_c.free_mask(
+        torch.float64).numpy(),
+    opts=AMG.AMGOptions(coarse_size=AMG_COARSE_2D))
+check(h_cpu.n_levels >= 3, f"amg: {h_cpu.n_levels} levels on the 2D check")
+b_c = torch.as_tensor(np.random.default_rng(7).normal(size=V_c.n_dofs))
+vc_rel = rel(AMG.vcycle(h_cpu.to(DEV), b_c.to(DEV)), AMG.vcycle(h_cpu, b_c))
+check(vc_rel <= 1e-12, f"amg: one V-cycle card against CPU, rel {vc_rel}")
+# how far the card's matrix moves the aggregation (not a gate)
+agg_c, n_agg_c = AMG.aggregate(AMG._node_strength_graph(A_cpu, 2, 0.0))
+agg_d, n_agg_d = AMG.aggregate(AMG._node_strength_graph(A_dev, 2, 0.0))
+amg_agg = dict(matrix_entries_differing=int((A_cpu != A_dev).nnz),
+               aggregates_card=n_agg_d, aggregates_cpu=n_agg_c,
+               nodes_in_other_aggregate=int((agg_c != agg_d).sum()))
+amg_small = dict(checks=amg_checks, vcycle_card_vs_cpu_rel=vc_rel,
+                 levels_2d=h_cpu.shapes(), aggregation_card_vs_cpu=amg_agg)
+print(json.dumps({"amg_card_vs_cpu": amg_small}), flush=True)
+del sys_dev, sys_cpu, asm_c, asm_d, A_cpu, A_dev, h_cpu
+torch.cuda.empty_cache()
+secs_amg_a = time.perf_counter() - t_phase
+
+# (b) polycrystal.run(mixed=True) under AMG at full width, to convergence;
+# then capped at AMG_FULL_CAP Newton steps with a fresh hierarchy (a new
+# solver): the same trajectory bit for bit. The host hierarchy of the
+# first run is kept for the profile
+cfg_amg = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6, cg_maxit=20000,
+                       preconditioner="amg")
+kept_hier = []
+_build_hierarchy = AMG.build_hierarchy
+
+
+def keep_hierarchy(*a, **k):
+    h = _build_hierarchy(*a, **k)
+    kept_hier.append(h)
+    return h
+
+
+AMG.build_hierarchy = keep_hierarchy
+try:
+    K.reset_launch_counts()
+    r_am, secs_am, peak_am = timed_run(N_FULL, mesh=mesh_full, plan=p,
+                                       mixed=True, solver=cfg_amg,
+                                       postprocess_fields=False)
+    launches_am = K.launch_counts()
+finally:
+    AMG.build_hierarchy = _build_hierarchy
+st_am = r_am.stats
+print(json.dumps({"amg_full_stats": st_am, "seconds": secs_am}),
+      flush=True)
+check(st_am["converged"] and st_am["final_residual"] < 1e-6 * st_am["r0"],
+      f"amg: the n = {N_FULL} mixed AMG solve did not converge: "
+      f"{st_am['residuals']} / {st_am['cg_iters']}")
+check(np.isfinite(r_am.u_flat).all() and r_am.u_flat.dtype == np.float64
+      and r_am.u_flat.shape == (2 * (N_FULL + 1) ** 2,),
+      "amg: full-width u not finite, not float64 or of a wrong shape")
+check(launches_am["lane_fused_elem"] > 0
+      and launches_am["lane_pass_update"] > 0
+      and launches_am["lane_gather_weighted"] == 0,
+      f"amg: the operator's kernels on the AMG path: {launches_am}")
+cfg_cap = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6, cg_maxit=20000,
+                       preconditioner="amg", newton_maxit=AMG_FULL_CAP)
+r_cap, secs_cap, _ = timed_run(N_FULL, mesh=mesh_full, plan=p, mixed=True,
+                               solver=cfg_cap, postprocess_fields=False)
+st_cap = r_cap.stats
+n_cap = min(AMG_FULL_CAP, st_am["newton_iters"])
+check(st_cap["residuals"] == st_am["residuals"][:n_cap]
+      and st_cap["cg_iters"] == st_am["cg_iters"][:n_cap]
+      and st_cap["cg_enqueued"] == st_am["cg_enqueued"][:n_cap]
+      and (st_am["newton_iters"] <= AMG_FULL_CAP
+           or st_cap["final_residual"] == st_am["residuals"][n_cap]),
+      f"amg: the capped run differs from the first: {st_cap['residuals']} "
+      f"/ {st_cap['cg_iters']} against {st_am['residuals']} / "
+      f"{st_am['cg_iters']}")
+del r_cap
+# one CG iteration under the profiler: a float32 fused engine on the same
+# plan, the first run's hierarchy put on the card
+F32_am, bcs32_am = cg_profile.damage_functional(mesh_full, DEV,
+                                                torch.float32)
+eng_am = LaneEngine(F32_am, bcs32_am, wg_own=16, plan=p, fused=True,
+                    device=DEV, dtype=torch.float32)
+cc_am = eng_am.prepare_coeffs({"d": d_full, "E": E_full})
+hier_am = kept_hier[0].to(DEV)
+prof_am = cg_profile.profile_cg_iteration(eng_am, cc_am, 10, amg=hier_am)
+vc_bytes = vcycle_bytes(hier_am)
+prof_am.update(vcycle_bytes=vc_bytes,
+               vcycle_bound_ms=1e3 * vc_bytes / HBM_BYTES_PER_S)
+amg_full = dict(
+    n=N_FULL, n_dofs=r_am.n_dofs, preconditioner="amg", fused=True,
+    newton_iters=st_am["newton_iters"], cg_iters=st_am["cg_iters"],
+    total_cg_iters=st_am["total_cg_iters"], residuals=st_am["residuals"],
+    final_residual=st_am["final_residual"], energy=r_am.energy,
+    twolevel_newton_iters=st_mx["newton_iters"],
+    twolevel_cg_iters=st_mx["cg_iters"],
+    twolevel_total_cg_iters=st_mx["total_cg_iters"],
+    levels=st_am["amg"]["levels"], setup_s=st_am["amg"]["setup_s"],
+    hierarchy_device_bytes=st_am["amg"]["device_bytes"],
+    phase_s=st_am["phase_s"], timings=r_am.timings,
+    ms_per_cg_iter=1e3 * st_am["phase_s"]["cg"]
+    / max(st_am["total_cg_iters"], 1),
+    seconds=secs_am, capped_seconds=secs_cap, peak_device_bytes=peak_am,
+    capped_newton_steps=AMG_FULL_CAP, capped_run_bitwise_equal=True,
+    launches=launches_am, cg_iteration_profile=prof_am)
+del r_am, eng_am, cc_am, hier_am, kept_hier, F32_am, bcs32_am
+torch.cuda.empty_cache()
+secs_amg_b = time.perf_counter() - t_phase - secs_amg_a
+
+# (c) neohookean n = 64 with block Jacobi (blocks of 128), the reference's
+# settings capped at NH_FULL_STEPS Newton steps as in flat3d, twice on one
+# assembler (its pattern built once), bitwise equal
+cfg_bj = neohookean.NeoHookeanConfig(n=NH_FULL)
+cfg_bj.solver.preconditioner = "block_jacobi"
+cfg_bj.solver.newton_maxit = NH_FULL_STEPS
+asm_bj, V_bj, _ = neohookean.setup(cfg_bj, device=DEV, dtype=torch.float64)
+t0 = time.perf_counter()
+asm_bj.pattern
+bj_pattern_s = time.perf_counter() - t0
+u0_bj = torch.zeros(V_bj.n_dofs, dtype=torch.float64, device=DEV)
+bj_runs = []
+for _ in range(2):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solve_bj = make_newton_solver(asm_bj, cfg_bj.solver)
+    plan_s = time.perf_counter() - t0
+    res_bj = solve_bj(u0_bj, {})
+    torch.cuda.synchronize()
+    bj_runs.append((res_bj, time.perf_counter() - t0, plan_s,
+                    torch.cuda.max_memory_allocated()))
+    del solve_bj
+(b0, *_), (b1, *_) = bj_runs
+check(torch.equal(b0.u, b1.u) and b0.cg_iters == b1.cg_iters
+      and b0.final_residual == b1.final_residual
+      and bool(torch.isfinite(b0.u).all()),
+      f"amg: neohookean n = {NH_FULL} block Jacobi, two runs differ or u "
+      f"is not finite ({b0.cg_iters} / {b1.cg_iters})")
+bj_full = dict(
+    n=NH_FULL, n_dofs=V_bj.n_dofs, block_size=cfg_bj.solver.block_size,
+    newton_steps=NH_FULL_STEPS, pattern_seconds=bj_pattern_s,
+    jacobi_cg_iters_pr11=[2000, 367],
+    runs=[dict(cg_iters=r.cg_iters, total_cg_iters=r.total_cg_iters,
+               residual_r0=r.r0, final_residual=r.final_residual,
+               phase_s=r.phase_s, seconds=secs, plan_seconds=ps,
+               ms_per_cg_iter=1e3 * r.phase_s["cg"]
+               / max(r.total_cg_iters, 1), peak_device_bytes=pk)
+          for r, secs, ps, pk in bj_runs],
+    bitwise_equal_runs=True)
+del bj_runs, b0, b1, res_bj
+torch.cuda.empty_cache()
+# one block-Jacobi CG iteration at the first state, its extraction and
+# inversion timed alone; the bound: the ELL product and the inverse blocks
+# read once, the vectors of the product and of the block product
+mat_bj = asm_bj.matrix(asm_bj.set_bc(u0_bj), {}, batch=ELEMENT_BATCH)
+plan_bj = BlockJacobiPlan.build(asm_bj.pattern, cfg_bj.solver.block_size,
+                                device=DEV)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+blocks_bj = plan_bj.extract(mat_bj)
+torch.cuda.synchronize()
+extract_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+inv_bj = torch.linalg.inv(blocks_bj)
+torch.cuda.synchronize()
+inverse_s = time.perf_counter() - t0
+check(torch.equal(inv_bj, torch.linalg.inv(blocks_bj)),
+      "amg: the batched inverse differs between two calls")
+del blocks_bj
+b_bj = -asm_bj.residual(asm_bj.set_bc(u0_bj), {}, batch=ELEMENT_BATCH) * (
+    asm_bj.free_mask(torch.float64))
+step_bj = mech_cg_step(mat_bj.matvec, lambda r: plan_bj.apply(inv_bj, r),
+                       b_bj)
+prof_bj = cg_profile._part(step_bj, 10)
+_, _, rows_bj = cg_profile._device_profile(step_bj, 10)
+prof_bj["top_kernels"] = [
+    (name[:60], ms / 10, calls / 10)
+    for name, ms, calls in sorted(rows_bj, key=lambda r: -r[1])[:8]]
+bj_ell = ell_bytes(mat_bj, mat_bj.n_rows)
+bj_bytes = bj_ell + nbytes(inv_bj) + 2 * nbytes(b_bj)
+prof_bj.update(ell_bytes=bj_ell, inverse_block_bytes=nbytes(
+    inv_bj), bound_bytes=bj_bytes,
+    bound_ms=1e3 * bj_bytes / HBM_BYTES_PER_S,
+    block_apply_ms=median_ms(lambda: plan_bj.apply(inv_bj, b_bj), 5),
+    extract_seconds=extract_s, inverse_seconds=inverse_s,
+    ell_pos_bytes=nbytes(plan_bj.ell_pos))
+bj_full["cg_iteration_profile"] = prof_bj
+del mat_bj, plan_bj, inv_bj, b_bj, step_bj, asm_bj, u0_bj
+torch.cuda.empty_cache()
+emit("amg", card_vs_cpu=amg_small, polycrystal_mixed_amg=amg_full,
+     neohookean_block_jacobi=bj_full,
+     tolerance="card against CPU (float64): same Newton count, |d total "
+               "CG| <= Newton steps, u rel <= 1e-9; one V-cycle from one "
+               "host hierarchy rel <= 1e-12; full width: the capped run "
+               "and the second block-Jacobi run bitwise equal",
+     seconds_by_part=dict(card_vs_cpu=secs_amg_a, polycrystal=secs_amg_b,
+                          neohookean_block_jacobi=time.perf_counter()
+                          - t_phase - secs_amg_a - secs_amg_b),
      nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
 # -- summary ------------------------------------------------------------------

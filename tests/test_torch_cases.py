@@ -101,21 +101,32 @@ def test_run_defaults_to_fused_twolevel_like_the_reference():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    # fused, twolevel and mixed are ported; a preconditioner the lane
-    # solver does not have is not, under the mixed solver neither (staged
-    # or fused engine); a checkpoint belongs to the mixed solve
+    # fused, twolevel and mixed are ported; the lane solver alone refuses
+    # amg (the reference runs Jacobi for it without a word); a checkpoint
+    # belongs to the mixed solve
     (dict(fused=True, solver=TSolverConfig(preconditioner="amg")),
-     NotImplementedError, "ROADMAP"),
-    (dict(mixed=True, solver=TSolverConfig(preconditioner="amg")),
-     NotImplementedError, "ROADMAP"),
+     ValueError, "without a word"),
     (dict(checkpoint_path="x"), ValueError, "mixed=True"),
-    (dict(mixed=True, fused=False, solver=TSolverConfig(
-        preconditioner="amg")), NotImplementedError, "ROADMAP"),
-], ids=["fused", "mixed", "checkpoint_path", "twolevel"])
+], ids=["fused", "checkpoint_path"])
 def test_run_unported_options_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         t_poly.run(8, n_grains=4, smooth_iters=2, use_volume=False,
                    postprocess_fields=False, **F64, **kw)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_run_mixed_amg_converges(fused):
+    """The mixed solve under AMG, on the fused and the staged engine,
+    converges; its set-up is timed under tl_setup, and at this size, under
+    the coarse size, its hierarchy is the dense level alone (chunks of
+    20: a chunk runs whole, and CG here ends in a few dozen
+    iterations)."""
+    res = t_poly.run(8, n_grains=4, smooth_iters=2, use_volume=False,
+                     postprocess_fields=False, mixed=True, fused=fused,
+                     cg_chunk=20, solver=TSolverConfig(preconditioner="amg"),
+                     **F64)
+    assert res.stats["converged"] and res.stats["phase_s"]["tl_setup"] > 0
+    assert res.stats["amg"]["levels"][-1]["coarse"] == res.n_dofs
 
 
 # one call of both packages' ``run`` with the gmsh round trip and the

@@ -53,8 +53,18 @@ def test_mechanic2d_nonconvergence_returns_2(capsys):
 
 
 def test_mechanic2d_unported_preconditioner_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cli.main(["--device", "cpu", "mechanic2d", "--pc", "amg"])
+    """mechanic2d runs Jacobi only (the reference's run uses Jacobi
+    whatever --pc says): amg and block_jacobi raise ValueError; polycrystal
+    takes --pc amg for the mixed solve only."""
+    for pc in ("amg", "block_jacobi"):
+        with pytest.raises(ValueError, match="mechanic2d.py:249"):
+            t_cli.main(["--device", "cpu", "mechanic2d", "--pc", pc])
+    ap = t_cli.build_parser()
+    assert ap.parse_args(["polycrystal", "--mixed", "--pc", "amg"]).pc == (
+        "amg")
+    with pytest.raises(ValueError, match="without a word"):
+        t_cli.main(["--device", "cpu", "--x64", "polycrystal", "-n", "4",
+                    "--grains", "2", "--smooth-iters", "1", "--pc", "amg"])
 
 
 def test_polycrystal_output_reads_back(tmp_path, capsys):

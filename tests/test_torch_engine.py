@@ -216,30 +216,35 @@ def test_cg_exit_does_not_depend_on_chunk(setup):
 
 
 def test_unported_paths_raise(setup):
+    """The fused engine and its law; the preconditioners the lane solvers
+    do not run raise ValueError (the reference runs Jacobi for them
+    without a word): 'amg' and 'block_jacobi' in make_solver (so in a
+    lane-only run), 'block_jacobi' in make_mixed_solver; 'amg' builds in
+    make_mixed_solver and in the flat solver, which refuses it without
+    the assembled matrix."""
     s = setup
     # the fused engine is ported: it builds and knows its hand-written law
     eng = TLaneEngine(s["Ft"], s["bt"], wg_own=8, fused=True, **F64)
     assert eng.fused_law.name == "asym_damage"
     import tpufem_torch.cases.polycrystal as t_poly
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_poly.run(8, mixed=True, solver=SolverConfig(preconditioner="amg"),
-                   **F64)
-    # the two-level preconditioner is ported; a preconditioner the lane
-    # solver does not have is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.make_solver(SolverConfig(preconditioner="amg"))
+    with pytest.raises(ValueError, match="without a word"):
+        t_poly.run(8, solver=SolverConfig(preconditioner="amg"), **F64)
+    for pc in ("amg", "block_jacobi"):
+        with pytest.raises(ValueError, match="without a word"):
+            eng.make_solver(SolverConfig(preconditioner=pc))
     with pytest.raises(ValueError, match="fine_coeffs"):
         eng.make_solver(SolverConfig(preconditioner="twolevel"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.make_mixed_solver(SolverConfig(preconditioner="amg"))
-    # the assembled matrix is ported; the block / multilevel
-    # preconditioners of the flat solver are not
+    with pytest.raises(ValueError, match="without a word"):
+        eng.make_mixed_solver(SolverConfig(preconditioner="block_jacobi"))
+    eng.make_mixed_solver(SolverConfig(preconditioner="amg"))
     from tpufem_torch.nls import make_newton_solver
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_newton_solver(TAssembler(s["Ft"], s["bt"]),
-                           SolverConfig(preconditioner="amg"))
+    asm = TAssembler(s["Ft"], s["bt"])
+    make_newton_solver(asm, SolverConfig(preconditioner="amg"))
+    with pytest.raises(ValueError, match="use_matrix"):
+        make_newton_solver(asm, SolverConfig(preconditioner="amg"),
+                           use_matrix=False)
 
 
 def test_default_device_is_cuda_and_absent_cuda_raises(setup):

@@ -321,14 +321,19 @@ def test_make_newton_solver_matches_reference(damage_asm, use_matrix, pc,
 
 
 def test_unported_preconditioners_raise(damage_asm):
+    """What the flat solvers do not run raises ValueError: block Jacobi and
+    AMG without the assembled matrix, Chebyshev and none in the chunked
+    solver (the reference runs Jacobi for them without a word), the lane
+    and structured solvers' preconditioners; block Jacobi and AMG build
+    (their solves are held against the reference's below and in
+    test_torch_amg.py)."""
     t_asm = damage_asm[0][0]
     for pc in ("block_jacobi", "amg"):
         cfg = t_config.SolverConfig(preconditioner=pc)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Q1 item "
-                                                      "6.4b"):
-            t_nls.make_newton_solver(t_asm, cfg)
-        with pytest.raises(NotImplementedError, match="6.4b"):
-            t_nls.make_chunked_solver(t_asm, cfg)
+        with pytest.raises(ValueError, match="use_matrix"):
+            t_nls.make_newton_solver(t_asm, cfg, use_matrix=False)
+        t_nls.make_newton_solver(t_asm, cfg)
+        t_nls.make_chunked_solver(t_asm, cfg)
     for pc in ("chebyshev", "none"):  # the reference runs Jacobi for them
         with pytest.raises(ValueError, match="jacobi"):
             t_nls.make_chunked_solver(
@@ -336,6 +341,80 @@ def test_unported_preconditioners_raise(damage_asm):
     with pytest.raises(ValueError, match="twolevel"):
         t_nls.make_newton_solver(
             t_asm, t_config.SolverConfig(preconditioner="twolevel"))
+
+
+# -- block Jacobi -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,B", [(24, 128), (11, 100)])
+def test_block_jacobi_matches_reference(n, B):
+    """tests/test_precond.py's block Jacobi tests: the plan's table exactly
+    the reference's (also for a block size that does not divide n), the
+    blocks and one application rel <= 1e-12 (padding rows get a unit
+    diagonal), block-Jacobi CG within 1 of the reference's count, and at
+    n = 24 under 0.6 of point Jacobi's (test_block_jacobi_beats_point_
+    jacobi)."""
+    from tpufem.la.block_jacobi import BlockJacobiPlan as JPlan
+    from tpufem.la.cg import cg as j_cg
+    from tpufem_torch.la import BlockJacobiPlan as TPlan, cg as t_cg
+
+    t_asm, tm, tb = elastic_system("torch", n)
+    j_asm, jm, jb = elastic_system("jax", n)
+    tp = TPlan.build(t_asm.pattern, B, device="cpu")
+    jp = JPlan.build(j_asm.pattern, B)
+    assert (tp.n, tp.B, tp.nb) == (jp.n, jp.B, jp.nb)
+    assert tp.ell_pos.dtype == torch.int32
+    np.testing.assert_array_equal(tp.ell_pos.numpy(), np.asarray(jp.ell_pos))
+    assert tp.nb * B > tp.n  # a last block with padding rows
+    assert rel(tp.extract(tm).numpy(), jp.extract(jm)) <= 1e-12
+    tM, jM = tp.preconditioner(tm), jp.preconditioner(jm)
+    assert rel(tM(tb).numpy(), jM(jb)) <= 1e-12
+    rt = t_cg(tm.matvec, tb, M=tM, rtol=1e-10, maxit=20000)
+    rj = jax.jit(lambda m, p, v: j_cg(m.matvec, v, M=p.preconditioner(m),
+                                      rtol=1e-10, maxit=20000))(jm, jp, jb)
+    assert rt.converged and bool(rj.converged)
+    assert abs(rt.iters - int(rj.iters)) <= 1
+    assert rel(rt.x.numpy(), rj.x) <= 1e-9
+    if n == 24:
+        r1 = t_cg(tm.matvec, tb,
+                  M=t_precond.jacobi_preconditioner(tm.diagonal()),
+                  rtol=1e-10, maxit=20000)
+        assert rt.iters < 0.6 * r1.iters
+
+
+def pulled_elastic(pkg):
+    """tests/test_precond.py::test_newton_with_block_jacobi's system: an
+    SFC-ordered unit_square(12), linear elasticity, x = 0 clamped, x = 1
+    pulled by 0.01."""
+    A, F, FF, M, S, B, kw = _pkg(pkg)
+    reorder = j_reorder if pkg == "jax" else t_reorder
+    V = S.FunctionSpace.create(reorder.sfc_reorder(M.unit_square(12)), 1,
+                               bs=2)
+    left = B.locate_dofs_geometrical(V, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right = B.locate_dofs_geometrical(
+        V, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    t = FF.Term(lambda qp: F.linear_elastic_psi(qp.eps, E, NU), 1)
+    return A.Assembler(F.EnergyFunctional(V, [t], **kw), [
+        S.DirichletBC(V, left, [0.0, 0.0]),
+        S.DirichletBC(V, right, [0.01, 0.0])]), V
+
+
+def test_newton_with_block_jacobi_matches_reference():
+    """make_newton_solver with block_jacobi (blocks of 64) against the
+    reference's: the same Newton count, |d total CG| <= Newton steps, u
+    rel <= 1e-9; the blocks are inverted every Newton step."""
+    t_asm, tV = pulled_elastic("torch")
+    j_asm, _ = pulled_elastic("jax")
+    kw = dict(preconditioner="block_jacobi", block_size=64, cg_rtol=1e-10)
+    t = t_nls.make_newton_solver(t_asm, t_config.SolverConfig(**kw))(
+        torch.zeros(tV.n_dofs, dtype=torch.float64), {})
+    j = j_jit.make_newton_solver(j_asm, j_config.SolverConfig(**kw))(
+        jnp.zeros(tV.n_dofs), {})
+    assert t.converged and bool(j.converged)
+    assert t.newton_iters == int(j.newton_iters) >= 1
+    assert abs(t.total_cg_iters - int(j.total_cg_iters)) <= t.newton_iters
+    assert rel(t.u.numpy(), j.u) <= 1e-9
+    assert t.phase_s["block_inverse"] > 0.0
 
 
 # -- the chunked solver ---------------------------------------------------------
@@ -360,6 +439,29 @@ def test_chunked_solver_matches_reference(damage_asm, conv):
                for a, b in zip(t.history, j.history))
     assert rel(t.u.numpy(), j.u) <= 1e-9
     assert abs(t.final_residual - j.final_residual) <= 1e-6 * j.r0
+
+
+def test_chunked_block_jacobi_matches_reference():
+    """tests/test_precond.py::test_chunked_solver_matches_jit's block
+    Jacobi case (unit_square(16), blocks of 64, chunks of 37) against the
+    reference's chunked solver: the same Newton count, |d total CG| <=
+    Newton steps, u rel <= 1e-9; and the port's chunked solve lands on its
+    make_newton_solver's within 1e-8 (the reference test's check)."""
+    (t_asm, tc, tV), (j_asm, jc, _) = (damage_problem("torch", 16),
+                                       damage_problem("jax", 16))
+    kw = dict(preconditioner="block_jacobi", block_size=64)
+    t = t_nls.make_chunked_solver(t_asm, t_config.SolverConfig(**kw),
+                                  cg_chunk=37)(
+        torch.zeros(tV.n_dofs, dtype=torch.float64), tc)
+    j = j_chunked.make_chunked_solver(j_asm, j_config.SolverConfig(**kw),
+                                      cg_chunk=37)(jnp.zeros(tV.n_dofs), jc)
+    assert t.converged and j.converged
+    assert t.newton_iters == j.newton_iters >= 2
+    assert abs(t.total_cg_iters - j.total_cg_iters) <= t.newton_iters
+    assert rel(t.u.numpy(), j.u) <= 1e-9
+    r1 = t_nls.make_newton_solver(t_asm, t_config.SolverConfig(**kw))(
+        torch.zeros(tV.n_dofs, dtype=torch.float64), tc)
+    assert float((r1.u - t.u).abs().max()) < 1e-8
 
 
 def test_chunked_checkpoint_resume_equals_the_uninterrupted_run(damage_asm,

@@ -291,7 +291,7 @@ def test_phase_names_are_the_reference_s(runs_r0):
 def test_unported_preconditioners_raise(pc):
     cfg = t_config.Mechanic2DConfig(
         solver=t_config.SolverConfig(preconditioner=pc))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mechanic2d.py:249"):
         t_mech.run(cfg, **F64)
 
 

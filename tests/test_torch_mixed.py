@@ -32,7 +32,10 @@ E, NU = 1.0e6, 0.3
 N, WG_OWN = 10, 8
 CPU = dict(device="cpu")
 CFG = dict(cg_rtol=1e-8, newton_rtol=1e-10, cg_maxit=4000, newton_maxit=30)
-CHUNK = {"jacobi": 200, "twolevel": 20}  # the reference's callers' chunks
+# the reference's callers' chunks
+CHUNK = {"jacobi": 200, "twolevel": 20, "amg": 200}
+# amg: a coarse size small enough for levels on this mesh (242 dofs)
+PC_CFG = {"amg": dict(amg_coarse_size=32)}
 
 
 def _rel(a, b):
@@ -84,7 +87,7 @@ def port():
 def _port_mixed(port, pc, **kw):
     eng = TLaneEngine(port["F"], port["bcs"], wg_own=WG_OWN,
                       dtype=torch.float32, **CPU)
-    cfg = TSolverConfig(preconditioner=pc, **CFG)
+    cfg = TSolverConfig(preconditioner=pc, **CFG, **PC_CFG.get(pc, {}))
     solve = eng.make_mixed_solver(cfg, cg_chunk=CHUNK[pc], **kw)
     d = port["d"]
     u, st = solve(torch.zeros(port["V"].n_dofs, dtype=torch.float64),
@@ -92,10 +95,11 @@ def _port_mixed(port, pc, **kw):
     return u.numpy(), st
 
 
-@pytest.mark.parametrize("pc", ["jacobi", "twolevel"])
+@pytest.mark.parametrize("pc", ["jacobi", "twolevel", "amg"])
 def test_mixed_solver_matches_reference(port, pc):
     """The reference's make_mixed_solver on its float32-stored engine, the
-    port's on a float32 engine: both on the float64 root, and alike."""
+    port's on a float32 engine: both on the float64 root, and alike. Under
+    amg the hierarchy (float32 levels) has two levels or more."""
     from tpufem.lane import LaneEngine as JLaneEngine
 
     Fj, bj, Vj, d = _problem("jax")
@@ -104,7 +108,7 @@ def test_mixed_solver_matches_reference(port, pc):
     cj = {"d": jnp.asarray(d)}
     uj, sj = ej.make_mixed_solver(
         JSolverConfig(preconditioner=pc, error_on_nonconvergence=False,
-                      **CFG), cg_chunk=CHUNK[pc])(
+                      **CFG, **PC_CFG.get(pc, {})), cg_chunk=CHUNK[pc])(
         jnp.zeros(Vj.n_dofs, dtype=jnp.float64), cj, ej.prepare_coeffs(cj))
     ut, st = _port_mixed(port, pc)
     assert sj["converged"] and st["converged"]
@@ -117,8 +121,12 @@ def test_mixed_solver_matches_reference(port, pc):
     assert st["final_residual"] < 1e-10 * st["r0"]
     assert st["r0"] == pytest.approx(sj["r0"], rel=1e-12)
     assert len(st["residuals"]) == st["newton_iters"] + 1
-    if pc == "twolevel":
+    if pc != "jacobi":
         assert st["phase_s"]["tl_setup"] > 0.0
+    if pc == "amg":
+        assert len(st["amg"]["levels"]) >= 3
+        assert set(st["amg"]["setup_s"]) == {"matrix", "to_host",
+                                             "hierarchy", "upload"}
 
 
 def test_mixed_checkpoint_resumes_onto_the_same_root(port, tmp_path,
@@ -214,12 +222,13 @@ def test_mixed_fingerprint_hashes_whole_arrays():
 
 
 def test_mixed_solver_refuses_what_it_cannot_do(port):
-    """amg is not ported (ROADMAP); a float32 functional cannot give the
-    float64 outer residual."""
+    """block_jacobi is refused (the reference runs Jacobi for it without
+    a word); a float32 functional cannot give the float64 outer
+    residual."""
     eng = TLaneEngine(port["F"], port["bcs"], wg_own=WG_OWN,
                       dtype=torch.float32, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.make_mixed_solver(TSolverConfig(preconditioner="amg"))
+    with pytest.raises(ValueError, match="without a word"):
+        eng.make_mixed_solver(TSolverConfig(preconditioner="block_jacobi"))
     from tpufem_torch.forms import EnergyFunctional
 
     f32 = EnergyFunctional(port["F"].space, port["F"].terms,

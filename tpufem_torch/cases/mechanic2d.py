@@ -43,10 +43,6 @@ from tpufem_torch.utils import GlibcRand
 
 NU = 0.3  # Poisson ratio (FEniCSx/...cc:254)
 EPS_GEOM = 1.0e-9  # coordinate predicate tolerance
-# preconditioners of the reference's SolverConfig that mechanic2d does not
-# run yet (ROADMAP.md Q1 item 6.4b, "Block Jacobi and SA-AMG", which also
-# takes mechanic2d's preconditioner choice)
-_UNPORTED_PC = ("none", "chebyshev", "block_jacobi", "amg")
 
 
 def young_modulus_range(use_ecst: bool = False) -> np.ndarray:
@@ -237,8 +233,8 @@ def run(cfg: Optional[Mechanic2DConfig] = None, mesh=None, *, device=None,
 
     Newton with CG preconditioned by Jacobi, as the reference runs it
     whatever its config names (tpufem/cases/mechanic2d.py:249): here
-    ``cfg.solver.preconditioner`` must be ``"jacobi"``, and the others of
-    the reference raise ``NotImplementedError``. The CG operator is the
+    ``cfg.solver.preconditioner`` must be ``"jacobi"``, and any other
+    name raises ``ValueError``. The CG operator is the
     constrained tangent linearized once per Newton step from the element
     matrices that also give the Jacobi diagonal (the reference applies a
     jvp of the residual at every CG iteration; the two agree to
@@ -251,17 +247,11 @@ def run(cfg: Optional[Mechanic2DConfig] = None, mesh=None, *, device=None,
     tm = PhaseTimers(device=dev)
     with tm.phase("1 Initialize"):
         pc = cfg.solver.preconditioner
-        if pc in _UNPORTED_PC:
-            raise NotImplementedError(
-                f"mechanic2d with preconditioner={pc!r} is not ported yet "
-                "(ROADMAP.md Q1 item 6.4b: Block Jacobi and SA-AMG); "
-                "the port runs 'jacobi'"
-            )
         if pc != "jacobi":
             raise ValueError(
-                f"preconditioner={pc!r}: mechanic2d runs the flat Assembler "
-                "with 'jacobi' (twolevel / mg are the lane and structured "
-                "solvers' preconditioners)"
+                f"preconditioner={pc!r}: mechanic2d runs 'jacobi' (the "
+                "reference's run uses Jacobi whatever its config names, "
+                "without a word: tpufem/cases/mechanic2d.py:249)"
             )
 
     asm, coeffs, V, mesh, aux = setup(cfg, mesh=mesh, timers=tm, device=dev,

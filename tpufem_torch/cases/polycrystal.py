@@ -179,7 +179,10 @@ def run(
     -- a float64 Newton loop on the flat ``Assembler`` around CG solves on
     the lane engine in ``dtype``. The damage, the functional, the load
     vector, the energy and the DG0 fields are then float64 and only the
-    engine holds ``dtype``. ``checkpoint_path`` (mixed only: a ``ValueError``
+    engine holds ``dtype``. The mixed solve also takes
+    ``preconditioner="amg"`` (the SA-AMG hierarchy of the flat matrix,
+    ``la.amg``, with the CG chunk of 200 as under Jacobi); the lane solver
+    alone raises ``ValueError`` for it. ``checkpoint_path`` (mixed only: a ``ValueError
     otherwise) saves the iterate after every Newton step and resumes from
     it.
 

@@ -2,9 +2,9 @@
 
     python -m tpufem_torch mechanic2d -r 2 --rel 1e-7 --abs 5e-8
     python -m tpufem_torch polycrystal -n 1024 [--pc jacobi] [--no-fused]
-        [--mixed] [--output out.xdmf]
+        [--mixed [--pc amg]] [--output out.xdmf]
     python -m tpufem_torch --x64 elasticity3d -n 32 [--cell tetra] [--matrix]
-    python -m tpufem_torch --x64 neohookean -n 24
+    python -m tpufem_torch --x64 neohookean -n 24 [--pc block_jacobi | amg]
 
 The reference's four subcommands, with its flags and defaults. They run
 on the GPU (``--device cuda``, the default) and exit with an error if
@@ -41,8 +41,9 @@ def _add_solver_flags(p: argparse.ArgumentParser, pc: bool = True):
                        choices=["none", "jacobi", "chebyshev",
                                 "block_jacobi", "amg", "twolevel"],
                        help="preconditioner (default jacobi, chebyshev on "
-                            "elasticity3d; mechanic2d runs jacobi only, "
-                            "block_jacobi / amg raise)")
+                            "elasticity3d; block_jacobi / amg = SA-AMG need "
+                            "the assembled matrix, --matrix on "
+                            "elasticity3d; mechanic2d runs jacobi only)")
     g.add_argument("--convergence", default="r0", choices=["r0", "du0"],
                    help="nonlinear convergence convention: r0 (MFEM) or "
                         "du0 (dolfinx); doc.tex:2065-2068 (the lane solver "
@@ -230,9 +231,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default=None,
                    help="output path (XDMF + one HDF5 file of heavy data)")
     _add_solver_flags(p, pc=False).add_argument(
-        "--pc", default="twolevel", choices=["jacobi", "twolevel"],
+        "--pc", default="twolevel", choices=["jacobi", "twolevel", "amg"],
         help="preconditioner of the lane CG (default twolevel: the "
-             "lattice-coarse two-level cycle, as in the reference)")
+             "lattice-coarse two-level cycle, as in the reference; amg: "
+             "SA-AMG on the flat matrix, with --mixed only)")
     p.set_defaults(fn=_cmd_polycrystal)
 
     e = sub.add_parser("elasticity3d",

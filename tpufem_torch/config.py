@@ -61,13 +61,24 @@ class SolverConfig:
     newton_atol: float = 5.0e-8
     newton_maxit: int = 10
     convergence: str = "r0"  # 'r0' | 'du0'
-    # the lane solver's preconditioner: 'jacobi' or 'twolevel' (the
-    # lattice-coarse two-level cycle, lane/twolevel.py); the structured
-    # solver (structured/solve.py): 'mg' (geometric multigrid V-cycle) or
-    # anything else for point Jacobi; mechanic2d (the flat Assembler):
-    # 'jacobi'. Other names of the reference (amg, chebyshev, ...) raise
-    # NotImplementedError in the lane solver and in mechanic2d
+    # the flat Newton solvers (nls/): 'jacobi', 'chebyshev', 'none',
+    # 'block_jacobi', 'amg' (the chunked one: 'jacobi', 'block_jacobi',
+    # 'amg'); the lane solver: 'jacobi' or 'twolevel' (the lattice-coarse
+    # two-level cycle, lane/twolevel.py), the mixed one also 'amg'; the
+    # structured solver (structured/solve.py): 'mg' (geometric multigrid
+    # V-cycle) or anything else for point Jacobi; mechanic2d: 'jacobi'.
+    # Where the reference runs Jacobi for another name without a word,
+    # the port raises ValueError
     preconditioner: str = "jacobi"
+    block_size: int = 128  # block_jacobi patch size (dofs)
+    # SA-AMG knobs (preconditioner='amg'): V-cycle smoother degree,
+    # strength drop tolerance, dense-coarse size. The hierarchy is built
+    # on the host from the Jacobian at the initial iterate and frozen for
+    # the solver's life (the flat chunked solver: at its first Newton
+    # step), as in the reference
+    amg_degree: int = 2
+    amg_theta: float = 0.0
+    amg_coarse_size: int = 512
     # geometric MG (structured path, preconditioner='mg'): Chebyshev degree
     # of the V(mg_degree, mg_degree) cycle's smoother
     mg_degree: int = 3

@@ -11,6 +11,17 @@ from typing import Callable
 import torch
 
 
+def check_matmul_precision(t: torch.Tensor) -> None:
+    """A float32 product on the card must run in full float32, as the
+    reference forces ``default_matmul_precision("float32")``: the dense
+    coarse solves of the multigrid, two-level and SA-AMG cycles call
+    this before their ``matmul``."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: the multilevel "
+            "preconditioners need full float32 matrix products")
+
+
 def inverse_diagonal(diag: torch.Tensor) -> torch.Tensor:
     """1/diag, guarded: 1 where the diagonal is 0."""
     one = torch.ones_like(diag)
@@ -69,13 +80,13 @@ def chebyshev_preconditioner(
         x = torch.zeros_like(r)
         res = inv_d * r
         d_k = res / theta
-        for _ in range(degree):
+        for _ in range(degree - 1):
             x = x + d_k
             res = res - inv_d * A(d_k)
             rho_new = 1.0 / (2.0 * sigma - rho_old)
             d_k = rho_new * rho_old * d_k + (2.0 * rho_new / delta) * res
             rho_old = rho_new
-        return x
+        return x + d_k  # the last residual is never read: no A(d_k)
 
     return M
 
@@ -90,7 +101,8 @@ def chebyshev_iterate(A: Callable, inv_d, lmax, b, x, *, degree: int,
     inside plain CG. ``lmax`` may be a Python float (the coefficients are
     then host scalars and every update is one kernel) or a 0-dim tensor.
     ``x=None`` starts from zero and skips the product A(0), which is
-    exactly zero.
+    exactly zero. The last step adds its update and stops: the residual
+    after it is never read, so its product A(d) is not made.
     """
     lam_max = lmax_scale * lmax
     lam_min = lmin_ratio * lam_max
@@ -100,13 +112,13 @@ def chebyshev_iterate(A: Callable, inv_d, lmax, b, x, *, degree: int,
     rho = 1.0 / sigma
     res = inv_d * b if x is None else inv_d * (b - A(x))
     d = res / theta
-    for i in range(degree):
+    for _ in range(degree - 1):
         x = d if x is None else x + d
         res = torch.addcmul(res, inv_d, A(d), value=-1.0)
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * res
         rho = rho_new
-    return x
+    return d if x is None else x + d
 
 
 def power_lambda_max(A: Callable, inv_d, free, iters: int) -> float:

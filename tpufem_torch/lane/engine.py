@@ -36,7 +36,8 @@ evaluates, proves the match on probe cells at construction, and raises
 lattice cycle (``lane.twolevel``); either way the CG operator is
 ``make_tangent``. ``make_mixed_solver`` runs the same inner solves in
 float32 under a float64 Newton loop whose residuals come from the flat
-``Assembler``. The multi-quadrature-point specialization and facet terms
+``Assembler``, and also takes the SA-AMG cycle (``la.amg``) in the flat
+layout. The multi-quadrature-point specialization and facet terms
 are not ported yet and raise ``NotImplementedError`` -- nothing falls
 back silently to another path.
 """
@@ -57,6 +58,7 @@ from tpufem_torch.config import DEFAULT_DTYPE, SolverConfig, resolve_device
 from tpufem_torch.forms.form import QP, EnergyFunctional
 from tpufem_torch.forms.potentials import record_fused_laws
 from tpufem_torch.forms.smat import SMat, SVec
+from tpufem_torch.la.amg import vcycle
 from tpufem_torch.la.cg import pcg_chunk
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_gather_cm,
@@ -1006,10 +1008,12 @@ class LaneEngine:
         eng = self
         use_tl = cfg.preconditioner == "twolevel"
         if cfg.preconditioner not in ("jacobi", "twolevel"):
-            raise NotImplementedError(
-                f"lane solver preconditioner {cfg.preconditioner!r}: the "
-                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md Q1 "
-                "item 6.4b: Block Jacobi and SA-AMG)"
+            raise ValueError(
+                f"preconditioner={cfg.preconditioner!r}: the lane solver "
+                "runs 'jacobi' and 'twolevel' (the reference's make_solver "
+                "runs Jacobi for any other name without a word, "
+                "tpufem/lane/engine.py:1620; 'amg' runs in "
+                "make_mixed_solver)"
             )
         if use_tl and fine_coeffs is None:
             raise ValueError("twolevel needs fine_coeffs")
@@ -1128,8 +1132,14 @@ class LaneEngine:
         at every Newton check) and ``cg_enqueued`` (CG iterations
         enqueued per Newton step).
 
-        ``cfg.preconditioner``: ``'jacobi'`` or ``'twolevel'`` (geometry
-        built once per solver, smoother data every Newton step), with
+        ``cfg.preconditioner``: ``'jacobi'``, ``'twolevel'`` (geometry
+        built once per solver, smoother data every Newton step) or
+        ``'amg'`` (the SA-AMG hierarchy of ``la.amg``, built once per
+        solver on the host from the flat ``Assembler.matrix`` assembled in
+        the engine's dtype at the first iterate, and frozen; one V-cycle
+        per application in the flat layout, through ``from_lane_dev`` /
+        ``to_lane_dev``; its set-up goes to ``phase_s["tl_setup"]``, split
+        in ``stats["amg"]`` with the levels' shapes and bytes), with
         :meth:`make_solver`'s CG loop and operator (``make_tangent``).
         ``cg_chunk``: CG iterations between two host reads (the
         reference's callers pass 20 under two-level, 200 under Jacobi);
@@ -1148,22 +1158,19 @@ class LaneEngine:
         from tpufem_torch.io.checkpoint import load_checkpoint, save_checkpoint
 
         cfg = cfg or SolverConfig()
-        if cfg.preconditioner == "amg":
-            raise NotImplementedError(
-                "make_mixed_solver(preconditioner='amg'): the smoothed-"
-                "aggregation hierarchy needs la/amg.py, not ported yet "
-                "(ROADMAP.md Q1 item 6.4b: Block Jacobi and SA-AMG)")
-        if cfg.preconditioner not in ("jacobi", "twolevel"):
-            raise NotImplementedError(
-                f"mixed solver preconditioner {cfg.preconditioner!r}: the "
-                "lane solver has 'jacobi' and 'twolevel' (ROADMAP.md Q1 "
-                "item 6.4b: Block Jacobi and SA-AMG)")
+        if cfg.preconditioner not in ("jacobi", "twolevel", "amg"):
+            raise ValueError(
+                f"preconditioner={cfg.preconditioner!r}: the mixed solver "
+                "runs 'jacobi', 'twolevel' and 'amg' (the reference's "
+                "make_mixed_solver runs Jacobi for any other name without "
+                "a word, tpufem/lane/engine.py:2045-2046)")
         if self.functional.dtype != torch.float64:
             raise ValueError(
                 "make_mixed_solver: the outer residual runs through the flat "
                 "Assembler in float64; build the functional with "
                 f"dtype=torch.float64 (it has {self.functional.dtype})")
         use_tl = cfg.preconditioner == "twolevel"
+        use_amg = cfg.preconditioner == "amg"
         idt = self.dtype
         asm = Assembler(self.functional, self.bcs)
         dev, f64 = self.device, torch.float64
@@ -1175,7 +1182,34 @@ class LaneEngine:
         cr64 = None if const_residual is None else torch.as_tensor(
             const_residual, dtype=f64, device=dev)
         cr_in = None if cr64 is None else self.to_lane_dev(cr64.to(idt))
-        _tl = {}  # two-level geometry, built at the first Newton step
+        _tl = {}  # two-level geometry or AMG hierarchy, at the first step
+
+        def amg_setup(u, coeffs64):
+            """The hierarchy from the flat matrix in the inner dtype at
+            ``u``, timed in its parts; on the engine's device."""
+            from tpufem_torch.la.amg import assembler_hierarchy, ell_to_scipy
+
+            parts = {}
+            t0 = time.perf_counter()
+            mat = asm.matrix(u.to(idt),
+                             {k: v.to(idt) for k, v in coeffs64.items()},
+                             batch=_F64_BATCH)
+            _sync(dev)
+            parts["matrix"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            A = ell_to_scipy(mat)
+            del mat
+            parts["to_host"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hier = assembler_hierarchy(asm, A, cfg, dtype=idt)
+            del A
+            parts["hierarchy"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hier = hier.to(dev)
+            _sync(dev)
+            parts["upload"] = time.perf_counter() - t0
+            return hier, dict(setup_s=parts, levels=hier.shapes(),
+                              device_bytes=hier.nbytes())
 
         def rhs64(u, coeffs64):
             r = asm.residual(u, coeffs64, batch=_F64_BATCH)
@@ -1272,6 +1306,16 @@ class LaneEngine:
                                   free_in, dinv, A)
                     _sync(dev)
                     ph["tl_refresh"] += time.perf_counter() - t0
+                elif use_amg:
+                    if "hier" not in _tl:
+                        t0 = time.perf_counter()
+                        _tl["hier"], _tl["amg"] = amg_setup(u, coeffs64)
+                        ph["tl_setup"] += time.perf_counter() - t0
+
+                    def M(r, hier=_tl["hier"]):
+                        return self.to_lane_dev(vcycle(
+                            hier, self.from_lane_dev(r),
+                            degree=cfg.amg_degree))
                 else:
                     def M(r):
                         return dinv * r
@@ -1328,11 +1372,14 @@ class LaneEngine:
                 for path in (checkpoint_path, checkpoint_path + ".tmp.npz"):
                     if os.path.exists(path):
                         os.remove(path)
-            return u, dict(
+            stats = dict(
                 newton_iters=it, total_cg_iters=total_cg,
                 cg_iters=cg_iters, cg_enqueued=cg_enqueued,
                 residuals=residuals, final_residual=bnorm, r0=r0 or bnorm,
                 converged=converged, phase_s=ph,
             )
+            if "amg" in _tl:
+                stats["amg"] = _tl["amg"]
+            return u, stats
 
         return solve

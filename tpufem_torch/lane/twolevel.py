@@ -32,11 +32,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufem_torch.la.precond import (chebyshev_iterate, inverse_diagonal,
+from tpufem_torch.la.precond import (check_matmul_precision,
+                                     chebyshev_iterate, inverse_diagonal,
                                      power_lambda_max)
 from tpufem_torch.lane.kernels import lane_gather_weighted
 from tpufem_torch.lane.plan import N_LANES
-from tpufem_torch.structured.mg2d import _check_matmul_precision
 
 _SHARDED = ("the sharded two-level build is not ported "
             "(ROADMAP.md: distribution, lane/sharded.py)")
@@ -477,14 +477,14 @@ def restrict(eng, static, data, r):
     view = view.permute(1, 0, 2, 3).reshape(eng.bs, static.Rv, N_LANES)
     v3 = view[:, : (static.ncy + 1) * static.SC, :].reshape(
         eng.bs, static.ncy + 1, static.SC * N_LANES)
-    _check_matmul_precision(v3)
+    check_matmul_precision(v3)
     return torch.matmul(v3, data.S.to(dt).T)
 
 
 def prolong(eng, static, data, c):
     """coarse (bs, ncy+1, ncx+1) -> consistent fine (bs, R, 128) = P c."""
     dt = c.dtype
-    _check_matmul_precision(c)
+    check_matmul_precision(c)
     v3 = torch.matmul(c, data.S.to(dt))  # (bs, ncy+1, SC*128)
     view = v3.reshape(eng.bs, (static.ncy + 1) * static.SC, N_LANES)
     pad = static.Rv - view.shape[1]

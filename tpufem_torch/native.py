@@ -1,11 +1,14 @@
-"""ctypes bridge to the native host runtime (native/tpufem_native.cpp).
+"""ctypes bridge to the native host runtime
+(``tpufem_torch/csrc/tpufem_native.cpp``, the port's own copy of the
+source).
 
 Builds the shared library on first use with the system compiler, into
 ``tpufem_torch/build/``, and falls back to NumPy implementations when
 no compiler is available, so the package stays importable everywhere.
 All of this is host preprocessing (mesh entities, lane planning, damage
 smoothing); the device compute path is PyTorch/CUDA and never touches
-it. Only the entry points the port's modules call are bound.
+it (SA-AMG's aggregation, ``amg_aggregate``, is host set-up too). Only
+the entry points the port's modules call are bound.
 """
 
 from __future__ import annotations
@@ -22,10 +25,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_REPO, "native", "tpufem_native.cpp")
-_SO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                   "libtpufem_native.so")
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_PKG, "csrc", "tpufem_native.cpp")
+_SO = os.path.join(_PKG, "build", "libtpufem_native.so")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -60,6 +62,11 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.damage_smooth.restype = None
             lib.rcm_ordering.restype = None
             lib.morton_order.restype = None
+            lib.amg_aggregate.restype = ctypes.c_int64
+            lib.amg_aggregate.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64)]
             _lib = lib
         except Exception:
             _build_failed = True
@@ -111,6 +118,28 @@ def gather_plan(targets: np.ndarray, n_targets: int):
     )
     assert got == K, (got, K)
     return out
+
+
+def amg_aggregate(indptr: np.ndarray, indices: np.ndarray,
+                  data: np.ndarray):
+    """Greedy Vanek aggregation on a symmetric CSR strength graph
+    (zero diagonal removed). Returns (agg (n,), n_agg) or None if the
+    native library is unavailable (caller falls back to NumPy)."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    data = np.ascontiguousarray(data, dtype=np.float64)
+    n = len(indptr) - 1
+    if len(indices) != indptr[-1] or len(data) != len(indices):
+        raise ValueError("amg_aggregate: indptr, indices and data disagree")
+    out = np.empty(n, dtype=np.int64)
+    n_agg = lib.amg_aggregate(
+        _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+        _ptr(data, ctypes.c_double), n, _ptr(out, ctypes.c_int64),
+    )
+    return out, int(n_agg)
 
 
 def lane_balance(cand: np.ndarray, n_keys: int, target0: int):

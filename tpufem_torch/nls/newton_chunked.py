@@ -9,7 +9,8 @@ per-iteration monitors (FEniCSx/mechanic2d/asym_elasto_damage_model.cc:
 every chunk runs all its iterations, the count grows by whole chunks,
 and the test after a chunk is |r| < tol. (``la.cg`` freezes a converged
 state inside a chunk instead; the two give different counts and u.) The
-operator is the assembled ELL Jacobian, preconditioned by Jacobi.
+operator is the assembled ELL Jacobian, preconditioned by Jacobi, block
+Jacobi or SA-AMG.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import torch
 
 from tpufem_torch.assemble.assembler import Assembler
 from tpufem_torch.config import SolverConfig
-from tpufem_torch.la.precond import inverse_diagonal
+from tpufem_torch.la.amg import (amg_preconditioner, assembler_hierarchy,
+                                 ell_to_scipy)
+from tpufem_torch.la.block_jacobi import BlockJacobiPlan
+from tpufem_torch.la.precond import jacobi_preconditioner
 from tpufem_torch.nls.newton import NonConvergenceError
 from tpufem_torch.nls.newton_jit import ELEMENT_BATCH, check_preconditioner
 
@@ -54,17 +58,24 @@ def make_chunked_solver(
     are always start-to-finish). ``batch``: the element matrices in cell
     slabs of this size.
 
-    The preconditioner is Jacobi. ``block_jacobi`` and ``amg`` raise
-    ``NotImplementedError`` (ROADMAP.md Q1 item 6.4b); ``none`` and
-    ``chebyshev`` raise ``ValueError`` (the reference runs Jacobi for
-    them without a word).
+    Preconditioners: ``jacobi``; ``block_jacobi`` (the blocks of each
+    Newton step's matrix inverted at that step); ``amg`` (one V-cycle; the
+    hierarchy from the matrix of the first Newton step this solver runs,
+    kept for its life). ``none`` and ``chebyshev`` raise ``ValueError``
+    (the reference runs Jacobi for them without a word).
     """
     cfg = cfg or SolverConfig()
-    check_preconditioner(cfg.preconditioner)
-    if cfg.preconditioner != "jacobi":
-        raise ValueError(f"preconditioner={cfg.preconditioner!r}: the "
-                         "chunked solver runs 'jacobi'")
+    pc = cfg.preconditioner
+    check_preconditioner(pc)
+    if pc not in ("jacobi", "block_jacobi", "amg"):
+        raise ValueError(f"preconditioner={pc!r}: the chunked solver runs "
+                         "'jacobi', 'block_jacobi' and 'amg'")
     asm.pattern
+    bj_plan = None
+    if pc == "block_jacobi":
+        bj_plan = BlockJacobiPlan.build(asm.pattern, cfg.block_size,
+                                        device=asm.device)
+    amg_state = {}
     dot = torch.dot
 
     def rhs(u, coeffs):
@@ -72,17 +83,28 @@ def make_chunked_solver(
         return b, float(torch.sqrt(dot(b, b)))
 
     def assemble(u, coeffs):
+        """The step's matrix and its preconditioner M(r)."""
         mat = asm.matrix(u, coeffs, batch=batch)
-        return mat, inverse_diagonal(mat.diagonal())
+        if bj_plan is not None:
+            return mat, bj_plan.preconditioner(mat)
+        if pc == "amg":
+            if "M" not in amg_state:
+                amg_state["M"] = amg_preconditioner(
+                    assembler_hierarchy(asm, ell_to_scipy(mat), cfg,
+                                        dtype=mat.vals.dtype
+                                        ).to(mat.vals.device),
+                    degree=cfg.amg_degree)
+            return mat, amg_state["M"]
+        return mat, jacobi_preconditioner(mat.diagonal())
 
-    def cg_chunk_fn(nsteps, mat, pcdata, state):
+    def cg_chunk_fn(nsteps, mat, M, state):
         x, r, z, p, rz = state
         for _ in range(nsteps):
             Ap = mat.matvec(p)
             alpha = rz / dot(p, Ap)
             x = x + alpha * p
             r = r - alpha * Ap
-            z = pcdata * r
+            z = M(r)
             rz_new = dot(r, z)
             p = z + (rz_new / rz) * p
             rz = rz_new
@@ -113,18 +135,18 @@ def make_chunked_solver(
             if bnorm < max(cfg.newton_rtol * ref, cfg.newton_atol):
                 it -= 1
                 break
-            mat, pcdata = assemble(u, coeffs)
-            z = pcdata * b
+            mat, M = assemble(u, coeffs)
+            z = M(b)
             state = (torch.zeros_like(b), b, z, z, dot(b, z))
             tol = max(cfg.cg_rtol * bnorm, cfg.cg_atol)
             k = 0
             while k < cfg.cg_maxit:
                 nsteps = min(cg_chunk, cfg.cg_maxit - k)
-                state, rr = cg_chunk_fn(nsteps, mat, pcdata, state)
+                state, rr = cg_chunk_fn(nsteps, mat, M, state)
                 k += nsteps
                 if rr < tol:
                     break
-            del mat, pcdata
+            del mat, M
             u = u + state[0] * asm.free_mask(u.dtype)
             total_cg += k
             history.append((it, bnorm, k))

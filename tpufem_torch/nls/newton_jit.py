@@ -22,15 +22,15 @@ import torch
 
 from tpufem_torch.assemble.assembler import Assembler
 from tpufem_torch.config import SolverConfig
+from tpufem_torch.la.amg import (amg_preconditioner, assembler_hierarchy,
+                                 ell_to_scipy)
+from tpufem_torch.la.block_jacobi import BlockJacobiPlan
 from tpufem_torch.la.cg import cg
 from tpufem_torch.la.precond import (chebyshev_preconditioner,
                                      estimate_lambda_max,
                                      jacobi_preconditioner)
 
-# preconditioners of the reference's make_newton_solver that need the
-# block / multilevel machinery of ROADMAP.md Q1 item 6.4b
-UNPORTED_PC = ("block_jacobi", "amg")
-PORTED_PC = ("jacobi", "chebyshev", "none")
+PRECONDITIONERS = ("jacobi", "chebyshev", "none", "block_jacobi", "amg")
 # cells per slab of the element matrices: a 24-dof hex's Hessian under
 # torch.func keeps tens of KB of float64 temporaries a cell
 ELEMENT_BATCH = 1 << 16
@@ -38,15 +38,10 @@ ELEMENT_BATCH = 1 << 16
 
 def check_preconditioner(pc: str) -> None:
     """Raise for a preconditioner the flat solvers do not run."""
-    if pc in UNPORTED_PC:
-        raise NotImplementedError(
-            f"preconditioner={pc!r} is not ported yet (ROADMAP.md Q1 item "
-            "6.4b: Block Jacobi and SA-AMG)"
-        )
-    if pc not in PORTED_PC:
+    if pc not in PRECONDITIONERS:
         raise ValueError(
             f"preconditioner={pc!r}: the flat Newton solver runs "
-            f"{', '.join(PORTED_PC)} (twolevel / mg are the lane and "
+            f"{', '.join(PRECONDITIONERS)} (twolevel / mg are the lane and "
             "structured solvers' preconditioners)"
         )
 
@@ -61,8 +56,12 @@ class JitSolveResult(NamedTuple):
     # seconds per stage over all Newton steps, each ended on a device
     # synchronize: "tangent" (element matrices or the ELL matrix, and the
     # diagonal), "lambda_max" (Chebyshev's power iteration), "cg",
-    # "residual" (right-hand sides and their norms)
+    # "residual" (right-hand sides and their norms); under block_jacobi
+    # also "block_inverse" (extraction and batched inverse of the blocks),
+    # under amg "amg_setup" (the matrix at the first iterate and the
+    # hierarchy, once per solver)
     phase_s: dict
+    cg_iters: list  # CG iterations of each Newton step
 
 
 def make_newton_solver(
@@ -82,13 +81,26 @@ def make_newton_solver(
     where the reference takes a jvp of the residual per application (the
     same operator to rounding). Preconditioners: ``jacobi``,
     ``chebyshev`` (lambda_max by ``estimate_lambda_max`` on the step's
-    operator), ``none``. ``batch``: the element matrices in cell slabs of
-    this size (bounds the Hessian's temporaries on large meshes).
+    operator), ``none``, ``block_jacobi`` (``cfg.block_size`` blocks of
+    the step's matrix, inverted every Newton step) and ``amg`` (one SA-AMG
+    V-cycle of degree ``cfg.amg_degree``; the hierarchy comes from the
+    matrix at ``set_bc(u0)`` of the first solve and serves every solve of
+    this solver); the last two need ``use_matrix``. ``batch``: the
+    element matrices in cell slabs of this size (bounds the Hessian's
+    temporaries on large meshes).
     """
     cfg = cfg or SolverConfig()
-    check_preconditioner(cfg.preconditioner)
+    pc = cfg.preconditioner
+    check_preconditioner(pc)
+    if pc in ("block_jacobi", "amg") and not use_matrix:
+        raise ValueError(f"{pc} requires use_matrix=True")
     if use_matrix:
         asm.pattern  # built once, before the first solve
+    bj_plan = None
+    if pc == "block_jacobi":
+        bj_plan = BlockJacobiPlan.build(asm.pattern, cfg.block_size,
+                                        device=asm.device)
+    amg_cache = {}
     dot = torch.dot
 
     def solve(u0, coeffs) -> JitSolveResult:
@@ -97,6 +109,10 @@ def make_newton_solver(
         sync = (torch.cuda.synchronize if u.device.type == "cuda"
                 else lambda: None)
         phase_s = dict(tangent=0.0, lambda_max=0.0, cg=0.0, residual=0.0)
+        if pc == "block_jacobi":
+            phase_s["block_inverse"] = 0.0
+        if pc == "amg":
+            phase_s["amg_setup"] = 0.0
 
         def timed(name, fn):
             t0 = time.perf_counter()
@@ -105,12 +121,17 @@ def make_newton_solver(
             phase_s[name] += time.perf_counter() - t0
             return out
 
+        if pc == "amg" and "h" not in amg_cache:
+            amg_cache["h"] = timed("amg_setup", lambda: assembler_hierarchy(
+                asm, ell_to_scipy(asm.matrix(u, coeffs, batch=batch)), cfg,
+                dtype=u.dtype).to(u.device))
+
         def rhs(w):
             b = -asm.residual(w, coeffs, batch=batch) * free
             return b, float(torch.sqrt(dot(b, b)))
 
         b, r0 = timed("residual", lambda: rhs(u))
-        bnorm, it, cg_tot = r0, 0, 0
+        bnorm, it, cg_tot, cg_iters = r0, 0, 0, []
         while (bnorm >= max(cfg.newton_rtol * r0, cfg.newton_atol)
                and it < cfg.newton_maxit):
             if use_matrix:
@@ -123,12 +144,17 @@ def make_newton_solver(
                     u, coeffs, batch=batch))
                 A = asm.constrained_action(u, coeffs, em)
                 diag = timed("tangent", lambda: asm.diagonal(u, coeffs, em))
-            if cfg.preconditioner == "jacobi":
+            if pc == "jacobi":
                 M = jacobi_preconditioner(diag)
-            elif cfg.preconditioner == "chebyshev":
+            elif pc == "chebyshev":
                 lmax = timed("lambda_max", lambda: estimate_lambda_max(
                     A, diag, b.shape[0]))
                 M = chebyshev_preconditioner(A, diag, lmax=lmax)
+            elif pc == "block_jacobi":
+                M = timed("block_inverse",
+                          lambda: bj_plan.preconditioner(mat))
+            elif pc == "amg":
+                M = amg_preconditioner(amg_cache["h"], degree=cfg.amg_degree)
             else:
                 M = None
             res = timed("cg", lambda: cg(
@@ -143,6 +169,7 @@ def make_newton_solver(
             bnorm = bnorm_new
             it += 1
             cg_tot += res.iters
+            cg_iters.append(res.iters)
             # the step's operator (element matrices or matrix) goes before
             # the next step builds its own
             del A, M, diag, res
@@ -151,6 +178,7 @@ def make_newton_solver(
         return JitSolveResult(
             u=u, newton_iters=it, final_residual=bnorm, r0=r0,
             converged=converged, total_cg_iters=cg_tot, phase_s=phase_s,
+            cg_iters=cg_iters,
         )
 
     return solve

@@ -107,14 +107,19 @@ def _part(fn, reps):
                 launches=n if n is not None else "not measured")
 
 
-def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
+def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
+                         amg=None) -> dict:
     """Time and profile ``iters`` CG iterations of ``eng`` (staged or
     fused) at the Dirichlet-lifted zero state: wall ms, device-busy ms,
     idle share and kernel launches per iteration, the lane kernels' own
     launch counts, and the kernels with the most device time.
     ``twolevel``: ``(static, geo)`` of ``lane.twolevel.build_twolevel_geo``
     -- the iteration then preconditions with the two-level cycle, and the
-    result also holds ``parts``, the split of one iteration."""
+    result also holds ``parts``, the split of one iteration. ``amg``: an
+    ``la.amg.AMGHierarchy`` on the engine's device -- the iteration then
+    preconditions with one V-cycle (degree 2) in the flat layout, as the
+    mixed solver does, and ``parts`` splits it into the fine tangent, the
+    V-cycle, the lane <-> flat maps and the rest."""
     from tpufem_torch.lane import twolevel as tl
     from tpufem_torch.structured import mg2d
 
@@ -125,7 +130,12 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
     def A(v):
         return A_raw(v * free) * free + v * (1.0 - free)
 
-    if twolevel is None:
+    if amg is not None:
+        from tpufem_torch.la.amg import vcycle
+
+        def M(r):
+            return eng.to_lane_dev(vcycle(amg, eng.from_lane_dev(r)))
+    elif twolevel is None:
         dinv = torch.ones_like(u)
 
         def M(r):
@@ -169,7 +179,8 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
     rows.sort(key=lambda r: -r[1])
     out = dict(
         fused=eng.fused_law is not None,
-        preconditioner="jacobi" if twolevel is None else "twolevel",
+        preconditioner=("amg" if amg is not None else "jacobi"
+                        if twolevel is None else "twolevel"),
         iters=iters,
         wall_ms_per_iter=wall_ms,
         device_busy_ms_per_iter=busy if rows else "not measured",
@@ -192,11 +203,27 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
                                       "lane_owner_sum")))}
         if rows else "not measured",
     )
+    if amg is not None:
+        from tpufem_torch.la.amg import vcycle
+
+        r = state[0][1]
+        r_flat = eng.from_lane_dev(r)
+        parts = dict(
+            fine_tangent=_part(lambda: A(r), 20),
+            vcycle=_part(lambda: vcycle(amg, r_flat), 10),
+            lane_maps=_part(lambda: eng.to_lane_dev(eng.from_lane_dev(r)),
+                            20),
+        )
+        out["parts"] = _per_iter(parts, dict(fine_tangent=1, vcycle=1,
+                                             lane_maps=1), busy, n_kernels,
+                                 rows)
+        out["parts"]["amg_levels"] = amg.n_levels
     if twolevel is not None:
         # the parts of one iteration, each run alone: the fine operator
-        # runs once in CG and 2 * degree + 2 times in the cycle (degree in
+        # runs once in CG and 2 * degree times in the cycle (degree - 1 in
         # the first Chebyshev sweep, which starts from zero and skips A(0),
-        # one for the residual, 1 + degree in the second sweep), the
+        # one for the residual, degree in the second sweep, whose last step
+        # makes no product), the
         # V-cycle once, restriction and prolongation (K5 + the selector
         # product) once each; "rest" is the iteration's device time and
         # launches that none of them accounts for (CG and Chebyshev vector
@@ -211,20 +238,26 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None) -> dict:
             restrict=_part(lambda: tl.restrict(eng, static, data, res), 20),
             prolong=_part(lambda: tl.prolong(eng, static, data, rc), 20),
         )
-        counts = dict(fine_tangent=3 + 2 * static.degree, vcycle=1,
+        counts = dict(fine_tangent=1 + 2 * static.degree, vcycle=1,
                       restrict=1, prolong=1)
-        per_iter = {k: {p: parts[p][k] * counts[p] for p in parts}
-                    for k in ("wall_ms", "device_ms", "launches")
-                    if all(isinstance(parts[p][k], float) for p in parts)}
-        if rows and "device_ms" in per_iter:
-            per_iter["device_ms"]["rest"] = busy - sum(
-                per_iter["device_ms"].values())
-            per_iter["launches"]["rest"] = n_kernels - sum(
-                per_iter["launches"].values())
-        out["parts"] = dict(per_call=parts, calls_per_iter=counts,
-                            per_iter=per_iter,
-                            mg_levels=len(data.mg_data.levels))
+        out["parts"] = _per_iter(parts, counts, busy, n_kernels, rows)
+        out["parts"]["mg_levels"] = len(data.mg_data.levels)
     return out
+
+
+def _per_iter(parts, counts, busy, n_kernels, rows) -> dict:
+    """The parts of one iteration (each timed alone by :func:`_part`)
+    times their calls per iteration, and "rest": the iteration's device
+    time and launches that none of them accounts for."""
+    per_iter = {k: {p: parts[p][k] * counts[p] for p in parts}
+                for k in ("wall_ms", "device_ms", "launches")
+                if all(isinstance(parts[p][k], float) for p in parts)}
+    if rows and "device_ms" in per_iter:
+        per_iter["device_ms"]["rest"] = busy - sum(
+            per_iter["device_ms"].values())
+        per_iter["launches"]["rest"] = n_kernels - sum(
+            per_iter["launches"].values())
+    return dict(per_call=parts, calls_per_iter=counts, per_iter=per_iter)
 
 
 def main(argv=None) -> int:

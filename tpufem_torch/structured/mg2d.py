@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
-from tpufem_torch.la.precond import chebyshev_iterate, power_lambda_max
+from tpufem_torch.la.precond import (check_matmul_precision, chebyshev_iterate,
+                                     power_lambda_max)
 from tpufem_torch.structured.grid2d import LatticeOperator, StructuredGrid2D
 
 
@@ -53,15 +54,6 @@ class MGData(NamedTuple):
     # while the free rows carry the E-scale, so unmasked residual there
     # turns into O(1) spurious corrections against an O(E) operator
     coarse_free: torch.Tensor
-
-
-def _check_matmul_precision(t: torch.Tensor) -> None:
-    """A float32 product on the card must run in full float32, as the
-    reference forces ``default_matmul_precision("float32")``."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is True: the multigrid "
-            "and two-level products need full float32 matrix products")
 
 
 # -- transfer operators (slice stencils) --------------------------------------
@@ -194,7 +186,7 @@ def build_mg2d(
 
 
 def coarse_solve(coarse_inv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _check_matmul_precision(b)
+    check_matmul_precision(b)
     return torch.matmul(coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
