@@ -27,7 +27,11 @@ prints one JSON line per phase:
                    float64), with times, the bound and a yardstick; K1 /
                    K3 / K4 / K5 / K9 / K11 also at edge shapes; for K1 / K5
                    the mean number of 128-byte lines a warp's direct
-                   gather touches
+                   gather touches; K1 / K2 / K3 also at 3D lane plans
+                   (P1 tetrahedra at box(16), 80 passes, and at box(48),
+                   a window of 272 rows; Q2 hexahedra at box(40), C = 3,
+                   V = 27, timed there beside their bounds), whose Q2-hex
+                   engine (its set-up timed) serves phase ``multiqp``
 4. ``engine``      n = 64, float64: LaneEngine residual / tangent action /
                    diagonal against the flat Assembler, copies == owners;
                    the fused engine against the staged one and the
@@ -81,6 +85,19 @@ prints one JSON line per phase:
                    twice, bitwise equal, K8 launches, the hierarchy build
                    and one residual timed alone, one CG iteration under
                    the profiler
+11b. ``multiqp``   the lane engine's multi-quadrature-point path
+                   (``lane.multiqp``; K1-K3 around PyTorch physics):
+                   float64 card against CPU, Jacobi ``make_solver`` on Q2
+                   hexahedra at box(4) and on P2 triangles at
+                   unit_square(16) with the damage law (same Newton
+                   count, CG +-1 a step, u rel <= 1e-9); the full-width
+                   problem of ``benchmarks/q2hex_bench.py`` (Q2 hexahedra
+                   at box(40), 1 594 323 dofs, float32, staged, Jacobi),
+                   one Newton step of at most 2 000 CG, twice, bitwise
+                   equal, K1-K3 launched in every CG iteration; set-up
+                   seconds, the linearization and diagonal timed alone,
+                   peak memory, one CG iteration split into its parts
+                   under the profiler beside a tangent's byte bound
 12. ``mechanic2d`` the reference study's own workload, ``mechanic2d.run``
                    on square.msh (flat Assembler, Newton with Jacobi CG;
                    no CUDA kernel of the port on its path): at r = 3
@@ -167,7 +184,8 @@ from tpufem_torch.la import (chebyshev_preconditioner,  # noqa: E402
                              estimate_lambda_max, jacobi_preconditioner)
 from tpufem_torch.la import amg as AMG  # noqa: E402
 from tpufem_torch.la.block_jacobi import BlockJacobiPlan  # noqa: E402
-from tpufem_torch.lane import LaneEngine, _build  # noqa: E402
+from tpufem_torch.lane import (LaneEngine, _build,  # noqa: E402
+                               build_lane_plan)
 from tpufem_torch.nls import (make_chunked_solver,  # noqa: E402
                               make_newton_solver)
 from tpufem_torch.nls.newton_jit import ELEMENT_BATCH  # noqa: E402
@@ -176,7 +194,7 @@ from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
 from tpufem_torch.perf import lattice_bench as LB  # noqa: E402
-from tpufem_torch.mesh import unit_square  # noqa: E402
+from tpufem_torch.mesh import box, unit_square  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
 from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
 from tpufem_torch.structured import (StructuredGrid2D,  # noqa: E402
@@ -199,7 +217,8 @@ FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
-          "structured2d", "structured3d", "mechanic2d", "flat3d", "amg")
+          "structured2d", "structured3d", "multiqp", "mechanic2d", "flat3d",
+          "amg")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -283,10 +302,11 @@ lattice_ptxas = {k: v for k, v in ptxas.items()
                  if any(name in k for name in LATTICE)}
 spills = {k: v for k, v in {**redesigned, **lattice_ptxas}.items()
           if v.get("spill_bytes", 0)}
-# K1: 4 instances; K3: 4 + 4; K4: 16 per block layout; K5: 4 with its
-# tables staged and 4 with them in registers; K9: 4 staged and 4 reading
-# global memory; K11: 4 with its tables staged and 4 without
-check(len(redesigned) == 4 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8 + 8 + 8
+# K1: 4 staged and 4 reading global memory; K3: 4 + 4; K4: 16 per block
+# layout; K5: 4 with its tables staged and 4 with them in registers; K9: 4
+# staged and 4 reading global memory; K11: 4 with its tables staged and 4
+# without
+check(len(redesigned) == 8 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8 + 8 + 8
       and len(lattice_ptxas) == 3 and not spills,
       f"ptxas: {len(redesigned)} K1 / K3 / K4 / K5 / K9 / K11 and "
       f"{len(lattice_ptxas)} K6 / K7 / K8 instances, spills: {spills}")
@@ -1112,6 +1132,134 @@ g11 = K.scatter_weighted_geometry(C, p_ix.shape[1], wg, WRP, 8, 4)
 k11_paths.add((g11["tiles"], g11["chunks"] > 1, g11["groups"] > 1))
 check(k9_paths == {True, False} and len(k11_paths) >= 4,
       f"K9 / K11 edge shapes: {k9_paths} / {k11_paths}: not every path")
+# K1 / K2 / K3 at the shapes of 3D lane plans (bs = 3 channels, int32
+# indices), exactly equal to their plain versions in float32 and float64:
+# P1 tetrahedra at box(16) (80 owner and refresh passes: more than the
+# first K3 took), P1 tetrahedra at box(48) (a window of wg = 272 rows: in
+# float64 K1 reads global memory and K2 keeps its rows in two bands) and
+# the Q2 hexahedra at box(40) of the multi-qp phase (C = 3, V = 27), whose
+# engine is built here and serves that phase; at those shapes, float32,
+# K1-K3 are also timed beside their bounds
+def elastic3d(mesh, degree, qdeg, dtype, device=DEV):
+    """Linear elasticity (E = 1e6, nu = 0.3) on a 3D mesh, the left face
+    clamped and the right one moved 0.01 in x: the problem of
+    benchmarks/q2hex_bench.py."""
+    V3 = FunctionSpace.create(mesh, degree, bs=3)
+    F3 = EnergyFunctional(V3, [Term(lambda qp: linear_elastic_psi(
+        qp.eps, 1.0e6, NU), qdeg)], device=device, dtype=dtype)
+    left3 = locate_dofs_geometrical(V3, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right3 = locate_dofs_geometrical(
+        V3, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    return F3, [DirichletBC(V3, left3, [0.0, 0.0, 0.0]),
+                DirichletBC(V3, right3, [0.01, 0.0, 0.0])], V3
+
+
+def lane_edges_3d(tag, eng3, timed):
+    """K1, K2 and both K3 modes on ``eng3``'s own tables, both dtypes;
+    with ``timed``, the float32 times, plain times and bounds."""
+    p3, C3 = eng3.plan, eng3.bs
+    ix, st = eng3.gather_idx, eng3.gather_starts
+    k3_tabs = ((True, eng3._owner_starts, eng3._owner_idx, eng3.owner_wrs,
+                eng3.owner_shifts),
+               (False, eng3._refresh_starts, eng3._refresh_idx,
+                eng3.refresh_wrs, tuple(-s for s in eng3.refresh_shifts)))
+    info = dict(G=p3.G, kc=p3.kc, wg=p3.wg, nv=p3.nv, R=p3.R,
+                idx_dtype=str(ix.dtype), owner_passes=len(eng3.owner_wrs),
+                refresh_passes=len(eng3.refresh_wrs), routes={})
+    times = {}
+    for vdt in (torch.float32, torch.float64):
+        vals = torch.randn((C3, p3.R, 128), dtype=vdt, device=DEV,
+                           generator=gen)
+        k1 = dict(wr=p3.wg, n_ch=C3 * p3.nv)
+        out = K.lane_gather_cm(vals, st, ix, **k1)
+        torch.cuda.synchronize()
+        ref = K.lane_gather_cm_plain(vals, st, ix, **k1)
+        check(torch.equal(out, ref), f"lane_gather_cm {tag} {vdt}: "
+              f"{float((out - ref).abs().max())}")
+        src = torch.randn((p3.nv * C3, p3.G, p3.kc, 128), dtype=vdt,
+                          device=DEV, generator=gen)
+        k2 = dict(k_out=p3.wg, n_ch=C3)
+        out2 = K.lane_scatter_cm(src, ix, **k2)
+        torch.cuda.synchronize()
+        ref2 = K.lane_scatter_cm_plain(src, ix, **k2)
+        check(torch.equal(out2, ref2), f"lane_scatter_cm {tag} {vdt}: "
+              f"{float((out2 - ref2).abs().max())}")
+        vb = vals.element_size()
+        info["routes"][str(vdt)] = dict(
+            k1_staged=K.check_gather_cm(vals, st, ix, **k1)["tiles"],
+            k2_bands=K.scatter_cm_geometry(p3.wg, vb)["bands"])
+        if timed and vdt == torch.float32:
+            times["lane_gather_cm"] = (
+                median_ms(lambda: K.lane_gather_cm(vals, st, ix, **k1), 20),
+                time_ms(lambda: K.lane_gather_cm_plain(vals, st, ix, **k1),
+                        2), nbytes(vals, st, ix, out))
+            times["lane_scatter_cm"] = (
+                median_ms(lambda: K.lane_scatter_cm(src, ix, **k2), 20),
+                time_ms(lambda: K.lane_scatter_cm_plain(src, ix, **k2), 1),
+                nbytes(src, ix, out2))
+        del out, ref, src, out2, ref2
+        for head, st3, ix3, wrs3, sh3 in k3_tabs:
+            kw = dict(wrs=wrs3, wg=p3.wg, shifts=sh3, head=head)
+            out = K.lane_pass_update(vals, st3, ix3, **kw)
+            torch.cuda.synchronize()
+            ref = K.lane_pass_update_plain(vals, st3, ix3, **kw)
+            check(torch.equal(out, ref), f"lane_pass_update {tag} head="
+                  f"{head} {vdt}: {float((out - ref).abs().max())}")
+            geo = K.pass_update_geometry(C3, ix3.shape[2], tuple(wrs3), vb,
+                                         ix3.element_size())
+            info["routes"][str(vdt)][f"k3_{'owner' if head else 'refresh'}"
+                                     ] = dict(wt=geo["wt"],
+                                              units=len(geo["units"]))
+            if timed and vdt == torch.float32:
+                times["lane_pass_update" + ("" if head else "_refresh")] = (
+                    median_ms(lambda: K.lane_pass_update(
+                        vals, st3, ix3, **kw), 20),
+                    time_ms(lambda: K.lane_pass_update_plain(
+                        vals, st3, ix3, **kw), 1),
+                    nbytes(vals, st3, ix3, out))
+            del out, ref
+        del vals
+    for key, (ms_r, pms, b) in times.items():
+        name, pre = (("lane_pass_update", "q2hex_refresh_")
+                     if key.endswith("_refresh") else (key, "q2hex_"))
+        results[name].update({pre + "ms": ms_r[0], pre + "ms_range": ms_r,
+                              pre + "plain_ms": pms,
+                              pre + "bound_ms": b / HBM_BYTES_PER_S * 1e3})
+    return info
+
+
+edges_3d = {}
+for tag, (n3, cell3) in {"P1 tets box(16)": (16, "tetra"),
+                         "P1 tets box(48)": (48, "tetra")}.items():
+    F3, bcs3, _ = elastic3d(box(n3, n3, n3, cell_type=cell3), 1, 1,
+                            torch.float32)
+    eng3 = LaneEngine(F3, bcs3, wg_own=32, device=DEV, dtype=torch.float32)
+    edges_3d[tag] = lane_edges_3d(tag, eng3, False)
+    del eng3, F3, bcs3
+check(edges_3d["P1 tets box(16)"]["owner_passes"] > 64
+      and not edges_3d["P1 tets box(48)"]["routes"]["torch.float64"][
+          "k1_staged"]
+      and edges_3d["P1 tets box(48)"]["routes"]["torch.float64"][
+          "k2_bands"] > 1,
+      f"the 3D edge plans miss a repaired shape: {edges_3d}")
+# the full-width Q2-hex problem (benchmarks/q2hex_bench.py): the engine's
+# set-up split into the mesh and space, the lane plan, and the tables
+N_Q2 = 40
+t0 = time.perf_counter()
+mesh_q2 = box(N_Q2, N_Q2, N_Q2)
+F_q2, bcs_q2, V_q2 = elastic3d(mesh_q2, 2, 3, torch.float32)
+q2_setup = dict(mesh_space=time.perf_counter() - t0)
+t0 = time.perf_counter()
+plan_q2 = build_lane_plan(V_q2.dof_coords, np.asarray(V_q2.dofmap),
+                          wg_own=32)
+q2_setup["plan"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng_q2 = LaneEngine(F_q2, bcs_q2, plan=plan_q2, device=DEV,
+                    dtype=torch.float32)
+torch.cuda.synchronize()
+q2_setup["engine_tables"] = time.perf_counter() - t0
+edges_3d["Q2 hexes box(40)"] = lane_edges_3d("Q2 hexes box(40)", eng_q2,
+                                             True)
 shapes.update(k3_edges=dict(K3_EDGES, n256=dict(
     owner=list(eng_256._owner_idx.shape),
     refresh=list(eng_256._refresh_idx.shape))),
@@ -1119,13 +1267,15 @@ shapes.update(k3_edges=dict(K3_EDGES, n256=dict(
     k1_k5_edges=GATHER_EDGES, k5_edge_paths=k5_paths, k9_edges=K9_EDGES,
     k11_edges=K11_EDGES,
     k11_edge_paths=[dict(zip(("tiles", "chunks", "groups"), p_))
-                    for p_ in sorted(k11_paths)])
+                    for p_ in sorted(k11_paths)],
+    k1_k2_k3_edges_3d=edges_3d)
 del eng_256, F_256, cd_256
 
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
      k11_adjoint_of_k5_rel=adjoint_rel,
      tolerance="exactly equal (0) for every kernel, K1, K3, K4, K5, K9 "
-               "and K11 also at the edge shapes; K11 adjoint of K5 rel "
+               "and K11 also at the edge shapes, K1-K3 also at 3D plans; "
+               "K11 adjoint of K5 rel "
                "<= 1e-12 "
                "(float64)")
 torch.cuda.empty_cache()
@@ -2112,6 +2262,159 @@ emit("structured3d", kernels={"lattice_matvec3d": results["lattice_matvec3d"]},
 del runs_b, rb, rb1, data_b, grids_b, mvs_b, step_b, res_b
 torch.cuda.empty_cache()
 
+# -- 11b. multiqp: the lane engine's multi-quadrature-point path -------------
+
+# (a) card against CPU, float64: make_solver with Jacobi on Q2 hexahedra
+# at box(4) (the q2hex problem) and on P2 triangles at unit_square(16)
+# (the damage law of tests/test_torch_multiqp.py): the same Newton count,
+# CG within 1 a step, u rel <= 1e-9. (b) full width, float32: the q2hex
+# problem at box(40) (the engine of the kernels phase), one Newton step of
+# at most 2 000 CG, twice, bitwise equal, K1-K3 in every CG iteration; the
+# linearization and the diagonal timed alone; one CG iteration split into
+# its parts under the profiler beside its byte bound
+MQ_SOLVER = dict(cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=3000,
+                 newton_maxit=20, preconditioner="jacobi")
+
+
+def damage_p2(n, device):
+    mesh = unit_square(n)
+    V2 = FunctionSpace.create(mesh, 2, bs=2)
+    DS2 = FunctionSpace.create(mesh, 1, bs=1)
+    d2 = np.zeros(DS2.n_dofs)
+    d2[(DS2.dof_coords[:, 1] > 0.3) & (DS2.dof_coords[:, 1] < 0.7)] = 0.8
+    F2 = EnergyFunctional(V2, [Term(lambda qp: asym_damage_psi(
+        qp.eps, qp.coeff("d"), 1.0e6, NU), 2)], [Coefficient("d", DS2)],
+        device=device, dtype=torch.float64)
+    left2 = locate_dofs_geometrical(V2, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right2 = locate_dofs_geometrical(
+        V2, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    return F2, [DirichletBC(V2, left2, [0.0, 0.0]),
+                DirichletBC(V2, right2, [0.01, 0.0])], {"d": d2}
+
+
+MQ_SMALL = {
+    "Q2 hexes box(4)": lambda dev: elastic3d(
+        box(4, 4, 4), 2, 3, torch.float64, dev)[:2] + ({},),
+    "P2 triangles unit_square(16)": lambda dev: damage_p2(16, dev),
+}
+mq_small = {}
+for tag, make in MQ_SMALL.items():
+    runs = []  # the card's run, then the CPU's
+    for dev in (DEV, torch.device("cpu")):
+        F_s, bcs_s, c_s = make(dev)
+        t0 = time.perf_counter()
+        eng_s = LaneEngine(F_s, bcs_s, wg_own=32, device=dev,
+                           dtype=torch.float64)
+        check(eng_s._mq is not None, f"{tag}: not on the multi-qp path")
+        u_s, st_s = eng_s.make_solver(SolverConfig(**MQ_SOLVER), cg_chunk=50)(
+            torch.zeros_like(eng_s.bc_lane), eng_s.prepare_coeffs(c_s))
+        runs.append((eng_s.from_lane(u_s), st_s, time.perf_counter() - t0))
+        n_dofs_s = F_s.space.n_dofs
+        del eng_s, F_s, bcs_s
+    (u_g, st_g, s_g), (u_c, st_c, s_c) = runs
+    u_rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
+    mq_small[tag] = dict(
+        n_dofs=n_dofs_s, newton_card=st_g["newton_iters"],
+        newton_cpu=st_c["newton_iters"], cg_card=st_g["cg_iters"],
+        cg_cpu=st_c["cg_iters"], u_rel=u_rel, seconds_card=s_g,
+        seconds_cpu=s_c)
+    check(st_g["converged"] and st_c["converged"]
+          and st_g["newton_iters"] == st_c["newton_iters"]
+          and len(st_g["cg_iters"]) == len(st_c["cg_iters"])
+          and all(abs(a - b) <= 1
+                  for a, b in zip(st_g["cg_iters"], st_c["cg_iters"]))
+          and u_rel <= 1e-9, f"multiqp {tag}: card against CPU "
+          f"{mq_small[tag]}")
+
+# (b) full width: Q2 hexes at box(40), float32, staged, Jacobi
+cc_q2 = eng_q2.prepare_coeffs({})
+MQ_FULL = SolverConfig(newton_maxit=1, cg_maxit=2000,
+                       preconditioner="jacobi")
+u0_q2 = torch.zeros_like(eng_q2.bc_lane)
+
+
+def q2_full_run():
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u_f, st_f = eng_q2.make_solver(MQ_FULL)(u0_q2, cc_q2)
+    torch.cuda.synchronize()
+    return (u_f, st_f, time.perf_counter() - t0, K.launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+mq_u1, mq_st1, mq_s1, launches_mq, mq_peak1 = q2_full_run()
+mq_u2, mq_st2, mq_s2, _, mq_peak2 = q2_full_run()
+check(torch.equal(mq_u1, mq_u2) and mq_st1["residuals"] == mq_st2["residuals"]
+      and mq_st1["final_residual"] == mq_st2["final_residual"]
+      and mq_st1["cg_iters"] == mq_st2["cg_iters"],
+      f"multiqp full width: two runs differ: {mq_st1['residuals']} / "
+      f"{mq_st2['residuals']}")
+check(bool(torch.isfinite(mq_u1).all()), "multiqp full width: non-finite u")
+enq = sum(mq_st1["cg_enqueued"])
+check(enq > 0 and launches_mq["lane_gather_cm"] >= enq
+      and launches_mq["lane_scatter_cm"] >= enq
+      and launches_mq["lane_pass_update"] >= 2 * enq,
+      f"multiqp full width: K1-K3 not in every CG iteration: {launches_mq}, "
+      f"{enq} iterations enqueued")
+check(mq_st1["final_residual"] < mq_st1["residuals"][0],
+      f"multiqp full width: the residual did not fall: "
+      f"{mq_st1['residuals']} -> {mq_st1['final_residual']}")
+# the linearization, the diagonal and one tangent application alone
+u_lin = torch.where(eng_q2.free_lane > 0, u0_q2, eng_q2.bc_lane)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+lin_q2 = eng_q2.linearize(u_lin, cc_q2)
+torch.cuda.synchronize()
+lin_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng_q2.diagonal(u_lin, cc_q2, lin_q2)
+torch.cuda.synchronize()
+diag_s = time.perf_counter() - t0
+del lin_q2
+mq = eng_q2._mq
+M_q2 = plan_q2.G * plan_q2.kc * 128
+vb = 4
+# one staged tangent application's least traffic: the stored Hessian once,
+# dN twice (reduced arguments and chain back), the cell vectors written and
+# read once each (gathered values, element vectors), the state read and
+# written; the real cells' share of the cell-proportional part beside it
+q2_bytes = dict(
+    hessian=mq.nr * mq.nr * mq.nq * M_q2 * vb,
+    dN_twice=2 * M_q2 * mq.nv * mq.nq * mq.gd * vb,
+    cell_vectors=4 * mq.nd * M_q2 * vb,
+    state=2 * eng_q2.bs * plan_q2.R * 128 * vb)
+q2_bound_ms = sum(q2_bytes.values()) / HBM_BYTES_PER_S * 1e3
+real_share = mesh_q2.n_cells / M_q2
+q2_bound_real_ms = (q2_bound_ms - q2_bytes["state"] / HBM_BYTES_PER_S * 1e3
+                    ) * real_share + q2_bytes["state"] / HBM_BYTES_PER_S * 1e3
+prof_q2 = cg_profile.profile_cg_iteration(eng_q2, cc_q2, 20)
+emit("multiqp", check_card_vs_cpu=mq_small, full=dict(
+    problem="benchmarks/q2hex_bench.py, Q2 hexes box(40), float32, staged "
+            "engine, Jacobi, 1 Newton step of at most 2000 CG",
+    n_dofs=V_q2.n_dofs, n_cells=int(mesh_q2.n_cells), lane_cells=M_q2,
+    nq=mq.nq, nv=mq.nv, nr=mq.nr, G=plan_q2.G, kc=plan_q2.kc,
+    wg=plan_q2.wg, owner_passes=len(eng_q2.owner_wrs),
+    refresh_passes=len(eng_q2.refresh_wrs),
+    tail_copies=0 if eng_q2._tail_copy is None
+    else int(len(eng_q2._tail_copy)),
+    setup_s=q2_setup, table_bytes=nbytes(eng_q2.geom_dN, eng_q2.geom_w,
+                                         eng_q2.geom_xq),
+    linearize_s=lin_s, diagonal_s=diag_s,
+    newton_iters=mq_st1["newton_iters"], cg_iters=mq_st1["cg_iters"],
+    cg_enqueued=mq_st1["cg_enqueued"], residuals=mq_st1["residuals"],
+    final_residual=mq_st1["final_residual"],
+    cg_seconds=mq_st1["cg_seconds"], run_seconds=[mq_s1, mq_s2],
+    ms_per_cg_iter=1e3 * mq_st1["cg_seconds"] / max(enq, 1),
+    peak_bytes=[mq_peak1, mq_peak2], launches=launches_mq,
+    bitwise_equal_twice=True),
+    cg_iteration=prof_q2, tangent_bound_bytes=q2_bytes,
+    tangent_bound_ms=q2_bound_ms,
+    tangent_bound_ms_real_cells=q2_bound_real_ms, nvidia_smi=smi)
+del eng_q2, plan_q2, F_q2, bcs_q2, mq_u1, mq_u2, u0_q2, u_lin, mq
+torch.cuda.empty_cache()
+
 # -- 12. mechanic2d: the reference study's own workload (flat Assembler) ---------
 
 # the reference's Newton / CG counts on square.msh refined 3 times
@@ -2795,7 +3098,8 @@ for name, r in results.items():
     if name in LANE_PATH:
         entry.update(launches_staged_jacobi_solve=launches[name],
                      launches_fused_jacobi_solve=launches_fused[name],
-                     launches_mixed_solve=launches_mx[name])
+                     launches_mixed_solve=launches_mx[name],
+                     launches_multiqp_solve=launches_mq[name])
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
@@ -2804,7 +3108,10 @@ for name, r in results.items():
               "sum_v_plain_ms", "sum_v_bound_ms", "mul_index_add_yardstick_ms",
               "ms_range", "sum_v_ms_range", "prolong_ms_range",
               "sum_v_device_ms",
-              "lines_per_warp_load", "prolong_lines_per_warp_load"):
+              "lines_per_warp_load", "prolong_lines_per_warp_load",
+              "q2hex_ms", "q2hex_ms_range", "q2hex_plain_ms",
+              "q2hex_bound_ms", "q2hex_refresh_ms", "q2hex_refresh_ms_range",
+              "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

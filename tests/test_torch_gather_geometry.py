@@ -75,9 +75,10 @@ def test_gather_geometry_fits_the_main_path(vbytes):
 
 
 def test_gather_geometry_raises_past_the_limit():
-    """Where the window (K5) or the window and the index rows (K1) do not
-    fit 227 KB: ValueError naming the shape, no fallback; K5 takes at most
-    four channels; K must be at least 1."""
+    """Where the window (K5) does not fit 227 KB: ValueError naming the
+    shape, no fallback; where the window and the index rows (K1) do not,
+    K1 stages nothing and reads global memory; K5 takes at most four
+    channels; K must be at least 1."""
     # the window, C * wr rows of 128 bytes (float32) or 256 (float64), and
     # for K1 K = 4 index rows of 32 bytes (int8): the last window that
     # fits, and one row more
@@ -87,6 +88,11 @@ def test_gather_geometry_raises_past_the_limit():
                                (tk.gather_weighted_geometry, 454, 2, 8, 1),
                                (tk.gather_cm_geometry, 907, 2, 4, 1)):
         assert geo(C, 1, wr, 4, vb, ib)["smem"] <= tk.SMEM_PER_BLOCK
+        if geo is tk.gather_cm_geometry:
+            assert geo(C, 1, wr, 4, vb, ib)["tiles"]
+            g = geo(C, 1, wr + 1, 4, vb, ib)
+            assert not g["tiles"] and g["smem"] == 0
+            continue
         with pytest.raises(ValueError, match=f"wr = {wr + 1} rows"):
             geo(C, 1, wr + 1, 4, vb, ib)
     for geo in GEOMETRIES.values():
@@ -96,6 +102,27 @@ def test_gather_geometry_raises_past_the_limit():
         tk.gather_weighted_geometry(5, 3, 8, 8, 4, 1)
     assert tk.gather_cm_geometry(5, 3, 8, 8, 4, 1)["smem"] == (
         5 * 8 * 32 * 4 + 3 * 8 * 32)
+
+
+@pytest.mark.parametrize("vbytes,ibytes,tiles", [(8, 4, False),
+                                                  (4, 4, True)])
+def test_gather_cm_geometry_reads_global_memory_for_3d_windows(
+        vbytes, ibytes, tiles):
+    """A 3D plan's K1 shape, P1 tetrahedra at box(48) (C = 3 channels,
+    V = 4, a window of wr = 272 rows, K = 184 cell rows, int32 indices):
+    in float64 the window and the index rows take 303 104 bytes, more than
+    a block holds, so the block reads both from global memory (no shared
+    memory, about 16 thread rows); in float32 they fit and are staged.
+    Either way every output is written once."""
+    g = tk.gather_cm_geometry(3, 4, 272, 184, vbytes, ibytes)
+    staged = tk.gather_layout_bytes(3, 4, 272, 184, vbytes, ibytes, False)
+    assert (staged <= tk.SMEM_PER_BLOCK) == tiles == g["tiles"]
+    assert g["smem"] == (staged if tiles else 0)
+    lb, ky = g["block"]
+    assert lb * ky <= 512
+    assert ky == (8 if tiles else 16)
+    cover = tk.gather_cover(g, 2, 184)
+    assert cover.min() == 1 and cover.max() == 1
 
 
 def _tables(T=3, V=2, K=5, C=2, R=24):

@@ -129,7 +129,7 @@ def test_pass_update_geometry_at_the_main_path():
     assert g["wt"] == 19 and g["groups"] == 1 and g["channel_blocks"] == 1
     assert g["units"] == tuple((p, 0, w) for p, w in enumerate(OWNER_WRS))
     assert g["smem"] == _pass_layout(2, 16, 19, 4, 1) == 64512
-    assert 3 * (g["smem"] + tk.PASS_STATIC_SMEM + 1024) <= 228 * 1024
+    assert 3 * (g["smem"] + 1024) <= 228 * 1024
     r = tk.pass_update_geometry(2, 24, (16,) * 13 + (15,), 4, 1)
     assert r["wt"] == 16 and len(r["units"]) == 14
     assert r["smem"] == _pass_layout(2, 24, 16, 4, 1)
@@ -140,9 +140,8 @@ def test_pass_update_geometry_at_the_main_path():
 def test_pass_update_geometry_tiles_every_window(vbytes, ibytes, C, K):
     """Windows up to the int8 limit (126 rows): the units tile each pass's
     window [0, wr) exactly once, in pass order, no tile taller than wt;
-    the layout fits the card's shared memory beside the pass starts, with
-    the tallest tile that does; one block per 32 updated rows and per
-    channel pair."""
+    the layout fits the card's shared memory, with the tallest tile that
+    does; one block per 32 updated rows and per channel pair."""
     wrs = (126, 1, 0, 40, 7)
     g = tk.pass_update_geometry(C, K, wrs, vbytes, ibytes)
     wt, units = g["wt"], g["units"]
@@ -152,7 +151,7 @@ def test_pass_update_geometry_tiles_every_window(vbytes, ibytes, C, K):
         assert [a for a, _ in tiles] == list(range(0, w, wt))
         assert sum(n for _, n in tiles) == w
         assert all(1 <= n <= wt for _, n in tiles)
-    room = tk.SMEM_PER_BLOCK - tk.PASS_STATIC_SMEM
+    room = tk.SMEM_PER_BLOCK
     assert g["smem"] == _pass_layout(C, K, wt, vbytes, ibytes) <= room
     assert wt == 126 or _pass_layout(C, K, wt + 1, vbytes, ibytes) > room
     assert g["groups"] == -(-K // tk.PASS_ROWS)
@@ -160,14 +159,103 @@ def test_pass_update_geometry_tiles_every_window(vbytes, ibytes, C, K):
 
 
 def test_pass_update_geometry_raises_where_the_kernel_cannot_launch():
-    """More tiles than the kernel takes, more passes than it takes, or no
-    row: ValueError (the wrapper raises before any launch)."""
-    with pytest.raises(ValueError, match="tiles"):
-        tk.pass_update_geometry(2, 32, (126,) * 64, 8, 4)
-    with pytest.raises(ValueError, match="passes"):
-        tk.pass_update_geometry(2, 16, (4,) * (tk.PASS_MAX + 1), 4, 1)
+    """No row (K = 0): ValueError, before any launch. The kernel reads its
+    pass table from global memory, so more than 64 passes and more than
+    256 window tiles launch."""
+    g = tk.pass_update_geometry(2, 32, (126,) * 64, 8, 4)
+    assert len(g["units"]) > 256
+    g = tk.pass_update_geometry(2, 16, (4,) * 65, 4, 1)
+    assert g["units"] == tuple((p, 0, 4) for p in range(65))
     with pytest.raises(ValueError):
         tk.pass_update_geometry(2, 0, (4,), 4, 1)
+
+
+def _old_wt(C, K, wrs, vb, ib):
+    """The tile height of the first layout, whose 64 pass starts took 256
+    bytes of static shared memory beside the ring."""
+    wt = max(list(wrs) + [1])
+    while tk.pass_smem_bytes(C, K, wt, vb, ib) > tk.SMEM_PER_BLOCK - 256:
+        wt -= 1
+    return wt
+
+
+# 3D lane plans of the port's build_lane_plan (vector spaces, bs = 3):
+# (mesh, element degree, wg_own), each with more than 64 passes
+PLANS_3D = {
+    "P1 tets box(8)": ((8, "tetra"), 1, 8),
+    "P1 tets box(16)": ((16, "tetra"), 1, 32),
+    "P2 tets box(8)": ((8, "tetra"), 2, 8),
+    "Q1 hexes box(16)": ((16, "hexahedron"), 1, 32),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS_3D))
+def test_pass_update_geometry_takes_3d_plans(plan):
+    """The owner-sum and refresh passes of 3D plans (65-89 passes):
+    geometry in both dtypes with the plan's index type, every window tiled
+    exactly once in pass order, and the kernel's pass table: shifts
+    reduced to [0, 128), window heights, padding to 16 bytes, then one
+    (pass, first row, rows, shift) entry a unit."""
+    from tpufem_torch.lane.plan import build_lane_plan
+    from tpufem_torch.mesh import box
+    from tpufem_torch.spaces import FunctionSpace
+
+    (n, cell), deg, wg_own = PLANS_3D[plan]
+    V = FunctionSpace.create(box(n, n, n, cell_type=cell), deg, bs=3)
+    p = build_lane_plan(V.dof_coords, np.asarray(V.dofmap), wg_own=wg_own)
+    ib = 1 if p.wg < 127 else 4
+    for passes, sign in ((p.owner_passes, 1), (p.refresh_passes, -1)):
+        wrs = tuple(int(s[4]) for s in passes)
+        shifts = tuple(sign * int(s[0]) for s in passes)
+        K = passes[0][2].shape[-2]
+        assert len(wrs) > 64
+        for vb in (4, 8):
+            g = tk.pass_update_geometry(3, K, wrs, vb, ib)
+            assert g["smem"] <= tk.SMEM_PER_BLOCK
+            for q, w in enumerate(wrs):
+                tiles = [(a, m) for u, a, m in g["units"] if u == q]
+                assert [a for a, _ in tiles] == list(range(0, w, g["wt"]))
+                assert sum(m for _, m in tiles) == w
+            table = tk.pass_table(wrs, shifts, g["units"])
+            P, U = len(wrs), len(g["units"])
+            u0 = -(-2 * P // 4) * 4
+            assert table.dtype == np.int32 and table.shape == (u0 + 4 * U,)
+            assert list(table[:P]) == [s % 128 for s in shifts]
+            assert list(table[P:2 * P]) == list(wrs)
+            assert not table[2 * P:u0].any()
+            assert [tuple(e) for e in table[u0:].reshape(U, 4)] == [
+                (q, a, m, shifts[q] % 128) for q, a, m in g["units"]]
+
+
+def test_pass_update_geometry_of_2d_plans_is_unchanged():
+    """A 2D P1 plan keeps exactly the geometry it had: its windows are far
+    below what the shared memory holds, so the 256 bytes the pass starts
+    no longer take move no tile height."""
+    for C, K, wrs in ((2, 16, OWNER_WRS), (2, 24, (16,) * 13 + (15,))):
+        for vb, ib in ((4, 1), (8, 1), (8, 4)):
+            g = tk.pass_update_geometry(C, K, wrs, vb, ib)
+            assert g["wt"] == _old_wt(C, K, wrs, vb, ib) == max(wrs)
+            assert g["units"] == tuple((p, 0, w) for p, w in enumerate(wrs))
+            assert g["smem"] == _pass_layout(C, K, max(wrs), vb, ib)
+
+
+@pytest.mark.parametrize("k_out,vbytes,bands", [
+    (40, 4, 1), (176, 4, 1), (176, 8, 1), (227, 8, 1), (228, 8, 2),
+    (272, 8, 2), (272, 4, 1), (700, 8, 4)])
+def test_scatter_cm_geometry_splits_rows_that_do_not_fit(k_out, vbytes,
+                                                         bands):
+    """K2 keeps a band of output rows in shared memory: all k_out rows
+    where k_out x 128 values fit a block (the n = 1024 plan's 40 rows, the
+    Q2-hex plan's 176), else bands as even as whole rows allow (a P1-tet
+    plan's 272 rows in float64: two of 136); every output row written by
+    exactly one band."""
+    g = tk.scatter_cm_geometry(k_out, vbytes)
+    assert g["bands"] == bands
+    assert g["smem"] == g["rows"] * 128 * vbytes <= tk.SMEM_PER_BLOCK
+    assert (bands - 1) * g["rows"] < k_out <= bands * g["rows"]
+    assert (tk.scatter_cm_cover(g, k_out) == 1).all()
+    with pytest.raises(ValueError):
+        tk.scatter_cm_geometry(0, vbytes)
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():

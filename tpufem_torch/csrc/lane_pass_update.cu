@@ -41,6 +41,21 @@
 // (tpufem_torch/lane/kernels.py:pass_update_geometry); this file checks
 // that its shared-memory size is the one the wrapper computed.
 //
+// The pass table (every pass's lane shift and window height, then the
+// units) lies in global memory, uploaded once per shape by the wrapper: no
+// pass count or unit count is bounded by a kernel argument or by static
+// shared memory. A 3D plan has more than 64 passes (P1 tetrahedra at
+// box(16): 80; Q1 hexahedra: 89); the sum stays one accumulator from zero
+// over every pass, p ascending, in one launch. Read where it is needed,
+// the table would put two dependent loads (unit, then its pass's start or
+// shift) on every unit's path, where a kernel argument cost nothing
+// (measured on the H100: the owner-sum 20 % and the refresh 8 % slower at
+// the n = 1024 plan). So a unit is one 16-byte entry that carries its
+// pass's shift, the refresh loads the entries and the pass start of the
+// unit it stages next before it waits for the ring, and the owner-sum
+// copies its bin's pass starts, shifts and window heights into shared
+// memory first.
+//
 // The owner-sum keeps the first design (lane_owner_sum_kernel), now with
 // the clamp: on the H100 at the n = 1024 plan it ran 6 % faster than the
 // staged ring in the same call, where the refresh ran 15 % faster staged
@@ -52,21 +67,25 @@
 #include "lane_common.cuh"
 #include "lane_async.cuh"
 
-#define PASS_MAX 64
-#define PASS_MAX_UNITS 256
 #define PASS_KY 4                        // thread rows of a block
 #define PASS_RPT 8                       // updated rows per thread row
 #define PASS_ROWS (PASS_KY * PASS_RPT)   // updated rows per block
 #define PASS_CB 2                        // channels per block
 #define PASS_STAGES 3                    // ring depth, in units
 
-struct PassPlan {
-  int n_units;
-  short unit_pass[PASS_MAX_UNITS];  // pass of the unit
-  short unit_row0[PASS_MAX_UNITS];  // first window row of the unit's tile
-  short unit_rows[PASS_MAX_UNITS];  // window rows in the tile
-  short shift[PASS_MAX];            // lane shift, reduced to [0, 128)
-  short wr[PASS_MAX];               // window rows of the pass
+// The pass table in global memory (int32, 16-byte aligned): tab[p] the
+// lane shift of pass p reduced to [0, 128), tab[P + p] its window height,
+// then from tab[u0] (2 P rounded up to a multiple of 4) one int4 a unit:
+// its pass, first window row, rows and its pass's shift.
+struct PassTable {
+  const int* tab;
+  int P;
+  int u0;
+  __device__ __forceinline__ int shift(int p) const { return __ldg(tab + p); }
+  __device__ __forceinline__ int wr(int p) const { return __ldg(tab + P + p); }
+  __device__ __forceinline__ int4 unit(int u) const {
+    return __ldg(reinterpret_cast<const int4*>(tab + u0) + u);
+  }
 };
 
 // a ring stage: the index rows of a group, then cb x wt window rows
@@ -80,10 +99,9 @@ __host__ __device__ inline size_t pass_stage_bytes(int C, int K, int wt) {
 template <typename T, typename I>
 __global__ void __launch_bounds__(LANES * PASS_KY) lane_pass_update_kernel(
     const T* __restrict__ values, const int32_t* __restrict__ starts,
-    const I* __restrict__ idx, T* __restrict__ out, PassPlan plan, int C,
-    int nT, int P, int K, int wg, int head, int wt) {
+    const I* __restrict__ idx, T* __restrict__ out, PassTable plan, int U,
+    int C, int nT, int K, int wg, int head, int wt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_start[PASS_MAX];
   constexpr int CPR = (int)(LANES * sizeof(T) / 16);  // 16-byte chunks a row
   const int j = threadIdx.x;
   const int ky = threadIdx.y;
@@ -101,24 +119,21 @@ __global__ void __launch_bounds__(LANES * PASS_KY) lane_pass_update_kernel(
       (size_t)(K < PASS_ROWS ? K : PASS_ROWS) * LANES * sizeof(I);
   const size_t stage_bytes = pass_stage_bytes<T, I>(C, K, wt);
 
-  for (int p = tid; p < P; p += nthr) s_start[p] = starts[p * nT + t];
-  __syncthreads();
-
-  // stage unit u: its pass's index rows of this group, then its window
-  // rows for each of the block's channels (128 columns each); a window row
-  // past the last state row is staged as that row (the plain version
-  // clamps it)
-  auto issue = [&](int u, int stage) {
+  // stage the unit of table entry un (its pass's window starts at start in
+  // this bin): the pass's index rows of this group, then its window rows
+  // for each of the block's channels (128 columns each); a window row past
+  // the last state row is staged as that row (the plain version clamps it)
+  auto issue = [&](int4 un, int start, int stage) {
     unsigned char* sbase = smem_raw + (size_t)stage * stage_bytes;
-    const int p = plan.unit_pass[u];
-    const int n = plan.unit_rows[u];
+    const int p = un.x;
+    const int n = un.z;
     const unsigned char* gidx = reinterpret_cast<const unsigned char*>(
         idx + (((long long)p * nT + t) * K + kg0) * LANES);
     const int idx_chunks = (int)((size_t)kb * LANES * sizeof(I) / 16);
     for (int q = tid; q < idx_chunks; q += nthr)
       cp_async16(sbase + (size_t)q * 16, gidx + (size_t)q * 16);
     unsigned char* swin = sbase + idx_bytes;
-    const long long wrow0 = (long long)s_start[p] + plan.unit_row0[u];
+    const long long wrow0 = (long long)start + un.y;
     for (int c = 0; c < cb; ++c) {
       for (int q = tid; q < n * CPR; q += nthr) {
         const int r = q / CPR;
@@ -133,10 +148,15 @@ __global__ void __launch_bounds__(LANES * PASS_KY) lane_pass_update_kernel(
     }
   };
 
-  const int U = plan.n_units;
+  auto start_of = [&](int4 un) {
+    return __ldg(starts + (long long)un.x * nT + t);
+  };
 #pragma unroll
   for (int s = 0; s < PASS_STAGES - 1; ++s) {
-    if (s < U) issue(s, s);
+    if (s < U) {
+      const int4 un = plan.unit(s);
+      issue(un, start_of(un), s);
+    }
     cp_async_commit();
   }
 
@@ -161,20 +181,29 @@ __global__ void __launch_bounds__(LANES * PASS_KY) lane_pass_update_kernel(
     for (int q = 0; q < PASS_RPT; ++q) acc[c][q] = T(0);
 
   for (int u = 0; u < U; ++u) {
+    // this unit's entry, and the entry and pass start of the unit staged
+    // next, loaded before the wait so that their latency hides behind it
+    const int4 cur = plan.unit(u);
+    const int un_next = u + PASS_STAGES - 1;
+    int4 nxt = cur;
+    int nxt_start = 0;
+    if (un_next < U) {
+      nxt = plan.unit(un_next);
+      nxt_start = start_of(nxt);
+    }
     // unit u has landed (this thread's copies); the barrier makes every
     // thread's copies visible and retires the stage that unit u - 1 used
     cp_async_wait<PASS_STAGES - 2>();
     __syncthreads();
-    if (u + PASS_STAGES - 1 < U)
-      issue(u + PASS_STAGES - 1, (u + PASS_STAGES - 1) % PASS_STAGES);
+    if (un_next < U) issue(nxt, nxt_start, un_next % PASS_STAGES);
     cp_async_commit();
     const unsigned char* sbase =
         smem_raw + (size_t)(u % PASS_STAGES) * stage_bytes;
     const I* sidx = reinterpret_cast<const I*>(sbase);
     const T* swin = reinterpret_cast<const T*>(sbase + idx_bytes);
-    const int a = plan.unit_row0[u];
-    const int n = plan.unit_rows[u];
-    const int col = (j - plan.shift[plan.unit_pass[u]]) & (LANES - 1);
+    const int a = cur.y;
+    const int n = cur.z;
+    const int col = (j - cur.w) & (LANES - 1);
 #pragma unroll
     for (int q = 0; q < PASS_RPT; ++q) {
       const int k = ky + PASS_KY * q;
@@ -209,17 +238,29 @@ __global__ void __launch_bounds__(LANES * PASS_KY) lane_pass_update_kernel(
 // Owner-sum (head = 1) keeps the first design, measured faster than the
 // staged ring for it on the card: grid (bin, channel), thread j = lane
 // column j, PASS_KY thread rows walk the bin's rows, and each updated row
-// sums its passes in pass order straight from global memory.
+// sums its passes in pass order straight from global memory; the block
+// first copies its bin's pass starts, shifts and window heights into
+// shared memory (3 P ints).
 // (No launch bounds: with them ptxas trades registers for occupancy and
 // spills; rows are int -- R = T * wg rows fit.)
 template <typename T, typename I>
 __global__ void lane_owner_sum_kernel(
     const T* __restrict__ values, const int32_t* __restrict__ starts,
-    const I* __restrict__ idx, T* __restrict__ out, PassPlan plan, int nT,
+    const I* __restrict__ idx, T* __restrict__ out, PassTable plan, int nT,
     int P, int K, int wg) {
+  extern __shared__ int s_pass[];  // start, shift, window height of pass p
+  int* s_start = s_pass;
+  int* s_shift = s_pass + P;
+  int* s_wr = s_pass + 2 * P;
   const int j = threadIdx.x;
   const int t = blockIdx.x;
   const int R = nT * wg;
+  for (int p = threadIdx.y * LANES + j; p < P; p += LANES * PASS_KY) {
+    s_start[p] = starts[p * nT + t];
+    s_shift[p] = plan.shift(p);
+    s_wr[p] = plan.wr(p);
+  }
+  __syncthreads();
   const T* vc = values + (long long)blockIdx.y * R * LANES;
   T* oc = out + (long long)blockIdx.y * R * LANES;
   for (int row = threadIdx.y; row < wg; row += PASS_KY) {
@@ -229,10 +270,9 @@ __global__ void lane_owner_sum_kernel(
       T acc = T(0);
       for (int p = 0; p < P; ++p) {
         const int i = (int)idx[(((long long)p * nT + t) * K + row) * LANES + j];
-        if (i >= 0 && i < plan.wr[p]) {
-          const int srow = min(starts[p * nT + t] + i, R - 1);
-          acc += vc[(long long)srow * LANES +
-                    ((j - plan.shift[p]) & (LANES - 1))];
+        if (i >= 0 && i < s_wr[p]) {
+          const int srow = min(s_start[p] + i, R - 1);
+          acc += vc[(long long)srow * LANES + ((j - s_shift[p]) & (LANES - 1))];
         }
       }
       res = res + acc;
@@ -243,13 +283,21 @@ __global__ void lane_owner_sum_kernel(
 
 template <typename T, typename I>
 static int launch_owner_sum(const void* values, const void* starts,
-                            const void* idx, void* out, const PassPlan& plan,
+                            const void* idx, void* out, const PassTable& plan,
                             int C, int nT, int P, int K, int wg,
                             cudaStream_t stream) {
   auto kern = lane_owner_sum_kernel<T, I>;
+  const size_t smem = (size_t)3 * P * sizeof(int);
+  static size_t opted_in = 48 * 1024;  // per instance: no call per launch
+  if (smem > opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = smem;
+  }
   dim3 grid(nT, C);
   dim3 block(LANES, PASS_KY);
-  kern<<<grid, block, 0, stream>>>(
+  kern<<<grid, block, smem, stream>>>(
       (const T*)values, (const int32_t*)starts, (const I*)idx, (T*)out, plan,
       nT, P, K, wg);
   return (int)cudaGetLastError();
@@ -257,8 +305,8 @@ static int launch_owner_sum(const void* values, const void* starts,
 
 template <typename T, typename I>
 static int launch_pass(const void* values, const void* starts,
-                       const void* idx, void* out, const PassPlan& plan,
-                       int C, int nT, int P, int K, int wg, int head, int wt,
+                       const void* idx, void* out, const PassTable& plan,
+                       int U, int C, int nT, int K, int wg, int head, int wt,
                        size_t smem, cudaStream_t stream) {
   if (smem != PASS_STAGES * pass_stage_bytes<T, I>(C, K, wt))
     return (int)cudaErrorInvalidValue;
@@ -274,45 +322,32 @@ static int launch_pass(const void* values, const void* starts,
   dim3 grid(nT, (K + PASS_ROWS - 1) / PASS_ROWS, (C + PASS_CB - 1) / PASS_CB);
   kern<<<grid, block, smem, stream>>>(
       (const T*)values, (const int32_t*)starts, (const I*)idx, (T*)out, plan,
-      C, nT, P, K, wg, head, wt);
+      U, C, nT, K, wg, head, wt);
   return (int)cudaGetLastError();
 }
 
-// units: n_units (pass, first window row, rows) triples in pass order, the
-// tiles of each pass's window [0, wrs[p]); wt: the tallest tile; smem: the
-// dynamic shared memory the wrapper computed for this geometry.
+// table: the pass table on the device (PassTable: P shifts, P window
+// heights, then n_units (pass, first window row, rows, shift) entries in
+// pass order, the tiles of each pass's window [0, wrs[p])), built and
+// checked by the wrapper; wt: the tallest tile; smem: the dynamic shared
+// memory the wrapper computed for this geometry.
 extern "C" int lane_pass_update(
     int vt, int it, const void* values, const void* starts, const void* idx,
-    void* out, const int* shifts, const int* units, int n_units, int wt,
-    long long smem, int C, int nT, int P, int K, int wg, int head,
-    void* stream) {
+    void* out, const void* table, int n_units, int wt, long long smem, int C,
+    int nT, int P, int K, int wg, int head, void* stream) {
   if (nT <= 0 || C <= 0) return 0;
-  if (P > PASS_MAX || K > wg || K <= 0 || n_units > PASS_MAX_UNITS ||
-      n_units < 0 || wt <= 0)
+  if (P < 0 || K > wg || K <= 0 || n_units < 0 || wt <= 0 || table == nullptr)
     return (int)cudaErrorInvalidValue;
-  PassPlan plan;
-  plan.n_units = n_units;
-  for (int p = 0; p < P; ++p) {
-    plan.shift[p] = (short)(((shifts[p] % LANES) + LANES) % LANES);
-    plan.wr[p] = 0;
-  }
-  for (int u = 0; u < n_units; ++u) {
-    const int p = units[3 * u], a = units[3 * u + 1], n = units[3 * u + 2];
-    if (p < 0 || p >= P || a < 0 || n <= 0 || n > wt || a + n > 32767)
-      return (int)cudaErrorInvalidValue;
-    plan.unit_pass[u] = (short)p;
-    plan.unit_row0[u] = (short)a;
-    plan.unit_rows[u] = (short)n;
-    plan.wr[p] = (short)(plan.wr[p] + n);
-  }
+  if ((size_t)table % 16) return (int)cudaErrorInvalidValue;
+  PassTable plan{(const int*)table, P, (2 * P + 3) / 4 * 4};
   const cudaStream_t s = (cudaStream_t)stream;
 #define CALL(T, I)                                                         \
   do {                                                                       \
     if (head)                                                                \
       return launch_owner_sum<T, I>(values, starts, idx, out, plan, C, nT, P, \
                                     K, wg, s);                               \
-    return launch_pass<T, I>(values, starts, idx, out, plan, C, nT, P, K, wg, \
-                             head, wt, (size_t)smem, s);                     \
+    return launch_pass<T, I>(values, starts, idx, out, plan, n_units, C, nT, \
+                             K, wg, head, wt, (size_t)smem, s);              \
   } while (0)
   LANE_DISPATCH(vt, it, CALL);
 #undef CALL

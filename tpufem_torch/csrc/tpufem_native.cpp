@@ -222,9 +222,11 @@ int64_t lane_balance(const int64_t* cand, int64_t nc, int64_t nv,
                      int64_t n_keys, int64_t target0, int64_t* choice) {
     std::vector<int64_t> loads(n_keys, 0);
     std::vector<int8_t> allowed(nc * nv);
+    // residency of each candidate: one entry per node of the cell (27 for
+    // a Q2 hexahedron; a fixed 16-entry array overflowed there)
+    std::vector<int8_t> res(nv);
     for (int64_t i = 0; i < nc; ++i) {
         const int64_t* c = cand + i * nv;
-        int8_t res[16];
         int8_t mx = 0;
         for (int64_t a = 0; a < nv; ++a) {
             int8_t r = 0;

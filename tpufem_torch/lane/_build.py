@@ -125,14 +125,14 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         lib.lane_gather_cm.restype = ci
         cll = ctypes.c_longlong
         lib.lane_gather_cm.argtypes = [
-            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cll, vp]
+            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cll, vp]
         lib.lane_scatter_cm.restype = ci
         lib.lane_scatter_cm.argtypes = [
-            ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.lane_pass_update.restype = ci
         lib.lane_pass_update.argtypes = [
-            ci, ci, vp, vp, vp, vp, ip, ip, ci, ci, cll, ci, ci, ci, ci, ci,
-            ci, vp]
+            ci, ci, vp, vp, vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, ci, ci,
+            vp]
         cd = ctypes.c_double
         lib.lane_fused_elem.restype = ci
         lib.lane_fused_elem.argtypes = [

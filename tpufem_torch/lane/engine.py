@@ -32,14 +32,25 @@ per-cell Hessian is stored. The kernel's physics is written by hand
 evaluates, proves the match on probe cells at construction, and raises
 ``NotImplementedError`` for anything the kernel has no law for.
 
+The physics is specialized on the host in one of two ways. A single
+degree-1 cell term on P1 simplices takes the P1 path: one quadrature
+point per cell, (M,) reduced variables. Every other functional on
+triangles, tetrahedra, quadrilaterals or hexahedra whose cell terms share
+one quadrature degree and read no coefficient gradient takes the
+multi-quadrature-point path (``lane.multiqp``: P2, Q1, Q2, P1 under a
+higher rule, several terms folded into one integrand): per-point tables,
+(nq, M) reduced variables, the same gather / scatter / pass kernels
+around it, the staged pipeline only. Anything else raises
+``NotImplementedError`` naming its ROADMAP.md heading, as do facet terms
+(``forms.form``) and ``fused=True`` on a multi-qp engine -- nothing falls
+back silently to another path.
+
 ``make_solver`` preconditions CG with Jacobi or with the two-level
 lattice cycle (``lane.twolevel``); either way the CG operator is
 ``make_tangent``. ``make_mixed_solver`` runs the same inner solves in
 float32 under a float64 Newton loop whose residuals come from the flat
 ``Assembler``, and also takes the SA-AMG cycle (``la.amg``) in the flat
-layout. The multi-quadrature-point specialization and facet terms
-are not ported yet and raise ``NotImplementedError`` -- nothing falls
-back silently to another path.
+layout. Both run on either specialization.
 """
 
 from __future__ import annotations
@@ -63,6 +74,9 @@ from tpufem_torch.la.cg import pcg_chunk
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_gather_cm,
                                        lane_pass_update, lane_scatter_cm)
+from tpufem_torch.lane.multiqp import (MQ_CELLS, MultiQPPhysics,
+                                       cells_leading, fold_terms,
+                                       host_tables)
 from tpufem_torch.lane.plan import LanePlan, N_LANES, build_lane_plan
 from tpufem_torch.mesh.mesh import CellType
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
@@ -217,17 +231,20 @@ class LaneEngine:
             c.name: c.space.vector_dofmap() for c in functional.coefficients
         }
 
-        # specialized P1-simplex 1-point-quadrature physics: physical
-        # gradients and weights precomputed on host (f64)
+        # specialized physics, geometry precomputed on host (f64): the
+        # P1-simplex 1-point-quadrature path first, else the
+        # multi-quadrature-point path (or NotImplementedError)
         self.geom_dN = self.geom_w = self.geom_xq = None
-        if not self._try_specialize_p1():
-            raise NotImplementedError(
-                "only the P1-simplex single-term specialization is ported; "
-                "the multi-quadrature-point path (_try_specialize_multiqp) "
-                "is queued in ROADMAP.md (remaining lane engine paths)"
-            )
-        (self._red_res, self._red_energy, self._red_linearize,
-         self._red_apply) = self._make_reduced_fns()
+        self._mq = None  # lane.multiqp.MultiQPPhysics of the multi-qp path
+        self._red_diag = None
+        if self._try_specialize_p1():
+            (self._red_res, self._red_energy, self._red_linearize,
+             self._red_apply) = self._make_reduced_fns()
+        else:
+            mq = self._mq = self._specialize_multiqp()
+            (self._red_res, self._red_energy, self._red_linearize,
+             self._red_apply, self._red_diag) = (
+                mq.residual, mq.energy, mq.linearize, mq.apply, mq.diagonal)
 
         # fused element kernel: which hand-written law the integrand is
         # (proved on probe cells, or NotImplementedError -- never a quiet
@@ -237,6 +254,13 @@ class LaneEngine:
         # hand-written law reads qp.x.
         self._fused = bool(fused)
         self.fused_law = self.fused_geom = None
+        if self._fused and self._mq is not None:
+            raise NotImplementedError(
+                "LaneEngine(fused=True): lane_fused_elem has hand-written "
+                "physics for the P1 triangle only; a multi-quadrature-point "
+                "functional runs staged (fused=False) until the kernel's "
+                "source is generated (ROADMAP.md: K4, kernel source "
+                "generated from the elementwise energy)")
         if self._fused:
             self.fused_law = self._resolve_fused_law()
             dN_h, w_h = self._geom_host
@@ -421,6 +445,36 @@ class LaneEngine:
         self.geom_xq = self._store(xq_t)
         self._geom_host = (dN_t, w)  # for the fused kernel's geometry rows
         return True
+
+    def _specialize_multiqp(self) -> MultiQPPhysics:
+        """The multi-quadrature-point path (the reference's
+        ``_try_specialize_multiqp``): the cell terms folded into one
+        integrand, the float64 host tables (``lane.multiqp.host_tables``)
+        stored once on the device at the engine dtype -- dN cells leading
+        (M, nv, nq * gd), w (nq, M), xq (nq, gd, M) -- and the physics.
+        ``NotImplementedError`` for a functional it does not take."""
+        f = self.functional
+        mesh = self.space.mesh
+        integrand, qdeg, why = fold_terms(f)
+        if mesh.cell_type not in MQ_CELLS:
+            why = f"{mesh.cell_type} cells"
+        if why is not None:
+            raise NotImplementedError(
+                "LaneEngine: neither the P1 nor the multi-quadrature-point "
+                f"specialization takes this functional ({why}); the generic "
+                "element path is not ported (ROADMAP.md: the generic "
+                "element path)")
+        tabs = host_tables(self.space, self._safe_order, qdeg,
+                           f.coefficients, self._coeff_dofmaps)
+        self.geom_dN = self._store(cells_leading(tabs.pop("dN")))
+        self.geom_w = self._store(tabs.pop("w"))
+        self.geom_xq = self._store(tabs.pop("xq"))
+        coeff_meta = []
+        for c in f.coefficients:
+            n = self._coeff_dofmaps[c.name].shape[1]
+            coeff_meta.append((c.name, n // c.space.bs, c.space.bs))
+        return MultiQPPhysics(integrand, tabs["Nf"], tabs["Nc"], self.bs,
+                              mesh.gdim, coeff_meta, self.device)
 
     def _make_reduced_fns(self):
         """Residual / energy / linearization element kernels via
@@ -956,6 +1010,8 @@ class LaneEngine:
         the i-th unit element vector), scattered like a residual."""
         H = self.linearize(u_lane, coeff_cells) if lin is None else lin
         dN = self.geom_dN.to(u_lane.dtype)
+        if self._red_diag is not None:  # multi-qp: in closed form
+            return self._scatter_cells(self._red_diag(H, dN))
         nd = self.plan.nv * self.bs
         rows = []
         for i in range(nd):

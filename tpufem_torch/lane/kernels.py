@@ -41,7 +41,6 @@ entry" and contributes 0.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import Sequence, Tuple, Union
@@ -148,7 +147,8 @@ def lane_gather_cm(values, starts, idx, *, wr: int, n_ch: int):
     code = lib.lane_gather_cm(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
         starts.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        C, R, T, V, K, int(wr), geo["ky"], geo["smem"], _stream(dev),
+        C, R, T, V, K, int(wr), geo["ky"], int(geo["tiles"]), geo["smem"],
+        _stream(dev),
     )
     _raise_on(code, "lane_gather_cm")
     lane_gather_cm.launches += 1
@@ -191,7 +191,8 @@ def _window_geometry(name: str, C: int, V: int, wr: int, K: int,
     tiles = not weighted or 2 * (staged + SMEM_RESERVED) <= SMEM_PER_SM
     smem = gather_layout_bytes(C, V, wr, K, vbytes, ibytes, weighted, tiles)
     if smem > SMEM_PER_BLOCK and direct:
-        # K9 reads the window and the tables from global memory instead
+        # K1 and K9 read the window and the tables from global memory
+        # instead
         tiles, smem = False, 0
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
@@ -218,10 +219,12 @@ def gather_cm_geometry(C: int, V: int, wr: int, K: int, vbytes: int,
     the window and the index rows of its slab, ``smem`` bytes
     (:func:`gather_layout_bytes`). Thread (x, y) writes rows y, y + ky, ...
     of column x (``rows_per_thread`` at most), ``ky`` about GATHER_KY,
-    spread evenly over the K rows. ``ValueError`` where the window and the
-    index rows do not fit a block's shared memory."""
+    spread evenly over the K rows. Where the window and the index rows do
+    not fit a block's shared memory (a 3D plan's window in float64), the
+    block stages nothing (``tiles`` False, ``smem`` 0) and reads both from
+    global memory, with about GATHER_KY_REGS thread rows."""
     return _window_geometry("lane_gather_cm", C, V, wr, K, vbytes, ibytes,
-                            False)
+                            False, direct=True)
 
 
 @functools.lru_cache(maxsize=64)
@@ -306,10 +309,39 @@ def lane_scatter_cm_plain(src, idx, *, k_out: int, n_ch: int):
     return out[:, :, :k_out, :].contiguous()
 
 
+@functools.lru_cache(maxsize=64)
+def scatter_cm_geometry(k_out: int, vbytes: int) -> dict:
+    """Launch geometry of :func:`lane_scatter_cm`'s kernel for ``k_out``
+    output rows of ``vbytes``-byte values. A block (128 threads, one per
+    lane column) serves one (bin, channel) and keeps the output rows of one
+    band in shared memory: all ``k_out`` rows where they fit a block
+    (``bands`` 1), else ``bands`` bands of at most ``rows`` rows each, as
+    even as whole rows allow (grid z). Every block walks all (v, k) in the
+    same order, so the bands change no sum. ``smem``: a band's bytes."""
+    if k_out < 1 or vbytes not in (4, 8):
+        raise ValueError(f"lane_scatter_cm: k_out = {k_out} (>= 1), "
+                         f"{vbytes}-byte values")
+    fit = SMEM_PER_BLOCK // (N_LANES * vbytes)
+    bands = -(-k_out // fit)
+    rows = -(-k_out // bands)
+    return dict(rows=rows, bands=bands, smem=rows * N_LANES * vbytes)
+
+
+def scatter_cm_cover(geo: dict, k_out: int) -> np.ndarray:
+    """How many times the kernel of ``geo`` (:func:`scatter_cm_geometry`)
+    writes each of the ``k_out`` output rows of a (bin, channel): band b
+    writes rows [b * rows, min((b + 1) * rows, k_out))."""
+    counts = np.zeros(k_out, np.int64)
+    for b in range(geo["bands"]):
+        counts[b * geo["rows"]:min((b + 1) * geo["rows"], k_out)] += 1
+    return counts
+
+
 def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int):
     """Cells-minor bin scatter: src (V*C, T, K, 128) element vectors (dof
     row v*C+c), idx = the SAME (T, V, K, 128) gather table. Returns bin
-    partials (C, T, k_out, 128), channel-leading."""
+    partials (C, T, k_out, 128), channel-leading. The launch geometry is
+    :func:`scatter_cm_geometry`'s."""
     if src.device.type != "cuda":
         return lane_scatter_cm_plain(src, idx, k_out=k_out, n_ch=n_ch)
     dev = src.device
@@ -321,11 +353,12 @@ def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int):
             or ND != V * n_ch):
         raise ValueError("lane_scatter_cm: src/idx shapes do not match")
     C = n_ch
+    geo = scatter_cm_geometry(int(k_out), src.element_size())
     out = torch.empty((C, T, k_out, L), dtype=src.dtype, device=dev)
     lib = _build.load()
     code = lib.lane_scatter_cm(
         _VT[src.dtype], _IT[idx.dtype], src.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), C, T, V, K, int(k_out), _stream(dev),
+        out.data_ptr(), C, T, V, K, int(k_out), geo["rows"], _stream(dev),
     )
     _raise_on(code, "lane_scatter_cm")
     lane_scatter_cm.launches += 1
@@ -364,12 +397,9 @@ def lane_pass_update_plain(values, starts, idx, *, wrs: Sequence[int],
 
 
 # the constants of csrc/lane_pass_update.cu
-PASS_MAX = 64  # passes
-PASS_MAX_UNITS = 256  # staged units (pass tiles)
 PASS_ROWS = 32  # updated rows per block: 4 thread rows x 8 rows each
 PASS_CB = 2  # channels per block
 PASS_STAGES = 3  # ring depth, in units
-PASS_STATIC_SMEM = 4 * PASS_MAX  # the block's pass starts
 
 
 def pass_smem_bytes(C: int, K: int, wt: int, vbytes: int,
@@ -395,17 +425,16 @@ def pass_update_geometry(C: int, K: int, wrs: Tuple[int, ...], vbytes: int,
     order: one per pass, or one per tile of at most ``wt`` rows where a
     pass's window is taller than a ring stage can hold; ``wt`` is the
     tallest tile whose :func:`pass_smem_bytes` (``smem``) fits the card's
-    shared memory beside the pass starts. That is the refresh's kernel;
-    the owner-sum's (``head=True``) reads the passes straight from global
-    memory and takes only the window heights from the units. Raises
-    ``ValueError`` where not even one row fits or the unit list is longer
-    than the kernel takes."""
-    if C < 1 or K < 1 or len(wrs) > PASS_MAX:
-        raise ValueError(f"lane_pass_update: C = {C}, K = {K} (>= 1), "
-                         f"{len(wrs)} passes (<= {PASS_MAX})")
-    room = SMEM_PER_BLOCK - PASS_STATIC_SMEM
+    shared memory. That is the refresh's kernel; the owner-sum's
+    (``head=True``) reads the passes straight from global memory and takes
+    only the window heights from the units. The kernel reads the pass table
+    (:func:`pass_table`) from global memory, so any number of passes and
+    units launches. Raises ``ValueError`` where not even one row fits."""
+    if C < 1 or K < 1:
+        raise ValueError(f"lane_pass_update: C = {C}, K = {K} (>= 1)")
     wt = max(list(wrs) + [1])
-    while wt >= 1 and pass_smem_bytes(C, K, wt, vbytes, ibytes) > room:
+    while wt >= 1 and pass_smem_bytes(C, K, wt, vbytes, ibytes) > \
+            SMEM_PER_BLOCK:
         wt -= 1
     if wt < 1:
         raise ValueError(f"lane_pass_update: {min(K, PASS_ROWS)} index "
@@ -413,22 +442,32 @@ def pass_update_geometry(C: int, K: int, wrs: Tuple[int, ...], vbytes: int,
                          "window row")
     units = tuple((p, a, min(wt, w - a)) for p, w in enumerate(wrs)
                   for a in range(0, w, wt))
-    if len(units) > PASS_MAX_UNITS:
-        raise ValueError(f"lane_pass_update: {len(units)} window tiles of "
-                         f"{wt} rows, the kernel takes {PASS_MAX_UNITS}")
     return dict(wt=wt, units=units, groups=-(-K // PASS_ROWS),
                 channel_blocks=-(-C // PASS_CB),
                 smem=pass_smem_bytes(C, K, wt, vbytes, ibytes))
 
 
+def pass_table(wrs: Sequence[int], shifts: Sequence[int],
+               units: Sequence[Tuple[int, int, int]]) -> np.ndarray:
+    """The kernel's pass table (int32, csrc/lane_pass_update.cu:PassTable):
+    each pass's lane shift reduced to [0, 128), each pass's window height,
+    zeros up to a multiple of 4 entries, then each unit's (pass, first
+    window row, rows, its pass's shift), one 16-byte entry a unit."""
+    sh = [int(s) % N_LANES for s in shifts]
+    head = sh + [int(w) for w in wrs]
+    head += [0] * (-len(head) % 4)
+    return np.asarray(head + [x for p, a, n in units for x in (p, a, n, sh[p])],
+                      dtype=np.int32)
+
+
 @functools.lru_cache(maxsize=64)
-def _pass_update_args(C, K, wrs, shifts, vbytes, ibytes):
-    """The geometry and the ctypes arrays of one K3 launch (cached: the
-    engine repeats two call shapes per solve, each thousands of times)."""
+def _pass_update_args(C, K, wrs, shifts, vbytes, ibytes, device):
+    """The geometry and the device pass table of one K3 launch (cached:
+    the engine repeats two call shapes per solve, each thousands of
+    times; the table is uploaded once)."""
     g = pass_update_geometry(C, K, wrs, vbytes, ibytes)
-    flat = [x for unit in g["units"] for x in unit]
-    return (g, (ctypes.c_int * len(shifts))(*shifts),
-            (ctypes.c_int * max(len(flat), 1))(*flat))
+    table = pass_table(wrs, shifts, g["units"])
+    return g, torch.as_tensor(table, device=device)
 
 
 def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
@@ -461,14 +500,14 @@ def lane_pass_update(values, starts, idx, *, wrs: Sequence[int], wg: int,
         raise ValueError("lane_pass_update: shapes do not match")
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(P, T))
     _check_aligned("lane_pass_update", values, idx)
-    g, sh, units = _pass_update_args(
+    g, table = _pass_update_args(
         C, K, tuple(int(w) for w in wrs), tuple(int(s) for s in shifts),
-        values.element_size(), idx.element_size())
+        values.element_size(), idx.element_size(), dev)
     out = torch.empty((C, T, wg, L), dtype=values.dtype, device=dev)
     lib = _build.load()
     code = lib.lane_pass_update(
         _VT[values.dtype], _IT[idx.dtype], values.data_ptr(),
-        starts.data_ptr(), idx.data_ptr(), out.data_ptr(), sh, units,
+        starts.data_ptr(), idx.data_ptr(), out.data_ptr(), table.data_ptr(),
         len(g["units"]), g["wt"], g["smem"], C, T, P, K, int(wg),
         int(bool(head)), _stream(dev),
     )

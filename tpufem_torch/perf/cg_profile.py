@@ -119,13 +119,17 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
     ``la.amg.AMGHierarchy`` on the engine's device -- the iteration then
     preconditions with one V-cycle (degree 2) in the flat layout, as the
     mixed solver does, and ``parts`` splits it into the fine tangent, the
-    V-cycle, the lane <-> flat maps and the rest."""
+    V-cycle, the lane <-> flat maps and the rest. A staged
+    multi-quadrature-point engine is linearized once, and ``parts`` splits
+    its tangent into K1 gather, reduced arguments, Hessian apply, chain
+    back, K2 scatter and K3 owner-sum / refresh."""
     from tpufem_torch.lane import twolevel as tl
     from tpufem_torch.structured import mg2d
 
     free = eng.free_lane
     u = torch.where(free > 0, torch.zeros_like(eng.bc_lane), eng.bc_lane)
-    A_raw = eng.make_tangent(u, cc)
+    lin = eng.linearize(u, cc) if eng._mq is not None else None
+    A_raw = eng.make_tangent(u, cc, lin)
 
     def A(v):
         return A_raw(v * free) * free + v * (1.0 - free)
@@ -203,6 +207,35 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
                                       "lane_owner_sum")))}
         if rows else "not measured",
     )
+    if eng._mq is not None:
+        # the staged multi-qp tangent application in its six parts, once
+        # each per iteration: K1 gather, reduced arguments (a batched
+        # product with dN and the value products), the stored per-point
+        # Hessian applied, the chain back to the dof rows, K2 scatter, K3
+        # owner-sum and refresh (the tail tables included); "rest" is the
+        # CG vector work and the Jacobi scaling
+        mq, D = eng._mq, eng.geom_dN
+        p = eng.plan
+        r = state[0][1]
+        vc = eng._gather_cells(r)
+        a = mq.reduced_args(vc, D)
+        dg = mq.hess_apply(lin, a)
+        ev = mq.chain_back(dg, D)
+        src = ev.reshape(p.nv * eng.bs, p.G, p.kc, 128).contiguous()
+        part = K.lane_scatter_cm(src, eng.gather_idx, k_out=p.wg,
+                                 n_ch=eng.bs)
+        parts = dict(
+            gather=_part(lambda: eng._gather_cells(r), 20),
+            reduced_args=_part(lambda: mq.reduced_args(vc, D), 20),
+            hess_apply=_part(lambda: mq.hess_apply(lin, a), 20),
+            chain_back=_part(lambda: mq.chain_back(dg, D), 20),
+            scatter=_part(lambda: K.lane_scatter_cm(
+                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs), 20),
+            # the tail owner-sum adds into its argument: timing only
+            owner_refresh=_part(lambda: eng._owner_refresh(part), 20),
+        )
+        out["parts"] = _per_iter(parts, dict.fromkeys(parts, 1), busy,
+                                 n_kernels, rows)
     if amg is not None:
         from tpufem_torch.la.amg import vcycle
 
