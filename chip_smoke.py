@@ -98,6 +98,27 @@ prints one JSON line per phase:
                    seconds, the linearization and diagonal timed alone,
                    peak memory, one CG iteration split into its parts
                    under the profiler beside a tangent's byte bound
+11c. ``facets_generic`` facet (traction) terms and the lane engine's
+                   generic element path (K1-K4 around PyTorch physics):
+                   float64 card against CPU on the generic path (Q1
+                   hexahedra at box(4), a DG0 modulus, cell terms at
+                   quadrature degrees 2 and 3, Jacobi) and on the
+                   traction-loaded square at n = 32 under the mixed solver
+                   (same Newton count, CG +-1 a step, u rel <= 1e-9); the
+                   reference study's functional (``mechanic2d.setup`` at
+                   r = 7, 1 608 706 dofs) on the generic engine, float64:
+                   residual, tangent and diagonal at u0 and at a random
+                   state against the flat Assembler (rel <= 1e-12), a
+                   Jacobi solve capped at 2 Newton steps of 2 000 CG,
+                   twice, bitwise equal, set-up seconds, one CG iteration
+                   under the profiler split into K1, the element-matrix
+                   product, K2 and K3 beside its byte bound; the
+                   traction-loaded square at n = 1024 (2 101 250 dofs),
+                   float32, fused (K4, K3) and staged (K1-K3), capped,
+                   twice each, bitwise equal, the facet part of a CG
+                   iteration (launches, device ms), the error against the
+                   analytic solution; n = 128 in float64 to convergence,
+                   error <= 1e-9 max |u|
 12. ``mechanic2d`` the reference study's own workload, ``mechanic2d.run``
                    on square.msh (flat Assembler, Newton with Jacobi CG;
                    no CUDA kernel of the port on its path): at r = 3
@@ -178,7 +199,7 @@ from tpufem_torch.cases import (elasticity3d, mechanic2d,  # noqa: E402
 from tpufem_torch.config import Mechanic2DConfig, SolverConfig  # noqa: E402
 from tpufem_torch.forms import (EnergyFunctional, asym_damage_psi,  # noqa: E402
                                 linear_elastic_psi)
-from tpufem_torch.forms.form import Coefficient, Term  # noqa: E402
+from tpufem_torch.forms.form import Coefficient, FacetTerm, Term  # noqa: E402
 from tpufem_torch.io import read_xdmf  # noqa: E402
 from tpufem_torch.la import (chebyshev_preconditioner,  # noqa: E402
                              estimate_lambda_max, jacobi_preconditioner)
@@ -195,6 +216,7 @@ from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
 from tpufem_torch.perf import lattice_bench as LB  # noqa: E402
 from tpufem_torch.mesh import box, unit_square  # noqa: E402
+from tpufem_torch.mesh.topology import locate_entities_boundary  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
 from tpufem_torch.spaces.bc import locate_dofs_geometrical  # noqa: E402
 from tpufem_torch.structured import (StructuredGrid2D,  # noqa: E402
@@ -217,8 +239,8 @@ FULL_NEWTON_MAXIT, FULL_CG_MAXIT = 2, 300
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
-          "structured2d", "structured3d", "multiqp", "mechanic2d", "flat3d",
-          "amg")
+          "structured2d", "structured3d", "multiqp", "facets_generic",
+          "mechanic2d", "flat3d", "amg")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -410,6 +432,37 @@ def record(name, err, ms, plain_ms, bound_bytes, library_ms, **extra):
                  bound_bytes=bound_bytes, **extra)
 
 
+def index_add_yardstick_ms(src, ix, ref, dump_row=False):
+    """K2's library yardstick at a plan's shapes: one ``index_add_`` (float
+    atomics, so checked close to K2's plain version ``ref`` (C, G, wg,
+    128), not equal) over int64 global indices. The padding entries (ix
+    -1) are left out: the plain version adds each into a row of its own
+    (bin, lane), so they cost it no collisions. With ``dump_row`` they all
+    go to one appended row instead, where their atomics collide on C
+    addresses, to show what such a yardstick would have counted against
+    the kernel."""
+    C2, G2, wg2 = ref.shape[0], ref.shape[1], ref.shape[2]
+    V2 = ix.shape[1]
+    ii = ix.to(torch.int64)
+    lane = torch.arange(128, device=DEV)
+    tt = torch.arange(G2, device=DEV).view(G2, 1, 1, 1)
+    dest = ((tt * wg2 + ii) * 128 + lane).permute(1, 0, 2, 3).reshape(-1)
+    real = (ii >= 0).expand(-1, -1, -1, 128).permute(1, 0, 2, 3).reshape(-1)
+    s2 = src.reshape(V2, C2, -1).permute(0, 2, 1).reshape(-1, C2)
+    n_out = G2 * wg2 * 128
+    if dump_row:
+        dest = torch.where(real, dest, torch.full_like(dest, n_out))
+        s2 = s2.contiguous()
+    else:
+        dest, s2 = dest[real], s2[real].contiguous()
+    acc = torch.zeros((n_out + 1, C2), dtype=src.dtype, device=DEV)
+    acc.index_add_(0, dest, s2)
+    lib = acc[:-1].T.reshape(ref.shape)
+    check(float((lib - ref).abs().max()) <= 1e-4 * float(ref.abs().max()),
+          "index_add_ yardstick disagrees")
+    return time_ms(lambda: acc.index_add_(0, dest, s2), 10)
+
+
 # K4's arithmetic per cell slot, counted by hand from the kernel source
 # (strain, Lame factors, stress or its directional derivative, six element
 # vector rows, six accumulator adds): far below what its bytes cost
@@ -478,25 +531,9 @@ for vdt in (torch.float32, torch.float64):
                 src, gidx, k_out=wg, n_ch=C), 20)
             pms = time_ms(lambda: K.lane_scatter_cm_plain(
                 src, gidx, k_out=wg, n_ch=C), 2)
-            # library yardstick: one index_add_ (float atomics, so only
-            # close to the kernel, not equal) over int64 global indices
-            ii = gidx.to(torch.int64)
-            lane = torch.arange(128, device=DEV)
-            tt = torch.arange(G, device=DEV).view(G, 1, 1, 1)
-            dest = (tt * wg + ii) * 128 + lane
-            dest = torch.where(ii >= 0, dest, torch.full_like(dest, p.R * 128))
-            dest = dest.permute(1, 0, 2, 3).reshape(-1)  # (V*G*kc*128,)
-            s2 = src.reshape(V_, C, -1).permute(0, 2, 1).reshape(-1, C) \
-                .contiguous()
-            acc = torch.zeros((p.R * 128 + 1, C), dtype=vdt, device=DEV)
-            acc.index_add_(0, dest, s2)
-            lib = acc[:-1].T.reshape(C, G, wg, 128)
-            check(float((lib - ref).abs().max()) <= 1e-4 * float(
-                ref.abs().max()), "index_add_ yardstick disagrees")
-            lms = time_ms(lambda: acc.index_add_(0, dest, s2), 10)
+            lms = index_add_yardstick_ms(src, gidx, ref)
             record("lane_scatter_cm", err, ms, pms, nbytes(src, gidx, out),
-                   lms)
-            del dest, s2, acc, lib, ii
+                   lms, padding_share=float((gidx < 0).float().mean()))
         else:
             record("lane_scatter_cm", err, None, None, None, None)
         del src
@@ -808,8 +845,11 @@ for vdt in (torch.float32, torch.float64):
             pms = time_ms(lambda: K.lane_scatter_plain(src, k10_starts,
                                                        didx, **kw), 2)
             # yardstick: one index_add_ (float atomics: close, not equal)
+            # over the real entries only (padding left out, as for K2)
             dest = index_add_dest(didx, wg, SK10).reshape(-1)
-            s2 = src.reshape(C, -1).T.contiguous()  # (G*SK10*128, C)
+            real = dest < G * wg * 128
+            dest = dest[real]
+            s2 = src.reshape(C, -1).T[real].contiguous()  # (n_real, C)
             acc = torch.zeros((G * wg * 128 + 1, C), dtype=vdt, device=DEV)
             acc.index_add_(0, dest, s2)
             lib = acc[:-1].reshape(G, wg, 128, C).permute(0, 3, 1, 2)
@@ -822,7 +862,7 @@ for vdt in (torch.float32, torch.float64):
             record("lane_scatter", err, ms, pms,
                    nbytes(src, k10_starts, didx, out), lms, ms_range=ms_r)
             results["lane_scatter"].update(bound_ms=bms, bound_by=by)
-            del dest, s2, acc, lib
+            del dest, s2, acc, lib, real
         else:
             record("lane_scatter", err, None, None, None, None)
         del src, out, ref
@@ -1154,6 +1194,25 @@ def elastic3d(mesh, degree, qdeg, dtype, device=DEV):
                 DirichletBC(V3, right3, [0.01, 0.0, 0.0])], V3
 
 
+def gather_yardstick_ms(vals, st, ix, ref):
+    """K1's library yardstick at a plan's shapes: one ``torch.gather`` over
+    int64 global indices (expanded outside the timing; -1 -> an appended
+    0), checked equal to K1's plain version ``ref``."""
+    C3, R3 = vals.shape[0], vals.shape[1]
+    G3, V3 = ix.shape[0], ix.shape[1]
+    ii = ix.to(torch.int64)
+    lane = torch.arange(128, device=DEV)
+    flat = (st.to(torch.int64).view(G3, 1, 1, 1) + ii) * 128 + lane
+    flat = torch.where(ii >= 0, flat, torch.full_like(flat, R3 * 128))
+    flat = flat.permute(1, 0, 2, 3).reshape(1, -1).expand(C3, -1)
+    vext = torch.cat([vals.reshape(C3, -1), vals.new_zeros((C3, 1))], dim=1)
+    lib = torch.gather(vext, 1, flat).reshape(C3, V3, *ix.shape[:1],
+                                              *ix.shape[2:]) \
+        .permute(1, 0, 2, 3, 4).reshape(ref.shape)
+    check(torch.equal(lib, ref), "gather yardstick disagrees")
+    return time_ms(lambda: torch.gather(vext, 1, flat), 10)
+
+
 def lane_edges_3d(tag, eng3, timed):
     """K1, K2 and both K3 modes on ``eng3``'s own tables, both dtypes;
     with ``timed``, the float32 times, plain times and bounds."""
@@ -1192,11 +1251,16 @@ def lane_edges_3d(tag, eng3, timed):
             times["lane_gather_cm"] = (
                 median_ms(lambda: K.lane_gather_cm(vals, st, ix, **k1), 20),
                 time_ms(lambda: K.lane_gather_cm_plain(vals, st, ix, **k1),
-                        2), nbytes(vals, st, ix, out))
+                        2), nbytes(vals, st, ix, out),
+                gather_yardstick_ms(vals, st, ix, ref))
             times["lane_scatter_cm"] = (
                 median_ms(lambda: K.lane_scatter_cm(src, ix, **k2), 20),
                 time_ms(lambda: K.lane_scatter_cm_plain(src, ix, **k2), 1),
-                nbytes(src, ix, out2))
+                nbytes(src, ix, out2), index_add_yardstick_ms(src, ix, ref2))
+            results["lane_scatter_cm"].update(
+                q2hex_library_dump_row_ms=index_add_yardstick_ms(
+                    src, ix, ref2, dump_row=True),
+                q2hex_padding_share=float((ix < 0).float().mean()))
         del out, ref, src, out2, ref2
         for head, st3, ix3, wrs3, sh3 in k3_tabs:
             kw = dict(wrs=wrs3, wg=p3.wg, shifts=sh3, head=head)
@@ -1216,15 +1280,16 @@ def lane_edges_3d(tag, eng3, timed):
                         vals, st3, ix3, **kw), 20),
                     time_ms(lambda: K.lane_pass_update_plain(
                         vals, st3, ix3, **kw), 1),
-                    nbytes(vals, st3, ix3, out))
+                    nbytes(vals, st3, ix3, out), None)
             del out, ref
         del vals
-    for key, (ms_r, pms, b) in times.items():
+    for key, (ms_r, pms, b, lib) in times.items():
         name, pre = (("lane_pass_update", "q2hex_refresh_")
                      if key.endswith("_refresh") else (key, "q2hex_"))
         results[name].update({pre + "ms": ms_r[0], pre + "ms_range": ms_r,
                               pre + "plain_ms": pms,
-                              pre + "bound_ms": b / HBM_BYTES_PER_S * 1e3})
+                              pre + "bound_ms": b / HBM_BYTES_PER_S * 1e3,
+                              pre + "library_ms": lib})
     return info
 
 
@@ -2415,6 +2480,303 @@ emit("multiqp", check_card_vs_cpu=mq_small, full=dict(
 del eng_q2, plan_q2, F_q2, bcs_q2, mq_u1, mq_u2, u0_q2, u_lin, mq
 torch.cuda.empty_cache()
 
+# -- 11c. facets_generic: facet terms and the generic element path -----------
+
+T_TRAC = 1000.0  # the traction of tests/test_facets.py:25
+FG_R, FG_N, FG_N_CONV, FG_N_MIXED = 7, 1024, 128, 32
+
+
+def fg_rel(a, b):
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return float((a - b.to(a.device)).abs().max() / b.abs().max())
+
+
+def traction_problem(n, dtype, device=DEV):
+    """tests/test_facets.py:25 at unit_square(n): plane strain, linear
+    elasticity, a traction T_TRAC on x = 1 (a facet term), u_x = 0 on
+    x = 0, u_y = 0 on y = 0."""
+    mesh_t = unit_square(n)
+    V_t = FunctionSpace.create(mesh_t, 1, bs=2)
+    right_t = locate_entities_boundary(
+        mesh_t, 1, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    F_t = EnergyFunctional(
+        V_t, [Term(lambda qp: linear_elastic_psi(qp.eps, 1.0e6, NU), 1)],
+        facet_terms=[FacetTerm(lambda f: -T_TRAC * f.u[0], 2,
+                               facets=right_t)], device=device, dtype=dtype)
+    left_x = locate_dofs_geometrical(V_t, lambda x: np.abs(x[:, 0]) < 1e-12)
+    bot_y = locate_dofs_geometrical(V_t, lambda x: np.abs(x[:, 1]) < 1e-12)
+    return F_t, [DirichletBC(V_t, left_x, 0.0, components=[0]),
+                 DirichletBC(V_t, bot_y, 0.0, components=[1])], V_t
+
+
+def traction_error(V_t, u_flat):
+    """(max error against the plane-strain solution u_x = T(1 - nu^2)/E x,
+    u_y = -nu(1 + nu)T/E y; max |u|)."""
+    uu = np.asarray(u_flat, dtype=np.float64).reshape(-1, 2)
+    x = V_t.dof_coords
+    err = max(np.abs(uu[:, 0] - T_TRAC * (1 - NU ** 2) / 1.0e6 * x[:, 0]).max(),
+              np.abs(uu[:, 1] + NU * (1 + NU) * T_TRAC / 1.0e6 * x[:, 1]).max())
+    return float(err), float(np.abs(uu).max())
+
+
+def fg_solve(eng, cc, cfg, chunk=200):
+    """``make_solver`` from the lifted zero state, timed, with the lane
+    kernels' launches of this solve alone."""
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, st = eng.make_solver(cfg, cg_chunk=chunk)(torch.zeros_like(
+        eng.bc_lane), cc)
+    torch.cuda.synchronize()
+    return u, st, time.perf_counter() - t0, K.launch_counts()
+
+
+def fg_twice(tag, eng, cc, cfg, path):
+    """Two solves, bitwise equal in u, residuals and CG counts; every
+    kernel of ``path`` launched in each. A staged solve launches no K4; a
+    fused one's K1 / K2 run only in the Jacobi diagonal, once a Newton
+    step."""
+    runs = [fg_solve(eng, cc, cfg) for _ in range(2)]
+    (u1, s1, t1, l1), (u2, s2, t2, l2) = runs
+    check(torch.equal(u1, u2) and s1["residuals"] == s2["residuals"]
+          and s1["cg_iters"] == s2["cg_iters"],
+          f"{tag}: two runs differ ({s1['cg_iters']} / {s2['cg_iters']}, "
+          f"{s1['residuals']} / {s2['residuals']})")
+    check(bool(torch.isfinite(u1).all()), f"{tag}: non-finite u")
+    steps = s1["newton_iters"]
+    others = ({"lane_gather_cm": steps, "lane_scatter_cm": steps}
+              if "lane_fused_elem" in path else {})
+    check(all(l1[k] > 0 for k in path)
+          and all(l1[k] <= others.get(k, 0) for k in l1 if k not in path),
+          f"{tag}: the solve did not run on {path}: {l1}")
+    return u1, s1, [t1, t2], l1
+
+
+t_phase = time.perf_counter()
+fg_gen = torch.Generator(device=DEV)
+fg_gen.manual_seed(1515)
+STAGED_PATH = ("lane_gather_cm", "lane_scatter_cm", "lane_pass_update")
+FUSED_PATH = ("lane_fused_elem", "lane_pass_update")
+
+# (c) card against CPU at small sizes, float64: the generic path on Q1
+# hexahedra at box(4) (a DG0 modulus, cell terms at quadrature degrees 2
+# and 3), and the traction problem at n = FG_N_MIXED under the mixed solver
+def q1_generic(device):
+    mesh_h = box(4, 4, 4)
+    V_h = FunctionSpace.create(mesh_h, 1, bs=3)
+    P0_h = FunctionSpace.create(mesh_h, 0, bs=1)
+    F_h = EnergyFunctional(V_h, [
+        Term(lambda qp: qp.coeff("E") * linear_elastic_psi(qp.eps, 1.0, NU),
+             2),
+        Term(lambda qp: -1.0e3 * qp.u[0] * qp.x[2], 3)],
+        [Coefficient("E", P0_h)], device=device, dtype=torch.float64)
+    left_h = locate_dofs_geometrical(V_h, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right_h = locate_dofs_geometrical(
+        V_h, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    eng_h = LaneEngine(F_h, [DirichletBC(V_h, left_h, [0.0, 0.0, 0.0]),
+                             DirichletBC(V_h, right_h, [0.01, 0.0, 0.0])],
+                       wg_own=8, device=device, dtype=torch.float64)
+    check(eng_h.path == "generic", f"Q1 box(4): on the {eng_h.path} path")
+    E_h = 1.0e6 * (1.0 + np.random.default_rng(15).uniform(
+        size=mesh_h.n_cells))
+    u_h, st_h = eng_h.make_solver(SolverConfig(
+        cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=3000), cg_chunk=200)(
+        torch.zeros_like(eng_h.bc_lane), eng_h.prepare_coeffs({"E": E_h}))
+    return eng_h.from_lane(u_h), st_h
+
+
+def traction_mixed(device):
+    F_m, bcs_m, V_m = traction_problem(FG_N_MIXED, torch.float64, device)
+    eng_m = LaneEngine(F_m, bcs_m, wg_own=8, device=device,
+                       dtype=torch.float32)
+    u_m, st_m = eng_m.make_mixed_solver(SolverConfig(
+        cg_rtol=1e-8, newton_rtol=1e-10, cg_maxit=4000, newton_maxit=30),
+        cg_chunk=200)(torch.zeros(V_m.n_dofs, dtype=torch.float64,
+                                  device=device), {}, eng_m.prepare_coeffs({}))
+    return u_m.cpu().numpy(), st_m, V_m
+
+
+fg_small = {}
+for tag, fn in (("generic_q1_box4", q1_generic),
+                ("traction_mixed_n32", traction_mixed)):
+    out_d, out_c = fn(DEV), fn("cpu")
+    (u_d, s_d), (u_c, s_c) = out_d[:2], out_c[:2]
+    u_rel = fg_rel(u_d, u_c)
+    check(s_d["converged"] and s_c["converged"]
+          and s_d["newton_iters"] == s_c["newton_iters"]
+          and all(abs(a - b) <= 1 for a, b in zip(s_d["cg_iters"],
+                                                  s_c["cg_iters"]))
+          and u_rel <= 1e-9,
+          f"facets_generic {tag}: card {s_d['newton_iters']} / "
+          f"{s_d['cg_iters']}, CPU {s_c['newton_iters']} / {s_c['cg_iters']},"
+          f" u rel {u_rel:.3e}")
+    fg_small[tag] = dict(newton_card=s_d["newton_iters"],
+                         newton_cpu=s_c["newton_iters"],
+                         cg_card=s_d["cg_iters"], cg_cpu=s_c["cg_iters"],
+                         u_rel=u_rel)
+    if tag.startswith("traction"):
+        fg_small[tag]["analytic_error"] = traction_error(out_d[2], u_d)
+secs_fg_c = time.perf_counter() - t_phase
+
+# (a) the reference study's functional (mechanic2d.setup at r = FG_R: asym
+# damage at degree 1, the volumetric load at degree 2) on the lane engine's
+# generic path, staged, float64
+t0 = time.perf_counter()
+asm_g, c_g, V_g, mesh_g, _ = mechanic2d.setup(
+    Mechanic2DConfig(max_refine=FG_R), device=DEV, dtype=torch.float64)
+torch.cuda.synchronize()
+g_setup = dict(mechanic2d_setup=time.perf_counter() - t0)
+t0 = time.perf_counter()
+plan_g = build_lane_plan(V_g.dof_coords, np.asarray(V_g.dofmap), wg_own=32)
+g_setup["plan"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng_g = LaneEngine(asm_g.functional, asm_g.bcs, plan=plan_g, device=DEV,
+                   dtype=torch.float64)
+torch.cuda.synchronize()
+g_setup["engine_tables_x_lane"] = time.perf_counter() - t0
+check(eng_g.path == "generic", f"mechanic2d r = {FG_R}: on the "
+      f"{eng_g.path} path, not the generic one")
+t0 = time.perf_counter()
+cc_g = eng_g.prepare_coeffs(c_g)
+torch.cuda.synchronize()
+g_setup["prepare_coeffs"] = time.perf_counter() - t0
+free_g = asm_g.free_mask(torch.float64) > 0
+u0_g = asm_g.set_bc(torch.zeros(V_g.n_dofs, dtype=torch.float64, device=DEV))
+ur_g = u0_g + 1e-3 * torch.randn(V_g.n_dofs, dtype=torch.float64,
+                                 device=DEV, generator=fg_gen) * free_g
+v_g = torch.randn(V_g.n_dofs, dtype=torch.float64, device=DEV,
+                  generator=fg_gen)
+g_parity = {}
+for tag, uf in (("u0", u0_g), ("random", ur_g)):
+    ul = eng_g.to_lane_dev(uf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lin_g = eng_g.linearize(ul, cc_g)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t0
+    got = dict(
+        residual=eng_g.from_lane_dev(eng_g.residual(ul, cc_g)),
+        tangent=eng_g.from_lane_dev(eng_g.make_tangent(ul, cc_g, lin_g)(
+            eng_g.to_lane_dev(v_g))),
+        diagonal=eng_g.from_lane_dev(eng_g.diagonal(ul, cc_g, lin_g))[free_g])
+    del lin_g
+    ref = dict(residual=asm_g.residual(uf, c_g, batch=ELEMENT_BATCH),
+               tangent=asm_g.tangent_action(uf, c_g, v_g),
+               diagonal=asm_g.diagonal(uf, c_g)[free_g])
+    g_parity[tag] = {k: fg_rel(got[k], ref[k]) for k in got}
+    g_parity[tag]["linearize_s"] = lin_s
+    check(all(g_parity[tag][k] <= 1e-12 for k in got),
+          f"mechanic2d r = {FG_R} generic engine against the flat "
+          f"Assembler at {tag}: {g_parity[tag]}")
+    del got, ref, ul
+del ur_g, v_g
+torch.cuda.empty_cache()
+# the solve: Jacobi, capped like phase mechanic2d's r = 7 run (2 Newton
+# steps of at most 2 000 CG at the reference's rtol 1e-12), twice
+cfg_g = SolverConfig(newton_maxit=2, cg_maxit=2000)
+torch.cuda.reset_peak_memory_stats()
+u_g, st_g, secs_g, launches_g = fg_twice(
+    f"mechanic2d r = {FG_R} generic", eng_g, cc_g, cfg_g, STAGED_PATH)
+peak_g = torch.cuda.max_memory_allocated()
+check(st_g["final_residual"] < st_g["residuals"][0],
+      f"mechanic2d r = {FG_R} generic: the residual did not fall: "
+      f"{st_g['residuals']} -> {st_g['final_residual']}")
+prof_g = cg_profile.profile_cg_iteration(eng_g, cc_g, 10)
+M_g = plan_g.G * plan_g.kc * 128
+nd_g = plan_g.nv * eng_g.bs
+# one generic tangent application's least traffic: the element matrices
+# once, the gathered cell values and the element vectors written and read
+# once each, the state read and written
+g_bytes = dict(element_matrices=nd_g * nd_g * M_g * 8,
+               cell_vectors=4 * nd_g * M_g * 8,
+               state=2 * eng_g.bs * plan_g.R * 128 * 8)
+prof_g.update(tangent_bound_bytes=g_bytes, tangent_bound_ms=sum(
+    g_bytes.values()) / HBM_BYTES_PER_S * 1e3)
+fg_generic = dict(
+    problem=f"mechanic2d.setup(max_refine={FG_R}) (square.msh), its "
+            "functional on LaneEngine: generic path, staged, float64, "
+            "Jacobi, 2 Newton steps of at most 2000 CG",
+    n_dofs=V_g.n_dofs, n_cells=int(mesh_g.n_cells), lane_cells=M_g,
+    G=plan_g.G, kc=plan_g.kc, wg=plan_g.wg,
+    owner_passes=len(eng_g.owner_wrs), refresh_passes=len(eng_g.refresh_wrs),
+    setup_s=g_setup, x_lane_bytes=nbytes(eng_g.x_lane), parity=g_parity,
+    newton_iters=st_g["newton_iters"], cg_iters=st_g["cg_iters"],
+    cg_enqueued=st_g["cg_enqueued"], residuals=st_g["residuals"],
+    final_residual=st_g["final_residual"], cg_seconds=st_g["cg_seconds"],
+    run_seconds=secs_g, ms_per_cg_iter=1e3 * st_g["cg_seconds"] / max(
+        sum(st_g["cg_enqueued"]), 1),
+    peak_bytes=peak_g, launches=launches_g, bitwise_equal_twice=True,
+    cg_iteration=prof_g)
+del eng_g, asm_g, c_g, cc_g, plan_g, u_g, u0_g, free_g, mesh_g, V_g
+torch.cuda.empty_cache()
+
+# (b) the traction-loaded square at full width: unit_square(FG_N), P1,
+# float32, Jacobi, capped like the polycrystal's Jacobi solves, fused (K4,
+# K3) and staged (K1-K3) on one plan, twice each
+t0 = time.perf_counter()
+F_t, bcs_t, V_t = traction_problem(FG_N, torch.float32)
+t_setup = dict(problem=time.perf_counter() - t0)
+t0 = time.perf_counter()
+plan_t = build_lane_plan(V_t.dof_coords, np.asarray(V_t.dofmap), wg_own=16)
+t_setup["plan"] = time.perf_counter() - t0
+cfg_t = SolverConfig(newton_maxit=FULL_NEWTON_MAXIT, cg_maxit=FULL_CG_MAXIT,
+                     cg_rtol=1e-8, newton_rtol=1e-6)
+fg_traction, launches_t = {}, {}
+for name, fused, path in (("fused", True, FUSED_PATH),
+                          ("staged", False, STAGED_PATH)):
+    t0 = time.perf_counter()
+    eng_t = LaneEngine(F_t, bcs_t, plan=plan_t, fused=fused, device=DEV,
+                       dtype=torch.float32)
+    cc_t = eng_t.prepare_coeffs({})
+    torch.cuda.synchronize()
+    setup_t = time.perf_counter() - t0
+    u_t, st_t, secs_t, launches_t[name] = fg_twice(
+        f"traction n = {FG_N} {name}", eng_t, cc_t, cfg_t, path)
+    err_t, umax_t = traction_error(V_t, eng_t.from_lane_dev(u_t).cpu())
+    prof_t = cg_profile.profile_cg_iteration(eng_t, cc_t, 20)
+    fp = prof_t["facet_part"]
+    fg_traction[name] = dict(
+        engine_setup_s=setup_t, newton_iters=st_t["newton_iters"],
+        cg_iters=st_t["cg_iters"], residuals=st_t["residuals"],
+        final_residual=st_t["final_residual"], run_seconds=secs_t,
+        ms_per_cg_iter=1e3 * st_t["cg_seconds"] / max(
+            sum(st_t["cg_enqueued"]), 1),
+        analytic_error_at_cap=err_t, max_abs_u=umax_t,
+        launches=launches_t[name], bitwise_equal_twice=True,
+        facet_part=fp, cg_iteration=prof_t)
+    del eng_t, cc_t, u_t
+fg_traction.update(setup_s=t_setup, n_dofs=V_t.n_dofs,
+                   n_facets=int(len(F_t.facet_terms[0].facets)),
+                   lane_cells=plan_t.G * plan_t.kc * 128)
+del F_t, bcs_t, plan_t
+torch.cuda.empty_cache()
+# ... and at n = FG_N_CONV to convergence in float64, against the analytic
+# solution
+F_c, bcs_c, V_c = traction_problem(FG_N_CONV, torch.float64)
+eng_c = LaneEngine(F_c, bcs_c, wg_own=16, device=DEV, dtype=torch.float64)
+u_c, st_c, secs_c, _ = fg_solve(eng_c, eng_c.prepare_coeffs({}),
+                                SolverConfig(cg_rtol=1e-12, newton_rtol=1e-10,
+                                             cg_maxit=20000))
+err_c, umax_c = traction_error(V_c, eng_c.from_lane_dev(u_c).cpu())
+check(st_c["converged"] and err_c <= 1e-9 * umax_c,
+      f"traction n = {FG_N_CONV} float64: converged {st_c['converged']}, "
+      f"error {err_c:.3e} against max |u| {umax_c:.3e}")
+fg_traction["converged_n128_float64"] = dict(
+    n_dofs=V_c.n_dofs, newton_iters=st_c["newton_iters"],
+    cg_iters=st_c["cg_iters"], seconds=secs_c, analytic_error=err_c,
+    max_abs_u=umax_c)
+del F_c, bcs_c, V_c, eng_c, u_c
+torch.cuda.empty_cache()
+emit("facets_generic", card_vs_cpu=fg_small, generic_mechanic2d=fg_generic,
+     traction=fg_traction,
+     tolerance="generic engine against the flat Assembler (float64, card): "
+               "rel <= 1e-12 (diagonal on free dofs); card against CPU "
+               "(float64): same Newton count, CG +-1 a step, u rel <= 1e-9; "
+               "full width: two runs bitwise equal, each on its kernels "
+               "alone; n = 128 float64: analytic error <= 1e-9 max |u|",
+     seconds_by_part=dict(card_vs_cpu=secs_fg_c),
+     nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+
 # -- 12. mechanic2d: the reference study's own workload (flat Assembler) ---------
 
 # the reference's Newton / CG counts on square.msh refined 3 times
@@ -3099,7 +3461,11 @@ for name, r in results.items():
         entry.update(launches_staged_jacobi_solve=launches[name],
                      launches_fused_jacobi_solve=launches_fused[name],
                      launches_mixed_solve=launches_mx[name],
-                     launches_multiqp_solve=launches_mq[name])
+                     launches_multiqp_solve=launches_mq[name],
+                     launches_generic_mechanic2d_solve=launches_g[name],
+                     launches_traction_fused_solve=launches_t["fused"][name],
+                     launches_traction_staged_solve=launches_t["staged"][
+                         name])
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
@@ -3111,7 +3477,9 @@ for name, r in results.items():
               "lines_per_warp_load", "prolong_lines_per_warp_load",
               "q2hex_ms", "q2hex_ms_range", "q2hex_plain_ms",
               "q2hex_bound_ms", "q2hex_refresh_ms", "q2hex_refresh_ms_range",
-              "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms"):
+              "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms",
+              "q2hex_library_ms", "q2hex_library_dump_row_ms",
+              "q2hex_padding_share", "padding_share"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

@@ -330,26 +330,13 @@ def test_native_planner_takes_cells_of_27_nodes(monkeypatch):
             assert a == b, f.name
 
 
-def _p1(terms, coefficients=()):
-    mesh = t_mesh.unit_square(4)
-    V = t_spaces.FunctionSpace.create(mesh, 1, bs=2)
-    DS = t_spaces.FunctionSpace.create(mesh, 1, bs=1)
-    F = t_form.EnergyFunctional(
-        V, terms, [t_form.Coefficient(c, DS) for c in coefficients], **F64)
-    return F
-
-
 def test_what_the_multiqp_path_does_not_take_raises(damage_p2):
-    """fused=True on a multi-qp engine, terms of two quadrature degrees,
-    a term that needs coefficient gradients: NotImplementedError naming a
-    ROADMAP.md heading, never a quiet switch of path."""
-    elastic = t_form.Term(
-        lambda qp: t_forms.linear_elastic_psi(qp.eps, E, NU), 1)
-    load2 = t_form.Term(lambda qp: -1e3 * qp.u[1] * qp.x[0], 2)
-    grads = t_form.Term(lambda qp: qp.coeff_grad("d")[0, 0] * qp.u[0], 1,
-                        needs_coeff_grads=("d",))
-    for F, kw in ((damage_p2["et"].functional, dict(fused=True)),
-                  (_p1([elastic, load2]), {}),
-                  (_p1([grads], ("d",)), {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLaneEngine(F, [], wg_own=8, **kw, **F64)
+    """fused=True on a multi-qp engine: NotImplementedError naming a
+    ROADMAP.md heading, never a quiet switch of path. (Terms of two
+    quadrature degrees and terms that need coefficient gradients, once
+    raised here, now take the generic path: test_torch_generic.py's
+    ``test_generic_path_matches_reference`` and
+    ``test_generic_takes_what_multiqp_does_not``.)"""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TLaneEngine(damage_p2["et"].functional, [], wg_own=8, fused=True,
+                    **F64)

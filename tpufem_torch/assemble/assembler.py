@@ -21,14 +21,14 @@ padded gather-sum, deterministic by construction.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.func import grad, hessian, jvp, vmap
 
 from tpufem_torch.assemble.pattern import EllMatrix, SparsityPattern
-from tpufem_torch.assemble.scatter import GatherSumPlan
+from tpufem_torch.assemble.scatter import GatherSumPlan, SubsetSumPlan
 from tpufem_torch.forms.form import EnergyFunctional
 from tpufem_torch.spaces.bc import DirichletBC, combine_bcs
 
@@ -60,6 +60,17 @@ def _map_cell_slabs(fn, args, batch):
     return torch.cat(outs, dim=-1)
 
 
+class ElementTangent(NamedTuple):
+    """The tangent J(u) of a functional, linearized once: the cell part
+    and, per facet term, the facet Hessians (nf, ndf, ndf). The cell part
+    is the element matrices (ndofe, ndofe, nc) in ``Assembler.linearize``
+    and the lane path's per-cell Hessian (reduced-variable tables or
+    element matrices) in ``LaneEngine.linearize``."""
+
+    cells: object
+    facets: Tuple[torch.Tensor, ...] = ()
+
+
 class Assembler:
     def __init__(self, functional: EnergyFunctional,
                  bcs: Sequence[DirichletBC] = ()):
@@ -68,6 +79,15 @@ class Assembler:
         self.device = functional.device
         self.n_dofs = self.space.n_dofs
         self._energy_fn = functional.element_energy_fn()
+        # facet terms: (energy, dofmap, x_f, normals) per term; their
+        # vectors are added into the dofs by one fixed-order plan
+        self._facet_fns = functional.facet_energy_fns()
+        self._facet_plan = self._facet_nnz_plan = None
+        if self._facet_fns:
+            fdofs = np.concatenate([blk["dofmap"].ravel()
+                                    for blk in functional._facet_static])
+            self._facet_plan = SubsetSumPlan.build(
+                fdofs, np.arange(len(fdofs)), len(fdofs), device=self.device)
 
         # residual reduction plan: element outputs are cells-minor
         # (nd, nc): flat source index of entry (cell, slot) is
@@ -142,8 +162,67 @@ class Assembler:
             self._ell_cols_T = as_dev(pat.ell_cols.T)
             self._pat_rows = as_dev(pat.rows)
             self._pat_cols = as_dev(pat.cols)
+            if self._facet_fns:
+                self._facet_nnz_plan = self._facet_slots(pat)
             self._pattern = pat
         return self._pattern
+
+    def _facet_slots(self, pat: SparsityPattern) -> SubsetSumPlan:
+        """The plan of the facet Hessians' entries (facet, i, j) into their
+        nnz slots. All dofs of a facet lie in its owner cell, so every pair
+        is in the cell sparsity; the slots are found on the host by
+        searchsorted on the (row, col) keys, which the pattern keeps
+        sorted (the reference does it on the device,
+        ``tpufem/assemble/assembler.py:158-185``)."""
+        n = np.int64(self.n_dofs)
+        key = pat.rows.astype(np.int64) * n + pat.cols.astype(np.int64)
+        pk = np.concatenate([
+            (blk["dofmap"][:, :, None] * n + blk["dofmap"][:, None, :]).ravel()
+            for blk in self.functional._facet_static])
+        slots = np.minimum(np.searchsorted(key, pk), len(key) - 1)
+        if not np.array_equal(key[slots], pk):
+            raise AssertionError("facet dof pair missing from sparsity")
+        return SubsetSumPlan.build(slots, np.arange(len(slots)), len(slots),
+                                   device=self.device)
+
+    # -- facet terms ----------------------------------------------------------
+
+    def _facet_args(self, u):
+        """(energy, u at the facet dofs, x_f, normals) per facet term, at
+        u's dtype."""
+        return [(fn, u[dm], x_f.to(u.dtype), nrm.to(u.dtype))
+                for fn, dm, x_f, nrm in self._facet_fns]
+
+    def facet_vectors(self, u) -> torch.Tensor:
+        """The facet terms' element vectors, every term's (nf * ndf,)
+        flattened and concatenated: what ``_facet_plan`` adds."""
+        return torch.cat([vmap(grad(fn))(uf, xf, nf).reshape(-1)
+                          for fn, uf, xf, nf in self._facet_args(u)])
+
+    def facet_matrices(self, u) -> Tuple[torch.Tensor, ...]:
+        """Per facet term, the facet Hessians (nf, ndf, ndf) at ``u``."""
+        return tuple(vmap(hessian(fn))(uf, xf, nf)
+                     for fn, uf, xf, nf in self._facet_args(u))
+
+    def _tangent_parts(self, em):
+        """(cell element matrices, facet Hessians) of ``em``: an
+        ``ElementTangent``, or the cell matrices alone for a functional
+        without facet terms. For one with facet terms the cell matrices
+        alone raise: the facet tangent is never dropped."""
+        if isinstance(em, ElementTangent):
+            return em.cells, em.facets
+        if self._facet_fns:
+            raise ValueError(
+                "the functional has facet terms: pass what "
+                "Assembler.linearize returned (cell and facet parts), not "
+                "the cell element matrices alone")
+        return em, ()
+
+    def _facet_bmm(self, facets, v):
+        """Per facet term H_f v_f, flattened and concatenated."""
+        return torch.cat([
+            torch.bmm(H, v[dm].unsqueeze(-1)).reshape(-1)
+            for H, (_fn, dm, _x, _n) in zip(facets, self._facet_fns)])
 
     def _cell_args(self, u, coeffs):
         f = self.functional
@@ -175,20 +254,36 @@ class Assembler:
                  out_dims=-1)
         return self._batched(h, self._cell_args(u, coeffs), batch)
 
+    def linearize(self, u, coeffs: Dict[str, torch.Tensor],
+                  batch: Optional[int] = None) -> ElementTangent:
+        """J(u) taken once: the cell element matrices (``batch``: in cell
+        slabs of this size) and the facet Hessians. What
+        ``element_action``, ``constrained_action`` and ``diagonal`` take
+        as ``em``."""
+        return ElementTangent(self.element_matrices(u, coeffs, batch=batch),
+                              self.facet_matrices(u))
+
     # -- global assembly -------------------------------------------------------
 
     def energy(self, u, coeffs, batch: Optional[int] = None) -> torch.Tensor:
         """Total potential Pi(u) (useful for validation/line search)."""
         e_fn = vmap(self._energy_fn, in_dims=(-1, -1, -1))
-        return torch.sum(
+        total = torch.sum(
             self._batched(e_fn, self._cell_args(u, coeffs), batch)
         )
+        for fn, uf, xf, nf in self._facet_args(u):
+            total = total + torch.sum(vmap(fn)(uf, xf, nf))
+        return total
 
     def residual(self, u, coeffs,
                  batch: Optional[int] = None) -> torch.Tensor:
-        """Assembled residual F(u) (no BC treatment)."""
+        """Assembled residual F(u) (no BC treatment), facet terms
+        included."""
         ev = self.element_vectors(u, coeffs, batch=batch)
-        return self._r_plan.apply(ev)
+        r = self._r_plan.apply(ev)
+        if self._facet_fns:
+            r = self._facet_plan.add_into(r, self.facet_vectors(u))
+        return r
 
     def tangent_action(self, u, coeffs, v) -> torch.Tensor:
         """Matrix-free J(u).v via jvp of the assembled residual."""
@@ -196,13 +291,20 @@ class Assembler:
         return jvp(f, (u,), (v,))[1]
 
     def element_action(self, em, v) -> torch.Tensor:
-        """J.v from the element matrices ``em`` (ndofe, ndofe, nc) of J
-        (``element_matrices``): gather v to the cells, the per-cell
-        products, and the residual's gather-sum. The same operator as
+        """J.v from J taken once: ``em`` is what ``linearize`` returned
+        (or, for a functional without facet terms, the element matrices
+        (ndofe, ndofe, nc) alone): gather v to the cells, the per-cell
+        products, the residual's gather-sum, then the facet Hessians'
+        products added by the facet plan. The same operator as
         ``tangent_action`` at the state ``em`` was taken at, to rounding,
         with no differentiation per application."""
+        cells, facets = self._tangent_parts(em)
         v_cells = self.functional.gather(v)  # (ndofe, nc)
-        return self._r_plan.apply(torch.sum(em * v_cells[None], dim=1))
+        y = self._r_plan.apply(torch.sum(cells * v_cells[None], dim=1))
+        if facets:
+            y = self._facet_plan.add_into(y, self._facet_bmm(facets, v),
+                                          inplace=True)
+        return y
 
     def matrix(self, u, coeffs, batch: Optional[int] = None) -> EllMatrix:
         """Assembled sparse Jacobian in ELL form, with Dirichlet rows
@@ -210,12 +312,18 @@ class Assembler:
         semantics, FEniCSx/...cc:852-857). Columns for bc dofs are also
         zeroed (symmetric elimination) so CG keeps an SPD operator. The
         element entries are summed into their nnz slots by the
-        gather-sum plan of ``pattern``: a fixed order, no atomics.
+        gather-sum plan of ``pattern``: a fixed order, no atomics; the
+        facet Hessians likewise into theirs (the exact tangent of a
+        nonlinear facet energy; zero for a linear traction).
         ``batch``: the element matrices in cell slabs of this size."""
         pat = self.pattern
         em = self.element_matrices(u, coeffs, batch=batch)
         nnz_vals = self._nnz_plan.apply(em)
         del em
+        if self._facet_fns:
+            fh = torch.cat([H.reshape(-1) for H in self.facet_matrices(u)])
+            nnz_vals = self._facet_nnz_plan.add_into(nnz_vals, fh,
+                                                     inplace=True)
         if len(self.bc_dofs):
             rows, cols = self._pat_rows, self._pat_cols
             free = self.free_mask(nnz_vals.dtype)
@@ -232,12 +340,17 @@ class Assembler:
 
     def diagonal(self, u, coeffs, em=None) -> torch.Tensor:
         """Jacobian diagonal (for Jacobi PC) without forming the matrix:
-        element Hessian diagonals scattered; 1.0 on bc dofs. ``em``: the
-        element matrices at ``u``, if the caller has them already."""
+        element and facet Hessian diagonals scattered; 1.0 on bc dofs.
+        ``em``: J at ``u`` (``linearize``), if the caller has it already."""
         if em is None:
-            em = self.element_matrices(u, coeffs)
-        ed = torch.diagonal(em, dim1=0, dim2=1).T  # (ndofe, nc)
+            em = self.linearize(u, coeffs)
+        cells, facets = self._tangent_parts(em)
+        ed = torch.diagonal(cells, dim1=0, dim2=1).T  # (ndofe, nc)
         diag = self._r_plan.apply(ed.contiguous())
+        if facets:
+            fd = torch.cat([torch.diagonal(H, dim1=1, dim2=2).reshape(-1)
+                            for H in facets])
+            diag = self._facet_plan.add_into(diag, fd, inplace=True)
         if len(self.bc_dofs):
             free = self.free_mask(diag.dtype)
             diag = diag * free + (1.0 - free)
@@ -265,7 +378,7 @@ class Assembler:
 
     def constrained_action(self, u, coeffs, em):
         """Returns v -> A^ v = M J M v + (I-M) v (SPD if J is), J.v by
-        ``element_action`` from the element matrices ``em`` of J(u): J
+        ``element_action`` from ``em``, J(u) as ``linearize`` returns it: J
         linearized once, where the reference takes a jvp of the residual
         per application (the same operator to rounding). ``u`` and
         ``coeffs`` keep the reference's signature."""

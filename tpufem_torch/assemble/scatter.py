@@ -90,3 +90,57 @@ class GatherSumPlan:
         for k in range(1, self.idx.shape[0]):
             acc = acc + ext.index_select(0, self.idx[k])
         return acc
+
+
+@dataclasses.dataclass
+class SubsetSumPlan:
+    """A scatter-add into a few targets of a larger array, transposed on
+    the host: ``add_into(out, values)`` adds, to every distinct target
+    slot t of ``out`` (flattened), the values of the source entries that
+    feed it, in a fixed order (the facet terms' residual, tangent,
+    diagonal and nnz adds: a vertex belongs to two facets, so targets
+    repeat, and ``index_add_`` on the card would add them with float
+    atomics). The sum is one gather of the (K, n_targets) table (pad: one
+    past the end of ``values``, where a zero is appended) and one sum over
+    K; the targets are then updated by one indexed store, which is exact
+    because they are distinct."""
+
+    targets: torch.Tensor  # (n_targets,) int64, distinct
+    idx: torch.Tensor  # (K, n_targets) int64 into values.reshape(-1)
+    n_values: int
+
+    @staticmethod
+    def build(targets, sources, n_values: int, *,
+              device=None) -> "SubsetSumPlan":
+        """Source entry e adds ``values.reshape(-1)[sources[e]]`` into
+        ``out.reshape(-1)[targets[e]]``; ``n_values`` is the size of
+        ``values``."""
+        t = np.asarray(targets, dtype=np.int64).ravel()
+        src = np.asarray(sources, dtype=np.int64).ravel()
+        uniq, inv = np.unique(t, return_inverse=True)
+        table = GatherSumPlan.build_table(inv.ravel(), len(uniq))
+        pad = table == len(t)
+        table = np.where(pad, n_values, src[np.where(pad, 0, table)])
+        dev = resolve_device(device)
+        return SubsetSumPlan(
+            targets=torch.as_tensor(uniq, device=dev),
+            idx=torch.as_tensor(np.ascontiguousarray(table),
+                                dtype=torch.int64, device=dev),
+            n_values=int(n_values))
+
+    def sums(self, values: torch.Tensor) -> torch.Tensor:
+        """(n_targets,) the summed sources of every target."""
+        ext = torch.cat([values.reshape(-1), values.new_zeros(1)])
+        K, n = self.idx.shape
+        return ext.index_select(0, self.idx.reshape(-1)).view(K, n).sum(0)
+
+    def add_into(self, out: torch.Tensor, values: torch.Tensor,
+                 inplace: bool = False) -> torch.Tensor:
+        """``out`` with the sums added at the targets: a new tensor, or
+        ``out`` itself updated when ``inplace`` (outside autograd)."""
+        flat = out.view(-1) if inplace else out.reshape(-1)
+        new = flat.index_select(0, self.targets) + self.sums(values)
+        if inplace:
+            flat.index_put_((self.targets,), new)
+            return out
+        return flat.index_put((self.targets,), new).view(out.shape)

@@ -266,7 +266,7 @@ def run(cfg: Optional[Mechanic2DConfig] = None, mesh=None, *, device=None,
             # and the Jacobi diagonal (NewtonSolver asks for both at w)
             if lin.get("u") is not w:
                 lin.clear()
-                lin.update(u=w, em=asm.element_matrices(w, coeffs))
+                lin.update(u=w, em=asm.linearize(w, coeffs))
             return lin["em"]
 
     with tm.phase("7.3 NonLinear resolution"):

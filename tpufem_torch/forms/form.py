@@ -74,6 +74,35 @@ class Term:
     needs_coeff_grads: Sequence[str] = ()
 
 
+class FacetQP:
+    """Per-quadrature-point context on an exterior facet."""
+
+    def __init__(self, u, x, normal, coeffs):
+        self.u = u  # (bs,) value of u at the point
+        self.x = x  # (gdim,) position
+        self.normal = normal  # (gdim,) outward unit normal
+        self._c = coeffs
+
+    def coeff(self, name):
+        return self._c[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class FacetTerm:
+    """Integral of integrand(fqp) dGamma over a set of exterior facets.
+
+    Equivalent of the reference's ``ds(0)`` surface-load term and its
+    exterior_facet subdomain machinery (USE_SURF,
+    FEniCSx/mechanic2d/asym_elasto_damage_model.cc:589-608; the traction
+    ``dot(t*n, delta_u)*ds(0)`` sketched at asym_ufl.py:74-81). The energy
+    form of a traction t is -integral t.u dGamma.
+    """
+
+    integrand: Callable[[FacetQP], torch.Tensor]
+    degree: int
+    facets: np.ndarray  # indices into the mesh facet table
+
+
 def _scalar_det_inv(J):
     """det + inverse of a small square matrix given as nested lists of
     scalars/tensors (closed-form adjugate; no linalg, no arrays).
@@ -112,10 +141,19 @@ class EnergyFunctional:
     Equivalent of the (F, J=derivative(F)) form pair created at
     FEniCSx/...cc:679-685, for hyperelastic-type F (F = DPi).
 
-    ``device``/``dtype``: where the static per-cell tables live (default
-    CUDA / float32). Facet (ds-measure) terms are not ported yet and
-    raise ``NotImplementedError`` (ROADMAP.md, "facet terms"), so every
-    consumer of a functional can rely on cell terms only.
+    ``device``/``dtype``: where the static per-cell and per-facet tables
+    live (default CUDA / float32).
+
+    Facet (ds-measure) terms: per term the facet dofmap, vertex
+    coordinates and outward unit normals, built on the host in float64 as
+    ``tpufem.forms.form`` builds them. The normal is turned outward by the
+    owner cell's centroid. A facet reads the dofs of its vertices, and on
+    a 2D degree-2 space also its edge dof (``n_nodes + facet id``) with a
+    degree-2 interval basis, which ``elements.lagrange`` does not have: a
+    facet term on a 2D degree-2 space raises ``NotImplementedError`` there,
+    as in the reference. On a 3D degree-2 space the facet reads its vertex
+    dofs only, with the degree-1 facet basis (the reference's rule: the
+    total load is exact, its split over the dofs is P1's).
     """
 
     def __init__(
@@ -128,13 +166,9 @@ class EnergyFunctional:
         device=None,
         dtype: torch.dtype = DEFAULT_DTYPE,
     ):
-        if facet_terms:
-            raise NotImplementedError(
-                "facet terms are not ported yet (ROADMAP.md: facet terms "
-                "in tpufem_torch.forms / lane engine)"
-            )
         self.space = space
         self.terms = list(terms)
+        self.facet_terms = list(facet_terms)
         self.coefficients = list(coefficients)
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -182,6 +216,67 @@ class EnergyFunctional:
                 },
             }
             self._tabs.append(tab)
+        self._facet_static = []  # host tables per (non-empty) facet term
+        self._facet_arrays = []  # (dofmap, x_f, nrm) on the device
+        if self.facet_terms:
+            self._build_facet_tables()
+
+    def _build_facet_tables(self):
+        """Facet dofmap, coordinates, normals and tabulations per facet
+        term (``tpufem/forms/form.py:198-262``, the same host arithmetic)."""
+        from tpufem_torch.mesh.mesh import CELL_INFO
+        from tpufem_torch.mesh.topology import build_entities, facet_to_cells
+
+        space = self.space
+        mesh = space.mesh
+        facets, _ = build_entities(mesh, mesh.dim - 1)
+        indptr, cell_ids = facet_to_cells(mesh)
+        facet_type = CELL_INFO[mesh.cell_type]["facet"]
+        f_el = make_element(facet_type, 1)
+        for ft in self.facet_terms:
+            fidx = np.asarray(ft.facets, dtype=np.int64)
+            if fidx.size == 0:
+                continue  # a term over an empty facet set contributes 0
+            fverts = facets[fidx]  # (nf, nvf) vertex indices
+            x_f = mesh.x[fverts]  # (nf, nvf, gdim)
+            # outward normal per facet from the owning cell's centroid
+            owner = cell_ids[indptr[fidx]]
+            cc = mesh.x[mesh.cells[owner]].mean(axis=1)
+            fc = x_f.mean(axis=1)
+            if mesh.dim == 2:
+                tang = x_f[:, 1] - x_f[:, 0]
+                nrm = np.stack([tang[:, 1], -tang[:, 0]], axis=1)
+            else:
+                nrm = np.cross(x_f[:, 1] - x_f[:, 0], x_f[:, 2] - x_f[:, 0])
+            flip = np.sum(nrm * (fc - cc), axis=1) < 0
+            nrm[flip] *= -1.0
+            nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+            fd = fverts.astype(np.int64)
+            if space.element.degree == 2 and mesh.dim == 2:
+                # the facet IS an edge: edge dof index = n_nodes + edge id
+                fd = np.concatenate([fd, (mesh.n_nodes + fidx)[:, None]],
+                                    axis=1)
+                f_el_deg = make_element(facet_type, 2)
+            else:
+                f_el_deg = f_el
+            fd_vec = (fd[..., None] * space.bs
+                      + np.arange(space.bs)).reshape(len(fidx), -1)
+            qpts, qwts = quadrature(facet_type, ft.degree)
+            self._facet_static.append(dict(
+                term=ft,
+                qw=qwts,
+                N_u=f_el_deg.tabulate(qpts),  # (nq, ndof_f)
+                N_geom=f_el.tabulate(qpts),  # (nq, nvf)
+                dN_geom=f_el.tabulate_grad(qpts),  # (nq, nvf, dim-1)
+                dofmap=fd_vec.astype(np.int64),  # host copies
+                x_f=np.asarray(x_f, np.float64),
+                nrm=nrm,
+            ))
+            self._facet_arrays.append((
+                torch.as_tensor(fd_vec.astype(np.int64), device=self.device),
+                torch.as_tensor(x_f, dtype=self.dtype, device=self.device),
+                torch.as_tensor(nrm, dtype=self.dtype, device=self.device),
+            ))
 
     def _tab_tensors(self, dtype, device):
         """The tabulations as tensors at (dtype, device). Built per call:
@@ -361,6 +456,51 @@ class EnergyFunctional:
             return total
 
         return energy
+
+    def facet_energy_fns(self):
+        """Per facet term: (energy(u_f (ndf,), x_f (nvf, gdim), normal
+        (gdim,)) -> scalar, dofmap (nf, ndf), x_f (nf, nvf, gdim), normals
+        (nf, gdim)), the arrays on the functional's device. ``energy`` is
+        a function of one facet, for ``torch.func.vmap`` / ``grad`` /
+        ``hessian``; the surface measure is the column norm of the facet
+        Jacobian (2D edge) or the norm of the cross product of its two
+        columns (3D facet).
+
+        Coefficient fields on facets are not supported: traction terms
+        close over constants (as the reference's surface load is a
+        Constant t, asym_ufl.py:74-75)."""
+        out = []
+        bs = self.space.bs
+        for blk, arrs in zip(self._facet_static, self._facet_arrays):
+            host = (blk["qw"], blk["N_u"], blk["dN_geom"], blk["N_geom"])
+            ndof_f = blk["N_u"].shape[1]
+
+            def energy(u_f, x_f, nrm, host=host, ndof_f=ndof_f,
+                       term=blk["term"]):
+                # the tables as tensors per call (see _tab_tensors)
+                qw, N_u, dNg, Ng = (torch.as_tensor(
+                    np.asarray(a), dtype=u_f.dtype, device=u_f.device)
+                    for a in host)
+                u = u_f.reshape(ndof_f, bs)
+                total = torch.zeros((), dtype=u_f.dtype, device=u_f.device)
+                for q in range(qw.shape[0]):
+                    J = x_f.T @ dNg[q]  # (gdim, dim - 1)
+                    if J.shape[1] == 1:
+                        ds = torch.sqrt(torch.sum(J[:, 0] * J[:, 0]))
+                    else:
+                        a, b = J[:, 0], J[:, 1]
+                        c = torch.stack([a[1] * b[2] - a[2] * b[1],
+                                         a[2] * b[0] - a[0] * b[2],
+                                         a[0] * b[1] - a[1] * b[0]])
+                        ds = torch.sqrt(torch.sum(c * c))
+                    u_q = N_u[q] @ u
+                    x_q = Ng[q] @ x_f
+                    fqp = FacetQP(u_q[0] if bs == 1 else u_q, x_q, nrm, {})
+                    total = total + term.integrand(fqp) * qw[q] * ds
+                return total
+
+            out.append((energy,) + tuple(arrs))
+        return out
 
     # -- gathered per-cell inputs (cells-minor layout) -----------------------
 

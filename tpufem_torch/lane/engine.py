@@ -32,7 +32,7 @@ per-cell Hessian is stored. The kernel's physics is written by hand
 evaluates, proves the match on probe cells at construction, and raises
 ``NotImplementedError`` for anything the kernel has no law for.
 
-The physics is specialized on the host in one of two ways. A single
+The physics is specialized on the host in one of three ways. A single
 degree-1 cell term on P1 simplices takes the P1 path: one quadrature
 point per cell, (M,) reduced variables. Every other functional on
 triangles, tetrahedra, quadrilaterals or hexahedra whose cell terms share
@@ -40,10 +40,22 @@ one quadrature degree and read no coefficient gradient takes the
 multi-quadrature-point path (``lane.multiqp``: P2, Q1, Q2, P1 under a
 higher rule, several terms folded into one integrand): per-point tables,
 (nq, M) reduced variables, the same gather / scatter / pass kernels
-around it, the staged pipeline only. Anything else raises
-``NotImplementedError`` naming its ROADMAP.md heading, as do facet terms
-(``forms.form``) and ``fused=True`` on a multi-qp engine -- nothing falls
-back silently to another path.
+around it. Everything else -- cell terms of several quadrature degrees
+(the reference study's own functional), coefficient gradients, no cell
+term -- takes the generic element path (``lane.generic``): AD of the
+scalarized element energy over the gathered cells, the element matrices
+stored once per Newton step. The multi-qp and generic paths run staged
+only: ``fused=True`` on them raises ``NotImplementedError`` (the
+reference runs such an engine staged without a word,
+``tpufem/lane/engine.py:163``).
+
+Facet (ds-measure) terms ride every path (``_build_facet_data``): the
+facet values are read at the owner slots of the facet dofs (or from the
+gathered cells), differentiated per facet by ``torch.func``, and added
+at the owner slot and every copy slot of each dof by a fixed-order
+gather-sum (``assemble.scatter.SubsetSumPlan``) after the cell
+pipeline's owner-sum and refresh, so the state stays consistent. The
+facet Hessians are taken in ``linearize`` with the cell part.
 
 ``make_solver`` preconditions CG with Jacobi or with the two-level
 lattice cycle (``lane.twolevel``); either way the CG operator is
@@ -63,8 +75,10 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import grad, jvp
+from torch.func import grad, hessian, jvp, vmap
 
+from tpufem_torch.assemble.assembler import ElementTangent
+from tpufem_torch.assemble.scatter import SubsetSumPlan
 from tpufem_torch.config import DEFAULT_DTYPE, SolverConfig, resolve_device
 from tpufem_torch.forms.form import QP, EnergyFunctional
 from tpufem_torch.forms.potentials import record_fused_laws
@@ -74,6 +88,7 @@ from tpufem_torch.la.cg import pcg_chunk
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_gather_cm,
                                        lane_pass_update, lane_scatter_cm)
+from tpufem_torch.lane.generic import GenericPhysics, x_lane_host
 from tpufem_torch.lane.multiqp import (MQ_CELLS, MultiQPPhysics,
                                        cells_leading, fold_terms,
                                        host_tables)
@@ -233,18 +248,32 @@ class LaneEngine:
 
         # specialized physics, geometry precomputed on host (f64): the
         # P1-simplex 1-point-quadrature path first, else the
-        # multi-quadrature-point path (or NotImplementedError)
+        # multi-quadrature-point path, else the generic element path
         self.geom_dN = self.geom_w = self.geom_xq = None
+        self.x_lane = None  # (nvg, gdim, M) vertex coordinates: generic
         self._mq = None  # lane.multiqp.MultiQPPhysics of the multi-qp path
+        self._gen = None  # lane.generic.GenericPhysics of the generic path
         self._red_diag = None
         if self._try_specialize_p1():
+            self.path = "p1"
             (self._red_res, self._red_energy, self._red_linearize,
              self._red_apply) = self._make_reduced_fns()
-        else:
+        elif self._multiqp_takes() is None:
+            self.path = "multiqp"
             mq = self._mq = self._specialize_multiqp()
             (self._red_res, self._red_energy, self._red_linearize,
              self._red_apply, self._red_diag) = (
                 mq.residual, mq.energy, mq.linearize, mq.apply, mq.diagonal)
+        else:
+            self.path = "generic"
+            gen = self._gen = GenericPhysics(
+                functional, [c.name for c in functional.coefficients])
+            self.x_lane = self._store(x_lane_host(space.mesh,
+                                                  self._safe_order))
+            (self._red_res, self._red_energy, self._red_linearize,
+             self._red_apply, self._red_diag) = (
+                gen.residual, gen.energy, gen.linearize, gen.apply,
+                gen.diagonal)
 
         # fused element kernel: which hand-written law the integrand is
         # (proved on probe cells, or NotImplementedError -- never a quiet
@@ -254,13 +283,13 @@ class LaneEngine:
         # hand-written law reads qp.x.
         self._fused = bool(fused)
         self.fused_law = self.fused_geom = None
-        if self._fused and self._mq is not None:
+        if self._fused and self.path != "p1":
             raise NotImplementedError(
                 "LaneEngine(fused=True): lane_fused_elem has hand-written "
-                "physics for the P1 triangle only; a multi-quadrature-point "
-                "functional runs staged (fused=False) until the kernel's "
-                "source is generated (ROADMAP.md: K4, kernel source "
-                "generated from the elementwise energy)")
+                "physics for the P1 triangle only; a functional on the "
+                f"{self.path} path runs staged (fused=False) until the "
+                "kernel's source is generated (ROADMAP.md: K4, kernel "
+                "source generated from the elementwise energy)")
         if self._fused:
             self.fused_law = self._resolve_fused_law()
             dN_h, w_h = self._geom_host
@@ -323,6 +352,163 @@ class LaneEngine:
             p.owned_mask.astype(np.float64)[None, :, :]
         )  # (1, R, 128) dot weights
         self._lmaps = None
+
+        # facet (ds-measure) terms: small tables, a torch.func AD per facet
+        # and a fixed-order gather-sum into the owner and copy slots
+        self._facet_fns = []
+        self.facet_arrays = []
+        self._facet_plan = None
+        if functional.facet_terms:
+            self._build_facet_data()
+
+    def _build_facet_data(self):
+        """Facet-term plan (``tpufem/lane/engine.py:326-424``, the same
+        host tables): per facet term, ``upos`` the lane slot (component x
+        R x 128 + owner slot) of every facet dof, ``spos`` / ``ssrc`` the
+        slots each facet-vector entry is added to (the owner slot, then
+        every copy slot of its dof) and the entry it comes from, and
+        ``ucpos``, where every facet dof lies in its owner cell, the
+        position of each facet dof in the gathered cell block (row v * bs
+        + c, cells minor). The adds of all terms go through one
+        ``SubsetSumPlan`` over the distinct slots of ``spos``."""
+        from tpufem_torch.mesh.topology import facet_to_cells
+
+        p = self.plan
+        bs = self.bs
+        FL = p.R * N_LANES
+        owner_slot = p.node_row.astype(np.int64) * N_LANES + p.node_lane
+        have_copies = (p.copy_src_rows is not None
+                       and len(p.copy_src_rows) > 0)
+        if have_copies:
+            inv = np.full(FL, -1, dtype=np.int64)
+            inv[owner_slot] = np.arange(p.n_nodes)
+            node_of_copy = inv[p.copy_src_rows.astype(np.int64) * N_LANES
+                               + p.copy_src_lanes]
+            copy_slot = (p.copy_dst_rows.astype(np.int64) * N_LANES
+                         + p.copy_dst_lanes)
+            order = np.argsort(node_of_copy, kind="stable")
+            cn_sorted = node_of_copy[order]
+            cs_sorted = copy_slot[order]
+        # lane-cell index of every mesh cell (tangent_from_cells reads the
+        # facet state from the already gathered u_cells)
+        inv_order = np.full(p.n_cells, -1, dtype=np.int64)
+        corder = np.asarray(p.cell_order)
+        valid_c = corder >= 0
+        inv_order[corder[valid_c]] = np.nonzero(valid_c)[0]
+        M = p.G * p.kc * N_LANES
+        mesh = self.space.mesh
+        dofmap = np.asarray(self.space.dofmap)
+        indptr, cell_ids = facet_to_cells(mesh)
+        fblocks = self.functional.facet_energy_fns()
+        all_spos, all_ssrc, off = [], [], 0
+        dev = self.device
+        for blk_i, (fn, _dm, _x, _n) in enumerate(fblocks):
+            st = self.functional._facet_static[blk_i]
+            fd = st["dofmap"]  # (nf, ndf) global vector dofs
+            nodes = (fd // bs).astype(np.int64)
+            comp = (fd % bs).astype(np.int64)
+            upos = comp * FL + owner_slot[nodes]
+            src = np.arange(fd.size, dtype=np.int64)
+            spos_list = [comp.ravel() * FL + owner_slot[nodes.ravel()]]
+            ssrc_list = [src]
+            if have_copies:
+                lo = np.searchsorted(cn_sorted, nodes.ravel(), "left")
+                hi = np.searchsorted(cn_sorted, nodes.ravel(), "right")
+                cnt = hi - lo
+                tot = int(cnt.sum())
+                if tot:
+                    # ragged ranges [lo_i, hi_i)
+                    idx = (np.repeat(lo, cnt) + np.arange(tot)
+                           - np.repeat(np.cumsum(cnt) - cnt, cnt))
+                    spos_list.append(
+                        np.repeat(comp.ravel(), cnt) * FL + cs_sorted[idx])
+                    ssrc_list.append(np.repeat(src, cnt))
+            ft = np.asarray(st["term"].facets, np.int64)
+            ucpos = None
+            if ft.size == fd.shape[0]:
+                owner = cell_ids[indptr[ft]]
+                mcell = inv_order[owner]  # (nf,) lane cell
+                # local slot of each facet node within its owner cell
+                eq = dofmap[owner][:, None, :] == nodes[:, :, None]
+                vloc = eq.argmax(axis=2)  # (nf, ndf)
+                if bool(eq.any(axis=2).all()):
+                    ucpos = (vloc * bs + comp) * M + mcell[:, None]
+            spos = np.concatenate(spos_list)
+            ssrc = np.concatenate(ssrc_list)
+            all_spos.append(spos)
+            all_ssrc.append(ssrc + off)
+            off += fd.size
+            self._facet_fns.append(fn)
+            arrs = dict(
+                upos=torch.as_tensor(upos, device=dev),
+                spos=torch.as_tensor(spos, device=dev),
+                ssrc=torch.as_tensor(ssrc, device=dev),
+                x_f=self._store(st["x_f"]),
+                nrm=self._store(st["nrm"]))
+            if ucpos is not None:
+                arrs["ucpos"] = torch.as_tensor(ucpos, device=dev)
+            self.facet_arrays.append(arrs)
+        if self.facet_arrays:
+            self._facet_plan = SubsetSumPlan.build(
+                np.concatenate(all_spos), np.concatenate(all_ssrc), off,
+                device=dev)
+
+    def _facet_states(self, u_lane=None, u_cells=None):
+        """Per facet term, the state at its facet dofs (nf, ndf): from the
+        gathered cells through ``ucpos`` where both are at hand, else from
+        the lane state through ``upos``."""
+        out = []
+        for arrs in self.facet_arrays:
+            if u_cells is not None and "ucpos" in arrs:
+                out.append(u_cells.reshape(-1)[arrs["ucpos"]])
+            elif u_lane is not None:
+                out.append(u_lane.reshape(-1)[arrs["upos"]])
+            else:
+                raise NotImplementedError(
+                    "facet linearization state unavailable: no ucpos "
+                    "plan and no u_lane")
+        return out
+
+    def _facet_geom(self, arrs, dtype):
+        return arrs["x_f"].to(dtype), arrs["nrm"].to(dtype)
+
+    def facet_hessians(self, u_lane=None, u_cells=None):
+        """Per facet term, the facet Hessians (nf, ndf, ndf) at the state
+        (``_facet_states``)."""
+        states = self._facet_states(u_lane, u_cells)
+        return tuple(
+            vmap(hessian(fn))(uf, *self._facet_geom(arrs, uf.dtype))
+            for fn, arrs, uf in zip(self._facet_fns, self.facet_arrays,
+                                    states))
+
+    def _facet_add(self, out, values):
+        """``out`` (a consistent lane array this engine made) with the
+        facet entries ``values`` (every term's (nf, ndf), in order) added
+        at the owner and copy slots of their dofs, in place; ``out`` as it
+        is without facet terms."""
+        if not values:
+            return out
+        flat = torch.cat([v.reshape(-1) for v in values])
+        return self._facet_plan.add_into(out, flat.to(out.dtype),
+                                         inplace=True)
+
+    def _facet_grad(self, out, u_lane):
+        states = self._facet_states(u_lane)
+        return self._facet_add(out, [
+            vmap(grad(fn))(uf, *self._facet_geom(arrs, uf.dtype))
+            for fn, arrs, uf in zip(self._facet_fns, self.facet_arrays,
+                                    states)])
+
+    def _facet_apply(self, out, facets, v_lane):
+        """out + the facet Hessians ``facets`` applied to v."""
+        vf = v_lane.reshape(-1)
+        return self._facet_add(out, [
+            torch.bmm(H, vf[arrs["upos"]].unsqueeze(-1))
+            for H, arrs in zip(facets, self.facet_arrays)])
+
+    def _facet_diag(self, out, facets):
+        return self._facet_add(out, [torch.diagonal(H, dim1=1, dim2=2)
+                                     for H in facets])
 
     def _build_tail_tables(self):
         """Rare-copy tail (copies left out of the dense pass kernels, see
@@ -446,24 +632,24 @@ class LaneEngine:
         self._geom_host = (dN_t, w)  # for the fused kernel's geometry rows
         return True
 
+    def _multiqp_takes(self) -> Optional[str]:
+        """None where the multi-qp path takes the functional, else why
+        not (then the generic path does)."""
+        _, _, why = fold_terms(self.functional)
+        if self.space.mesh.cell_type not in MQ_CELLS:
+            why = f"{self.space.mesh.cell_type} cells"
+        return why
+
     def _specialize_multiqp(self) -> MultiQPPhysics:
         """The multi-quadrature-point path (the reference's
         ``_try_specialize_multiqp``): the cell terms folded into one
         integrand, the float64 host tables (``lane.multiqp.host_tables``)
         stored once on the device at the engine dtype -- dN cells leading
         (M, nv, nq * gd), w (nq, M), xq (nq, gd, M) -- and the physics.
-        ``NotImplementedError`` for a functional it does not take."""
+        The functional is one that :meth:`_multiqp_takes` takes."""
         f = self.functional
         mesh = self.space.mesh
-        integrand, qdeg, why = fold_terms(f)
-        if mesh.cell_type not in MQ_CELLS:
-            why = f"{mesh.cell_type} cells"
-        if why is not None:
-            raise NotImplementedError(
-                "LaneEngine: neither the P1 nor the multi-quadrature-point "
-                f"specialization takes this functional ({why}); the generic "
-                "element path is not ported (ROADMAP.md: the generic "
-                "element path)")
+        integrand, qdeg, _ = fold_terms(f)
         tabs = host_tables(self.space, self._safe_order, qdeg,
                            f.coefficients, self._coeff_dofmaps)
         self.geom_dN = self._store(cells_leading(tabs.pop("dN")))
@@ -947,36 +1133,53 @@ class LaneEngine:
     # -- assembled quantities ------------------------------------------------------
 
     def _geom(self, dtype):
+        """The path's static cell tables at ``dtype``: (dN, w, xq) for the
+        P1 and multi-qp paths, (x_lane,) for the generic one."""
+        if self._gen is not None:
+            return (self.x_lane.to(dtype),)
         return (self.geom_dN.to(dtype), self.geom_w.to(dtype),
                 self.geom_xq.to(dtype))
 
+    def _apply_geom(self, dtype):
+        """What the tangent application and the diagonal read besides the
+        linearization: dN (None on the generic path)."""
+        return None if self.geom_dN is None else self.geom_dN.to(dtype)
+
     def residual(self, u_lane, coeff_cells) -> torch.Tensor:
         if self._fused:
-            return self._fused_apply((u_lane,), coeff_cells)
-        u_cells = self._gather_cells(u_lane)
-        ev = self._red_res(u_cells, coeff_cells, *self._geom(u_lane.dtype))
-        return self._scatter_cells(ev)
+            r = self._fused_apply((u_lane,), coeff_cells)
+        else:
+            u_cells = self._gather_cells(u_lane)
+            ev = self._red_res(u_cells, coeff_cells,
+                               *self._geom(u_lane.dtype))
+            r = self._scatter_cells(ev)
+        return self._facet_grad(r, u_lane)
 
-    def linearize_cells(self, u_cells, coeff_cells):
+    def linearize_cells(self, u_cells, coeff_cells,
+                        u_lane=None) -> ElementTangent:
         """The physics linearized at an already gathered state: the
-        per-cell Hessian of the cell energy w.r.t. the reduced variables
-        (a table of (M,) tensors). Everything linear in the state --
+        per-cell Hessian of the path (the P1 path's nR x nR table of (M,)
+        tensors, the multi-qp path's (nr, nr, nq, M), the generic path's
+        element matrices (nd, nd, M)) and the facet Hessians, read from
+        the cells through ``ucpos`` (or from ``u_lane``). Everything
+        linear in the state --
         tangent actions, the diagonal -- is multiply-adds on it.
 
         The reference re-differentiates per application (a JVP under
         ``jit`` costs nothing extra there); in eager PyTorch a JVP per CG
         iteration replays the whole AD machinery on the host, so the
         differentiation is hoisted out of the iteration."""
-        return self._red_linearize(u_cells, coeff_cells,
-                                   *self._geom(u_cells.dtype))
+        H = self._red_linearize(u_cells, coeff_cells,
+                                *self._geom(u_cells.dtype))
+        return ElementTangent(H, self.facet_hessians(u_lane, u_cells))
 
-    def linearize(self, u_lane, coeff_cells):
-        return self.linearize_cells(self._gather_cells(u_lane), coeff_cells)
+    def linearize(self, u_lane, coeff_cells) -> ElementTangent:
+        """J(u) taken once, from the gathered state."""
+        return self.linearize_cells(self._gather_cells(u_lane), coeff_cells,
+                                    u_lane)
 
     def tangent_action(self, u_lane, coeff_cells, v_lane) -> torch.Tensor:
         """J(u) v -- element-level tangent between the (linear) movements."""
-        if self._fused:
-            return self._fused_apply((u_lane, v_lane), coeff_cells)
         return self.make_tangent(u_lane, coeff_cells)(v_lane)
 
     def make_tangent(self, u_lane, coeff_cells, lin=None):
@@ -984,42 +1187,54 @@ class LaneEngine:
         every application is gather -> multiply-adds on the stored
         per-cell Hessian -> scatter (``lin``: a ``linearize`` result to
         reuse). Fused: every application is the fused kernel on
-        ``(u, v)``; nothing is stored and ``lin`` is not read."""
+        ``(u, v)``; the cell part of ``lin`` is not read. The facet
+        Hessians (of ``lin``, or taken here) are applied after either."""
         if self._fused:
-            return lambda v_lane: self._fused_apply((u_lane, v_lane),
-                                                    coeff_cells)
-        H = self.linearize(u_lane, coeff_cells) if lin is None else lin
-        dN = self.geom_dN.to(u_lane.dtype)
+            facets = (lin.facets if lin is not None
+                      else self.facet_hessians(u_lane=u_lane))
 
+            def apply_fused(v_lane):
+                y = self._fused_apply((u_lane, v_lane), coeff_cells)
+                return self._facet_apply(y, facets, v_lane)
+
+            return apply_fused
+        lin = self.linearize(u_lane, coeff_cells) if lin is None else lin
+        return self._lin_apply(lin, self._apply_geom(u_lane.dtype))
+
+    def _lin_apply(self, lin: ElementTangent, dN):
         def apply(v_lane):
             v_cells = self._gather_cells(v_lane)
-            return self._scatter_cells(self._red_apply(H, v_cells, dN))
+            y = self._scatter_cells(self._red_apply(lin.cells, v_cells, dN))
+            return self._facet_apply(y, lin.facets, v_lane)
 
         return apply
 
     def tangent_from_cells(self, u_cells, coeff_cells, v_lane):
         """J(u) v with the linearization state already gathered."""
-        H = self.linearize_cells(u_cells, coeff_cells)
-        ev = self._red_apply(H, self._gather_cells(v_lane),
-                             self.geom_dN.to(v_lane.dtype))
-        return self._scatter_cells(ev)
+        lin = self.linearize_cells(u_cells, coeff_cells)
+        return self._lin_apply(lin, self._apply_geom(v_lane.dtype))(v_lane)
 
     def diagonal(self, u_lane, coeff_cells, lin=None) -> torch.Tensor:
         """Jacobian diagonal (Jacobi PC) in lane layout: the diagonals of
         the per-cell element matrices (row i of the tangent applied to
-        the i-th unit element vector), scattered like a residual."""
-        H = self.linearize(u_lane, coeff_cells) if lin is None else lin
-        dN = self.geom_dN.to(u_lane.dtype)
-        if self._red_diag is not None:  # multi-qp: in closed form
-            return self._scatter_cells(self._red_diag(H, dN))
-        nd = self.plan.nv * self.bs
-        rows = []
-        for i in range(nd):
-            e_i = torch.zeros((nd, dN.shape[-1]), dtype=dN.dtype,
-                              device=dN.device)
-            e_i[i] = 1.0
-            rows.append(self._red_apply(H, e_i, dN)[i])
-        return self._scatter_cells(torch.stack(rows))
+        the i-th unit element vector; in closed form on the multi-qp and
+        generic paths), scattered like a residual, and the facet
+        Hessians' diagonals."""
+        lin = self.linearize(u_lane, coeff_cells) if lin is None else lin
+        H = lin.cells
+        dN = self._apply_geom(u_lane.dtype)
+        if self._red_diag is not None:  # multi-qp / generic: closed form
+            d = self._scatter_cells(self._red_diag(H, dN))
+        else:
+            nd = self.plan.nv * self.bs
+            rows = []
+            for i in range(nd):
+                e_i = torch.zeros((nd, dN.shape[-1]), dtype=dN.dtype,
+                                  device=dN.device)
+                e_i[i] = 1.0
+                rows.append(self._red_apply(H, e_i, dN)[i])
+            d = self._scatter_cells(torch.stack(rows))
+        return self._facet_diag(d, lin.facets)
 
     def cell_energies(self, u_lane, coeff_cells) -> torch.Tensor:
         """Per-lane-cell energies (M,), zero at padded cells."""

@@ -75,8 +75,9 @@ def make_newton_solver(
 
     ``use_matrix=True`` assembles the ELL Jacobian once per Newton
     iteration and runs CG on its matvec (the reference's assembled-PETSc
-    path); ``False`` runs CG on the element action: the element matrices
-    are taken once per Newton step and give both the operator
+    path); ``False`` runs CG on the element action: J is taken once per
+    Newton step (``Assembler.linearize``: the element matrices and the
+    facet Hessians) and gives both the operator
     (``Assembler.constrained_action(u, coeffs, em)``) and the diagonal,
     where the reference takes a jvp of the residual per application (the
     same operator to rounding). Preconditioners: ``jacobi``,
@@ -140,7 +141,7 @@ def make_newton_solver(
                 A = mat.matvec
                 diag = timed("tangent", mat.diagonal)
             else:
-                em = timed("tangent", lambda: asm.element_matrices(
+                em = timed("tangent", lambda: asm.linearize(
                     u, coeffs, batch=batch))
                 A = asm.constrained_action(u, coeffs, em)
                 diag = timed("tangent", lambda: asm.diagonal(u, coeffs, em))

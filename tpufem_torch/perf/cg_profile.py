@@ -119,16 +119,20 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
     ``la.amg.AMGHierarchy`` on the engine's device -- the iteration then
     preconditions with one V-cycle (degree 2) in the flat layout, as the
     mixed solver does, and ``parts`` splits it into the fine tangent, the
-    V-cycle, the lane <-> flat maps and the rest. A staged
-    multi-quadrature-point engine is linearized once, and ``parts`` splits
+    V-cycle, the lane <-> flat maps and the rest. A staged engine is
+    linearized once; on the multi-quadrature-point path ``parts`` splits
     its tangent into K1 gather, reduced arguments, Hessian apply, chain
-    back, K2 scatter and K3 owner-sum / refresh."""
+    back, K2 scatter and K3 owner-sum / refresh, on the generic path into
+    K1 gather, the element-matrix product, K2 scatter and K3. With facet
+    terms, ``facet_part`` is the facet Hessians' application alone (the
+    state at the facet dofs, the per-facet products, the fixed-order
+    gather-sum into the owner and copy slots), once per iteration."""
     from tpufem_torch.lane import twolevel as tl
     from tpufem_torch.structured import mg2d
 
     free = eng.free_lane
     u = torch.where(free > 0, torch.zeros_like(eng.bc_lane), eng.bc_lane)
-    lin = eng.linearize(u, cc) if eng._mq is not None else None
+    lin = None if eng._fused else eng.linearize(u, cc)
     A_raw = eng.make_tangent(u, cc, lin)
 
     def A(v):
@@ -207,6 +211,36 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
                                       "lane_owner_sum")))}
         if rows else "not measured",
     )
+    if eng.facet_arrays:
+        facets = lin.facets if lin is not None else eng.facet_hessians(u)
+        r = state[0][1]
+        y = eng.residual(u, cc)
+        out["facet_part"] = _part(lambda: eng._facet_apply(y, facets, r), 20)
+        out["facet_part"]["n_facets"] = [int(H.shape[0]) for H in facets]
+    if eng._gen is not None and lin is not None:
+        # the staged generic tangent in its four parts, once each per
+        # iteration: K1 gather, the element-matrix product (one
+        # multiply-sum over the stored (nd, nd, M) matrices), K2 scatter,
+        # K3 owner-sum and refresh; "rest" is the facet part, the CG vector
+        # work and the Jacobi scaling
+        gen, p = eng._gen, eng.plan
+        r = state[0][1]
+        vc = eng._gather_cells(r)
+        ev = gen.apply(lin.cells, vc)
+        src = ev.reshape(p.nv * eng.bs, p.G, p.kc, 128).contiguous()
+        part = K.lane_scatter_cm(src, eng.gather_idx, k_out=p.wg,
+                                 n_ch=eng.bs)
+        parts = dict(
+            gather=_part(lambda: eng._gather_cells(r), 20),
+            element_matrix_product=_part(lambda: gen.apply(lin.cells, vc),
+                                         20),
+            scatter=_part(lambda: K.lane_scatter_cm(
+                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs), 20),
+            # the tail owner-sum adds into its argument: timing only
+            owner_refresh=_part(lambda: eng._owner_refresh(part), 20),
+        )
+        out["parts"] = _per_iter(parts, dict.fromkeys(parts, 1), busy,
+                                 n_kernels, rows)
     if eng._mq is not None:
         # the staged multi-qp tangent application in its six parts, once
         # each per iteration: K1 gather, reduced arguments (a batched
@@ -219,7 +253,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         r = state[0][1]
         vc = eng._gather_cells(r)
         a = mq.reduced_args(vc, D)
-        dg = mq.hess_apply(lin, a)
+        dg = mq.hess_apply(lin.cells, a)
         ev = mq.chain_back(dg, D)
         src = ev.reshape(p.nv * eng.bs, p.G, p.kc, 128).contiguous()
         part = K.lane_scatter_cm(src, eng.gather_idx, k_out=p.wg,
@@ -227,7 +261,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         parts = dict(
             gather=_part(lambda: eng._gather_cells(r), 20),
             reduced_args=_part(lambda: mq.reduced_args(vc, D), 20),
-            hess_apply=_part(lambda: mq.hess_apply(lin, a), 20),
+            hess_apply=_part(lambda: mq.hess_apply(lin.cells, a), 20),
             chain_back=_part(lambda: mq.chain_back(dg, D), 20),
             scatter=_part(lambda: K.lane_scatter_cm(
                 src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs), 20),
