@@ -119,6 +119,25 @@ prints one JSON line per phase:
                    iteration (launches, device ms), the error against the
                    analytic solution; n = 128 in float64 to convergence,
                    error <= 1e-9 max |u|
+11d. ``fused_gen`` K4 with physics generated from the integrand
+                   (``lane_fused_gen``, ``lane/fused_gen.py``): its units
+                   built in parallel; exactly equal to its plain version in
+                   float32 / float64, int8 / int32 indices, grad and JVP,
+                   for the polycrystal's own law generated (timed beside
+                   the hand-written K4 on the same inputs), the
+                   polycrystal with the study's body load in the integrand
+                   (x-using) and the 3D P1 bar of benchmarks/
+                   lane3d_bench.py (n = 87, 2 044 416 dofs, window read
+                   from global memory), and at edge shapes with an
+                   integrand that holds every operation of the emitter's
+                   table; the loaded polycrystal at n = 1024 and the bar,
+                   float32, Jacobi, capped at 2 x 300 CG, fused
+                   (generated) against staged: same Newton count, CG +-1
+                   a step, each twice bitwise equal, one CG iteration
+                   under the profiler (K4-gen, K3, beside K4-gen's bytes);
+                   float64 card against CPU, converged, at n = 16 (6
+                   grains) and box(6): same Newton count, CG +-1, u rel
+                   <= 1e-9
 12. ``mechanic2d`` the reference study's own workload, ``mechanic2d.run``
                    on square.msh (flat Assembler, Newton with Jacobi CG;
                    no CUDA kernel of the port on its path): at r = 3
@@ -138,9 +157,9 @@ prints one JSON line per phase:
                    ``elasticity3d`` at n = 6 (hexes, matrix-free Chebyshev
                    and assembled ELL) and ``neohookean`` 3D at n = 4 (same
                    Newton count, |d total CG| <= Newton steps, u rel <=
-                   1e-9); ``elasticity3d`` at n = 128 (matrix-free,
+                   1e-9); ``elasticity3d`` at n = 96 (matrix-free,
                    Chebyshev) and ``neohookean`` 3D at n = 24 (to
-                   convergence) and n = 64 (ELL, Jacobi, two capped Newton
+                   convergence) and n = 48 (ELL, Jacobi, two capped Newton
                    steps), each twice and bitwise equal, with the stage
                    seconds, ms per CG iteration, peak memory, and one CG
                    iteration under the profiler beside the byte bound of
@@ -155,13 +174,13 @@ prints one JSON line per phase:
                    |d total CG| <= Newton steps, u rel <= 1e-9), one
                    V-cycle from one host hierarchy on both devices (rel
                    <= 1e-12), the aggregates that differ between the
-                   card's matrix and the CPU's (printed); the full-width
-                   ``polycrystal.run(mixed=True)`` under AMG at n = 1024
+                   card's matrix and the CPU's (printed);
+                   ``polycrystal.run(mixed=True)`` under AMG at n = 512
                    to convergence, and again capped at 2 Newton steps
                    with a fresh hierarchy (bitwise equal trajectory), its
                    levels, set-up split, hierarchy bytes, peak memory and
                    one CG iteration under the profiler beside a V-cycle's
-                   byte bound; ``neohookean`` n = 64 with block Jacobi,
+                   byte bound; ``neohookean`` n = 48 with block Jacobi,
                    two capped Newton steps twice (bitwise equal), one CG
                    iteration under the profiler beside its byte bound
 
@@ -211,6 +230,7 @@ from tpufem_torch.nls import (make_chunked_solver,  # noqa: E402
                               make_newton_solver)
 from tpufem_torch.nls.newton_jit import ELEMENT_BATCH  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
+from tpufem_torch.lane.fused_gen import GenPhysics  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
@@ -240,7 +260,7 @@ T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "engine", "solve_small", "solve_full",
           "solve_full_fused", "solve_full_twolevel", "solve_full_mixed",
           "structured2d", "structured3d", "multiqp", "facets_generic",
-          "mechanic2d", "flat3d", "amg")
+          "fused_gen", "mechanic2d", "flat3d", "amg")
 _ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 _ap.add_argument("--until", choices=PHASES, default=PHASES[-1],
                  help="stop after this phase (default: run everything)")
@@ -2545,7 +2565,7 @@ def fg_twice(tag, eng, cc, cfg, path):
     check(bool(torch.isfinite(u1).all()), f"{tag}: non-finite u")
     steps = s1["newton_iters"]
     others = ({"lane_gather_cm": steps, "lane_scatter_cm": steps}
-              if "lane_fused_elem" in path else {})
+              if {"lane_fused_elem", "lane_fused_gen"} & set(path) else {})
     check(all(l1[k] > 0 for k in path)
           and all(l1[k] <= others.get(k, 0) for k in l1 if k not in path),
           f"{tag}: the solve did not run on {path}: {l1}")
@@ -2777,6 +2797,425 @@ emit("facets_generic", card_vs_cpu=fg_small, generic_mechanic2d=fg_generic,
      seconds_by_part=dict(card_vs_cpu=secs_fg_c),
      nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
+# -- 11d. fused_gen: K4 generated from the elementwise energy ----------------
+
+GEN_N3 = 87  # benchmarks/lane3d_bench.py's bar: P1 tetrahedra, 2 044 416 dofs
+# card against CPU, float64: the loaded polycrystal at n = 16 with 6
+# grains (6 Newton steps, ~880 CG; the CPU's plain version takes ~6 s)
+# and the bar at box(6)
+GEN_N_SMALL, GEN_GRAINS_SMALL, GEN_N3_SMALL = 16, 6, 6
+GEN_PATH = ("lane_fused_gen", "lane_pass_update")
+
+
+def body_load_x(x):
+    """cases/mechanic2d.py:volumetric_load's x-component (doc.tex:226-232)
+    in torch operations on the quadrature point's coordinates."""
+    r = x[0] - 0.5
+    y = x[1] - 0.5
+    return (1600.0 * y * y - 500.0) * (-100000.0 * r * r * r)
+
+
+def loaded_damage_psi(qp):
+    """The polycrystal's energy with the study's body load in the
+    integrand: x-using, so no hand-written law takes it."""
+    return (asym_damage_psi(qp.eps, qp.coeff("d"), qp.coeff("E"), NU)
+            - body_load_x(qp.x) * qp.u[0])
+
+
+def loaded_polycrystal(mesh_, device, dtype):
+    """``run``'s space, coefficients (damage P1, modulus P0) and BCs with
+    :func:`loaded_damage_psi` as the one cell term."""
+    V_b = FunctionSpace.create(mesh_, 1, bs=2)
+    F_b = EnergyFunctional(
+        V_b, [Term(loaded_damage_psi, 1)],
+        [Coefficient("d", FunctionSpace.create(mesh_, 1, bs=1)),
+         Coefficient("E", FunctionSpace.create(mesh_, 0, bs=1))],
+        device=device, dtype=dtype)
+    left_b = locate_dofs_geometrical(V_b, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right_b = locate_dofs_geometrical(
+        V_b, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    return F_b, [DirichletBC(V_b, left_b, [0.0, 0.0]),
+                 DirichletBC(V_b, right_b, [0.01, 0.0])], V_b
+
+
+def elastic_bar3d(n, device, dtype):
+    """benchmarks/lane3d_bench.py's problem: box(n)^3 of P1 tetrahedra,
+    linear elasticity, x = 0 clamped, x = 1 pulled by 0.01."""
+    mesh_3 = box(n, n, n, cell_type="tetra")
+    V_3 = FunctionSpace.create(mesh_3, 1, bs=3)
+    F_3 = EnergyFunctional(
+        V_3, [Term(lambda qp: linear_elastic_psi(qp.eps, 1.0e6, NU), 1)],
+        device=device, dtype=dtype)
+    left_3 = locate_dofs_geometrical(V_3, lambda x: np.abs(x[:, 0]) < 1e-12)
+    right_3 = locate_dofs_geometrical(
+        V_3, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
+    return F_3, [DirichletBC(V_3, left_3, [0.0, 0.0, 0.0]),
+                 DirichletBC(V_3, right_3, [0.01, 0.0, 0.0])], V_3
+
+
+def gen_prebuild(items):
+    """Build the generated units that ``items`` ((physics, index type,
+    window rows)) launch, all compilers started together (the wrapper
+    would build them one by one at first launch)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    srcs = sorted({K.fused_gen_source(*it) for it in items})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(_build.load_unit, srcs))
+    return dict(units=len(srcs), seconds=time.perf_counter() - t0)
+
+
+def gen_check(tag, phys, st, ix, cds, R_, wr_, idts, timed=None):
+    """K4-gen exactly equal to its plain version, in both dtypes (``phys``
+    and ``cds``: dtype -> physics / cell data), with the index types
+    ``idts``, grad and JVP. ``timed``: the (dtype, index type) whose grad
+    and JVP are timed beside the plain version and their bounds."""
+    out_t = {}
+    for vdt in (torch.float32, torch.float64):
+        C_ = phys[vdt].bs
+        u_ = 1e-3 * torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
+                                generator=gen)
+        v_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV, generator=gen)
+        for idt in idts:
+            for states in ((u_,), (u_, v_)):
+                a = (states, st, ix.to(idt), cds[vdt], phys[vdt])
+                kw = dict(wr=wr_, nv=phys[vdt].nv)
+                out = K.lane_fused_gen(*a, **kw)
+                torch.cuda.synchronize()
+                ref = K.lane_fused_gen_plain(*a, **kw)
+                err = float((out - ref).abs().max())
+                check(bool(torch.isfinite(ref).all()),
+                      f"lane_fused_gen {tag}: non-finite plain output")
+                check(torch.equal(out, ref), f"lane_fused_gen {tag} "
+                      f"{len(states)} state(s) {vdt} {idt}: {err}")
+                if timed != (vdt, idt):
+                    continue
+                ms_r = median_ms(lambda: K.lane_fused_gen(*a, **kw), 10)
+                b = nbytes(*states, st, ix.to(idt), *cds[vdt], out)
+                ops = phys[vdt].ops_per_cell(len(states)) * int(
+                    ix.shape[0] * ix.shape[2] * 128)
+                bms, by = bound_of(b, ops)
+                out_t["jvp" if len(states) == 2 else "grad"] = dict(
+                    ms=ms_r[0], ms_range=ms_r,
+                    plain_ms=time_ms(lambda: K.lane_fused_gen_plain(
+                        *a, **kw), 1),
+                    bound_ms=bms, bound_by=by, bound_bytes=b, ops=ops,
+                    geometry=K.fused_gen_geometry(
+                        len(states), wr_, phys[vdt].nv, phys[vdt].bs,
+                        phys[vdt].dg + phys[vdt].n_coeff_rows,
+                        out.element_size(), ix.to(idt).element_size()))
+                del out, ref
+        del u_, v_
+    return out_t
+
+
+def gen_twice(tag, eng, cc, cfg):
+    """:func:`fg_twice` on the generated route: two solves bitwise equal,
+    K4-gen and K3 launched in the first, K1 / K2 only in the Jacobi
+    diagonal and no hand-written K4."""
+    u1, s1, secs, l1 = fg_twice(tag, eng, cc, cfg, GEN_PATH)
+    check(l1["lane_fused_elem"] == 0 and l1["lane_fused_gen"] >= sum(
+        s1["cg_enqueued"]), f"{tag}: launches {l1} for {s1['cg_enqueued']}")
+    return u1, s1, secs, l1
+
+
+def gen_summary(st, secs, launches_, prof):
+    return dict(newton_iters=st["newton_iters"], cg_iters=st["cg_iters"],
+                residuals=st["residuals"],
+                final_residual=st["final_residual"], run_seconds=secs,
+                ms_per_cg_iter=1e3 * st["cg_seconds"] / max(
+                    sum(st["cg_enqueued"]), 1),
+                launches=launches_, bitwise_equal_twice=True,
+                fused_route=prof["fused_route"], cg_iteration=prof)
+
+
+def gen_pair(tag, eng_fused, coeffs_, cfg):
+    """The problem of the fused (generated) engine ``eng_fused`` on that
+    engine and on a staged one of its plan, each solved twice: the same
+    Newton count and CG +-1 a step."""
+    out_p, runs = {}, {}
+    for name, fused in (("fused_gen", True), ("staged", False)):
+        t0 = time.perf_counter()
+        eng = eng_fused if fused else LaneEngine(
+            eng_fused.functional, eng_fused.bcs, plan=eng_fused.plan,
+            device=DEV, dtype=torch.float32)
+        cc_ = eng.prepare_coeffs(coeffs_)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if fused:
+            check(eng.fused_law is None, f"{tag}: a hand-written law took it")
+            u_, st_, secs_, l_ = gen_twice(f"{tag} {name}", eng, cc_, cfg)
+        else:
+            u_, st_, secs_, l_ = fg_twice(f"{tag} {name}", eng, cc_, cfg,
+                                          STAGED_PATH)
+        prof_ = cg_profile.profile_cg_iteration(eng, cc_, 20)
+        out_p[name] = dict(engine_setup_s=setup_s,
+                           **gen_summary(st_, secs_, l_, prof_))
+        runs[name] = st_
+        del eng, cc_, u_
+        torch.cuda.empty_cache()
+    a, b = runs["fused_gen"], runs["staged"]
+    check(a["newton_iters"] == b["newton_iters"]
+          and all(abs(x - y) <= 1 for x, y in zip(a["cg_iters"],
+                                                  b["cg_iters"])),
+          f"{tag}: fused {a['newton_iters']} / {a['cg_iters']}, staged "
+          f"{b['newton_iters']} / {b['cg_iters']}")
+    return out_p
+
+
+t_phase = time.perf_counter()
+gen_setup = {}
+# the polycrystal's own fused engine on the n = 1024 plan: it still takes
+# the hand-written law (and serves (a) its inputs)
+t0 = time.perf_counter()
+eng_h = LaneEngine(F_full, bcs_full, plan=p, fused=True, device=DEV,
+                   dtype=torch.float32)
+cc_h = eng_h.prepare_coeffs({"d": d_full, "E": E_full})
+torch.cuda.synchronize()
+gen_setup["polycrystal_engine"] = time.perf_counter() - t0
+check(eng_h.fused_law is not None,
+      "the polycrystal engine no longer takes its hand-written law")
+# (b) the polycrystal at full width with the study's body load in the
+# integrand: run's mesh, damage, per-grain E and BCs on the n = 1024 plan
+t0 = time.perf_counter()
+F_b, bcs_b, V_b = loaded_polycrystal(mesh_full, DEV, torch.float32)
+eng_b = LaneEngine(F_b, bcs_b, plan=p, fused=True, device=DEV,
+                   dtype=torch.float32)
+cc_b = eng_b.prepare_coeffs({"d": d_full, "E": E_full})
+torch.cuda.synchronize()
+gen_setup["polycrystal_engine_trace"] = time.perf_counter() - t0
+phys_b = {dt: eng_b.fused_gen(dt) for dt in (torch.float32, torch.float64)}
+check(eng_b.fused_law is None and phys_b[torch.float32].x_rows
+      and eng_b.fused_geom.shape[1] == 9,
+      f"loaded polycrystal: law {eng_b.fused_law}, geometry rows "
+      f"{eng_b.fused_geom.shape}")
+# (a) the polycrystal's own law, generated (the engine takes it by hand)
+t0 = time.perf_counter()
+phys_law = {dt: GenPhysics(
+    lambda qp: asym_damage_psi(qp.eps, qp.coeff("d"), qp.coeff("E"), NU),
+    bs=2, gd=2, nv=3, coeff_meta=(("d", 3, 1), ("E", 1, 1)), dtype=dt)
+    for dt in (torch.float32, torch.float64)}
+gen_setup["law_trace"] = time.perf_counter() - t0
+# (c) the 3D bar: mesh, space, plan, engines
+t0 = time.perf_counter()
+F_3, bcs_3, V_3 = elastic_bar3d(GEN_N3, DEV, torch.float32)
+gen_setup["bar3d_mesh_space"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+plan_3 = build_lane_plan(V_3.dof_coords, np.asarray(V_3.dofmap), wg_own=32)
+gen_setup["bar3d_plan"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng_3 = LaneEngine(F_3, bcs_3, plan=plan_3, fused=True, device=DEV,
+                   dtype=torch.float32)
+torch.cuda.synchronize()
+gen_setup["bar3d_engine_trace"] = time.perf_counter() - t0
+phys_3 = {dt: eng_3.fused_gen(dt) for dt in (torch.float32, torch.float64)}
+check(eng_3.fused_law is None and not phys_3[torch.float32].x_rows,
+      f"3D bar: law {eng_3.fused_law}, x rows {phys_3[torch.float32].x_rows}")
+
+
+def op_table_psi(qp):
+    """Every operation of the emitter's table on the card: pow at 2, 3,
+    -2, 0.5, -0.5, -1 and a general exponent, reciprocal, division by a
+    number, log, clamp, where, comparisons, rsub."""
+    g = qp.grad_u
+    s = qp.u * qp.u
+    return ((g[0, 0] ** 3 + (g[0, 1] * g[0, 1] + 1.0) ** -2
+             + (s + 1.0) ** 0.5 + (s + 2.0) ** -0.5 + 1.0 / (qp.u + 3.0)
+             + (s + 1.0) ** 1.5 + torch.log(s + 2.0) + (s + 1.0) ** -1) / 3.0
+            + torch.clamp(g[0, 0], min=0.0) ** 2 + (1.0 - s) * qp.x[1]
+            + torch.where(g[0, 1] > 0.1, g[0, 1] * qp.x[0], -g[0, 1]) / 0.52)
+
+
+phys_ops = {dt: GenPhysics(op_table_psi, bs=1, gd=2, nv=3, coeff_meta=(),
+                           dtype=dt) for dt in (torch.float32, torch.float64)}
+P3 = eng_3.plan
+K4G_EDGES = {  # tag: (bins, K, wr, window to the last row)
+    "K=13": (37, 13, 40, False),
+    "K=1": (5, 1, 9, False),
+    "window past the last row": (7, 16, 40, True),
+    "int8 window of 126 rows": (4, 32, 126, False),
+    "3D window of 300 rows, global memory": (3, 8, 300, True),
+}
+items = []
+for dt in (torch.float32, torch.float64):
+    for idt in (torch.int8, torch.int32):
+        items += [(phys_law[dt], idt, p.wg), (phys_b[dt], idt, p.wg),
+                  (phys_3[dt], idt, P3.wg)]
+        items += [(ph[dt], idt, w) for _, _, w, _ in K4G_EDGES.values()
+                  for ph in (phys_ops, phys_3)
+                  if w < 127 or idt == torch.int32]
+t0 = time.perf_counter()
+gen_build = gen_prebuild(items)
+logs = [_build.unit_logs[k] for k in _build.unit_logs]
+gen_build.update(
+    spill_units=sum(1 for lg in logs if " 0 bytes spill stores" not in lg),
+    registers=sorted({int(ln.split("Used ")[1].split(" registers")[0])
+                      for lg in logs for ln in lg.splitlines()
+                      if "registers" in ln}))
+
+# (a) the kernel against its plain version on the card: three integrands at
+# their path shapes, every dtype, index type and mode, and at edge shapes
+k4g = {}
+cds_law = {dt: (eng_h.fused_geom.to(dt), cc_h["_cd"].to(dt))
+           for dt in (torch.float32, torch.float64)}
+main_t = (torch.float32, eng_h.gather_idx.dtype)
+k4g["polycrystal_law"] = gen_check(
+    "polycrystal law", phys_law, eng_h.gather_starts, eng_h.gather_idx,
+    cds_law, p.R, p.wg, (torch.int8, torch.int32), timed=main_t)
+# ... beside the hand-written K4 on the same inputs
+u_h = 1e-3 * torch.randn((C, p.R, 128), device=DEV, generator=gen)
+v_h = torch.randn((C, p.R, 128), device=DEV, generator=gen)
+hand_vs_gen = {}
+for states in ((u_h,), (u_h, v_h)):
+    a_h = (states, eng_h.gather_starts, eng_h.gather_idx)
+    kw = dict(wr=p.wg, nv=p.nv)
+    o_hand = K.lane_fused_elem(*a_h, cds_law[torch.float32],
+                               eng_h.fused_law, **kw)
+    o_gen = K.lane_fused_gen(*a_h, cds_law[torch.float32],
+                             phys_law[torch.float32], **kw)
+    hand_vs_gen["jvp" if len(states) == 2 else "grad"] = dict(
+        rel=float((o_hand - o_gen).abs().max() / o_hand.abs().max()),
+        hand_ms=median_ms(lambda: K.lane_fused_elem(
+            *a_h, cds_law[torch.float32], eng_h.fused_law, **kw), 10),
+        gen_ms=median_ms(lambda: K.lane_fused_gen(
+            *a_h, cds_law[torch.float32], phys_law[torch.float32], **kw),
+            10))
+    # the same law by two routes, rounded differently (float32): a sanity
+    # bound, the number is printed
+    check(hand_vs_gen["jvp" if len(states) == 2 else "grad"]["rel"] <= 1e-2,
+          f"hand-written against generated K4: {hand_vs_gen}")
+del u_h, v_h, o_hand, o_gen
+cds_b = {dt: eng_b._fused_cds(cc_b, dt) for dt in (torch.float32,
+                                                  torch.float64)}
+k4g["loaded_polycrystal"] = gen_check(
+    "loaded polycrystal", phys_b, eng_b.gather_starts, eng_b.gather_idx,
+    cds_b, p.R, p.wg, (torch.int8, torch.int32), timed=main_t)
+cds_3 = {dt: eng_3._fused_cds({}, dt) for dt in (torch.float32,
+                                                torch.float64)}
+idts_3 = (torch.int8, torch.int32) if P3.wg < 127 else (torch.int32,)
+k4g["bar3d"] = gen_check(
+    "3D bar", phys_3, eng_3.gather_starts, eng_3.gather_idx, cds_3, P3.R,
+    P3.wg, idts_3, timed=(torch.float32, eng_3.gather_idx.dtype))
+edges = {}
+for tag, (T_, K_, wr_, last) in K4G_EDGES.items():
+    R_ = T_ * wr_ + 5
+    st_ = edge_rng.integers(0, R_ - wr_ + 1, size=T_)
+    if last:
+        st_[-1] = R_ - wr_ // 2
+    idts = (torch.int8, torch.int32) if wr_ < 127 else (torch.int32,)
+    for name_e, phys_e in (("op_table", phys_ops), ("bar3d", phys_3)):
+        ph = phys_e[torch.float64]
+        ix_ = edge_rng.integers(-1, wr_ + 1, size=(T_, ph.nv, K_, 128))
+        geom_ = edge_rng.standard_normal((T_, ph.dg, K_, 128))
+        geom_[:, ph.nv * ph.gd] = np.abs(geom_[:, ph.nv * ph.gd])
+        cds_e = [geom_]
+        if ph.n_coeff_rows:
+            cd_ = edge_rng.random((T_, ph.n_coeff_rows, K_, 128))
+            cd_[:, 3] = 1e6 * (1.0 + cd_[:, 3])
+            cds_e.append(cd_)
+        gen_check(f"{name_e} at {tag}", phys_e,
+                  on_card(st_, torch.int32), on_card(ix_.astype(np.int32)),
+                  {dt: tuple(on_card(c, dt) for c in cds_e)
+                   for dt in (torch.float32, torch.float64)}, R_, wr_, idts)
+        edges.setdefault(tag, []).append(name_e)
+
+gen_secs = dict(setup=t0 - t_phase, build_and_kernels=time.perf_counter()
+                - t0)
+t0 = time.perf_counter()
+# (b) the loaded polycrystal solved on the generated route and staged
+cfg_gen = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6, cg_maxit=FULL_CG_MAXIT,
+                       newton_maxit=FULL_NEWTON_MAXIT, preconditioner="jacobi")
+del cc_b
+torch.cuda.empty_cache()
+gen_b = gen_pair(f"loaded polycrystal n = {N_FULL}", eng_b,
+                 {"d": d_full, "E": E_full}, cfg_gen)
+launches_gen = gen_b["fused_gen"]["launches"]
+del eng_b
+torch.cuda.empty_cache()
+gen_secs["loaded_polycrystal"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+# (c) the 3D bar on the generated route and staged
+gen_c = gen_pair(f"3D bar n = {GEN_N3}", eng_3, {}, cfg_gen)
+gen_secs["bar3d"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+gen_c.update(n=GEN_N3, n_dofs=V_3.n_dofs, n_cells=int(V_3.mesh.n_cells),
+             wr=P3.wg, kc=P3.kc, G=P3.G, lane_cells=P3.G * P3.kc * 128)
+del eng_3, F_3, bcs_3, V_3, plan_3
+torch.cuda.empty_cache()
+
+
+# (d) card against CPU, float64, converged: the loaded polycrystal at
+# n = GEN_N_SMALL and the 3D bar at n = GEN_N3_SMALL
+def gen_small(kind, device):
+    if kind == "loaded_polycrystal":
+        mesh_s = polycrystal.generate_polycrystal(
+            GEN_N_SMALL, n_grains=GEN_GRAINS_SMALL)
+        F_s, bcs_s, V_s = loaded_polycrystal(mesh_s, device, torch.float64)
+        E_s, d_s = cg_profile.case_inputs(mesh_s)
+        coeffs_s = {"d": d_s, "E": E_s}
+    else:
+        F_s, bcs_s, V_s = elastic_bar3d(GEN_N3_SMALL, device, torch.float64)
+        coeffs_s = {}
+    eng_s = LaneEngine(F_s, bcs_s, wg_own=16, fused=True, device=device,
+                       dtype=torch.float64)
+    check(eng_s.fused_law is None, f"{kind}: not on the generated route")
+    u_s, st_s = eng_s.make_solver(SolverConfig(
+        cg_rtol=1e-10, newton_rtol=1e-9, cg_maxit=20000), cg_chunk=200)(
+        torch.zeros_like(eng_s.bc_lane), eng_s.prepare_coeffs(coeffs_s))
+    return eng_s.from_lane(u_s), st_s
+
+
+gen_d = {}
+for kind in ("loaded_polycrystal", "bar3d"):
+    K.reset_launch_counts()
+    (u_d, s_d) = gen_small(kind, DEV)
+    l_d = K.launch_counts()
+    (u_c, s_c) = gen_small(kind, "cpu")
+    u_rel = fg_rel(u_d, u_c)
+    check(l_d["lane_fused_gen"] > 0 and s_d["converged"] and s_c["converged"]
+          and s_d["newton_iters"] == s_c["newton_iters"]
+          and all(abs(a - b) <= 1 for a, b in zip(s_d["cg_iters"],
+                                                  s_c["cg_iters"]))
+          and u_rel <= 1e-9,
+          f"fused_gen {kind}: card {s_d['newton_iters']} / {s_d['cg_iters']}"
+          f", CPU {s_c['newton_iters']} / {s_c['cg_iters']}, u rel "
+          f"{u_rel:.3e}, launches {l_d}")
+    gen_d[kind] = dict(newton_card=s_d["newton_iters"],
+                       newton_cpu=s_c["newton_iters"],
+                       cg_card=s_d["cg_iters"], cg_cpu=s_c["cg_iters"],
+                       u_rel=u_rel, card_launches=l_d)
+
+gen_secs["card_vs_cpu"] = time.perf_counter() - t0
+# the kernels line: K4-gen timed at the loaded polycrystal's shapes, its
+# launches those of the first fused solve of (b)
+lg = k4g["loaded_polycrystal"]
+record("lane_fused_gen", 0.0, lg["grad"]["ms"], lg["grad"]["plain_ms"],
+       lg["grad"]["bound_bytes"], None, ms_range=lg["grad"]["ms_range"],
+       jvp_ms=lg["jvp"]["ms"], jvp_plain_ms=lg["jvp"]["plain_ms"],
+       jvp_bound_ms=lg["jvp"]["bound_ms"], geometry=lg["grad"]["geometry"],
+       jvp_geometry=lg["jvp"]["geometry"])
+results["lane_fused_gen"].update(bound_ms=lg["grad"]["bound_ms"],
+                                 bound_by=lg["grad"]["bound_by"])
+emit("fused_gen", kernel=k4g, hand_written_vs_generated=hand_vs_gen,
+     edges=edges, build=gen_build, setup_s=gen_setup,
+     op_histogram={"loaded_polycrystal": phys_b[torch.float32].histogram(),
+                   "bar3d": phys_3[torch.float32].histogram(),
+                   "op_table": phys_ops[torch.float32].histogram()},
+     loaded_polycrystal=gen_b, bar3d=gen_c, card_vs_cpu=gen_d,
+     seconds_by_part=gen_secs,
+     tolerance="K4-gen against its plain version: exactly equal in every "
+               "dtype, index type and mode; hand-written against generated "
+               "K4 (float32, two roundings of one law): rel <= 1e-2; fused against staged: same "
+               "Newton count, CG +-1 a step, each twice bitwise equal; card "
+               "against CPU (float64, converged): same Newton count, CG +-1 "
+               "a step, u rel <= 1e-9",
+     nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+del F_b, bcs_b, V_b, phys_b, phys_3, phys_law, phys_ops, cds_law, cds_b, cds_3
+del eng_h, cc_h
+torch.cuda.empty_cache()
+
+
 # -- 12. mechanic2d: the reference study's own workload (flat Assembler) ---------
 
 # the reference's Newton / CG counts on square.msh refined 3 times
@@ -2917,14 +3356,14 @@ torch.cuda.empty_cache()
 
 # -- 13. flat3d: BASELINE configs 3 and 4 on the flat Newton solver -----------
 
-# elasticity3d at full width: n = 128 hexes (6 440 067 dofs; its element
-# matrices 9.7 GB in float64), chosen by the phase's time: at n = 160 one
-# solve (284 CG iterations, each then five element actions over 18.9 GB of
-# element matrices) took over 74 s on an H100, so two would take the
-# phase past 230 s (PERF.md)
-N3D_CHECK, N3D_FULL = 6, 128
-# neohookean 3D: 375, 46 875 and 823 875 dofs
-NH_CHECK, NH_CONV, NH_FULL, NH_FULL_STEPS = 4, 24, 64, 2
+# elasticity3d: n = 96 hexes (2 738 019 dofs; its element matrices 4.1 GB
+# in float64), chosen by the script's time: n = 128 (6 440 067 dofs)
+# took 28-30 s a solve, twice, and n = 160 over 74 s a solve on an H100
+# (PERF.md); the script's 1 200 s limit now also holds phase fused_gen
+N3D_CHECK, N3D_FULL = 6, 96
+# neohookean 3D: 375, 46 875 and 352 947 dofs (n = 48, cut from 64 by the
+# script's time: 16 s a capped run there, four runs with phase amg's)
+NH_CHECK, NH_CONV, NH_FULL, NH_FULL_STEPS = 4, 24, 48, 2
 
 
 def flat_run(mod, cfg, device):
@@ -3128,9 +3567,13 @@ emit("flat3d", check_card_vs_cpu=flat_checks, elasticity3d=e_full,
 # n = 20 (1 764 dofs) and neohookean 3D at n = 4 (375 dofs), with coarse
 # sizes small enough for levels; (b) polycrystal.run(mixed=True) under AMG
 # at n = 1024 (run's defaults otherwise, as solve_full_mixed); (c)
-# neohookean n = 64 with block Jacobi, capped as in flat3d
+# neohookean n = NH_FULL with block Jacobi, capped as in flat3d
 AMG_N2D, AMG_COARSE_2D, AMG_COARSE_3D = 20, 64, 24
-AMG_FULL_CAP = 2  # Newton steps of the second full-width run
+AMG_FULL_CAP = 2  # Newton steps of the second run
+# the polycrystal under AMG at n = 512 (526 338 dofs), cut from n = 1024
+# by the script's 1 200 s: there its two runs took 117-134 s, 28-38 s of
+# each the host hierarchy, rebuilt by the second (PERF.md)
+N_AMG = 512
 
 
 def amg_damage_system(n, device):
@@ -3244,10 +3687,15 @@ del sys_dev, sys_cpu, asm_c, asm_d, A_cpu, A_dev, h_cpu
 torch.cuda.empty_cache()
 secs_amg_a = time.perf_counter() - t_phase
 
-# (b) polycrystal.run(mixed=True) under AMG at full width, to convergence;
+# (b) polycrystal.run(mixed=True) under AMG at n = N_AMG, to convergence;
 # then capped at AMG_FULL_CAP Newton steps with a fresh hierarchy (a new
 # solver): the same trajectory bit for bit. The host hierarchy of the
 # first run is kept for the profile
+mesh_amg = polycrystal.generate_polycrystal(N_AMG, n_grains=200)
+V_amg = FunctionSpace.create(mesh_amg, 1, bs=2)
+plan_amg = build_lane_plan(V_amg.dof_coords, np.asarray(V_amg.dofmap),
+                           wg_own=16)
+E_amg, d_amg = cg_profile.case_inputs(mesh_amg)
 cfg_amg = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6, cg_maxit=20000,
                        preconditioner="amg")
 kept_hier = []
@@ -3263,7 +3711,7 @@ def keep_hierarchy(*a, **k):
 AMG.build_hierarchy = keep_hierarchy
 try:
     K.reset_launch_counts()
-    r_am, secs_am, peak_am = timed_run(N_FULL, mesh=mesh_full, plan=p,
+    r_am, secs_am, peak_am = timed_run(N_AMG, mesh=mesh_amg, plan=plan_amg,
                                        mixed=True, solver=cfg_amg,
                                        postprocess_fields=False)
     launches_am = K.launch_counts()
@@ -3273,19 +3721,20 @@ st_am = r_am.stats
 print(json.dumps({"amg_full_stats": st_am, "seconds": secs_am}),
       flush=True)
 check(st_am["converged"] and st_am["final_residual"] < 1e-6 * st_am["r0"],
-      f"amg: the n = {N_FULL} mixed AMG solve did not converge: "
+      f"amg: the n = {N_AMG} mixed AMG solve did not converge: "
       f"{st_am['residuals']} / {st_am['cg_iters']}")
 check(np.isfinite(r_am.u_flat).all() and r_am.u_flat.dtype == np.float64
-      and r_am.u_flat.shape == (2 * (N_FULL + 1) ** 2,),
-      "amg: full-width u not finite, not float64 or of a wrong shape")
+      and r_am.u_flat.shape == (2 * (N_AMG + 1) ** 2,),
+      "amg: u not finite, not float64 or of a wrong shape")
 check(launches_am["lane_fused_elem"] > 0
       and launches_am["lane_pass_update"] > 0
       and launches_am["lane_gather_weighted"] == 0,
       f"amg: the operator's kernels on the AMG path: {launches_am}")
 cfg_cap = SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6, cg_maxit=20000,
                        preconditioner="amg", newton_maxit=AMG_FULL_CAP)
-r_cap, secs_cap, _ = timed_run(N_FULL, mesh=mesh_full, plan=p, mixed=True,
-                               solver=cfg_cap, postprocess_fields=False)
+r_cap, secs_cap, _ = timed_run(N_AMG, mesh=mesh_amg, plan=plan_amg,
+                               mixed=True, solver=cfg_cap,
+                               postprocess_fields=False)
 st_cap = r_cap.stats
 n_cap = min(AMG_FULL_CAP, st_am["newton_iters"])
 check(st_cap["residuals"] == st_am["residuals"][:n_cap]
@@ -3299,24 +3748,21 @@ check(st_cap["residuals"] == st_am["residuals"][:n_cap]
 del r_cap
 # one CG iteration under the profiler: a float32 fused engine on the same
 # plan, the first run's hierarchy put on the card
-F32_am, bcs32_am = cg_profile.damage_functional(mesh_full, DEV,
+F32_am, bcs32_am = cg_profile.damage_functional(mesh_amg, DEV,
                                                 torch.float32)
-eng_am = LaneEngine(F32_am, bcs32_am, wg_own=16, plan=p, fused=True,
+eng_am = LaneEngine(F32_am, bcs32_am, wg_own=16, plan=plan_amg, fused=True,
                     device=DEV, dtype=torch.float32)
-cc_am = eng_am.prepare_coeffs({"d": d_full, "E": E_full})
+cc_am = eng_am.prepare_coeffs({"d": d_amg, "E": E_amg})
 hier_am = kept_hier[0].to(DEV)
 prof_am = cg_profile.profile_cg_iteration(eng_am, cc_am, 10, amg=hier_am)
 vc_bytes = vcycle_bytes(hier_am)
 prof_am.update(vcycle_bytes=vc_bytes,
                vcycle_bound_ms=1e3 * vc_bytes / HBM_BYTES_PER_S)
 amg_full = dict(
-    n=N_FULL, n_dofs=r_am.n_dofs, preconditioner="amg", fused=True,
+    n=N_AMG, n_dofs=r_am.n_dofs, preconditioner="amg", fused=True,
     newton_iters=st_am["newton_iters"], cg_iters=st_am["cg_iters"],
     total_cg_iters=st_am["total_cg_iters"], residuals=st_am["residuals"],
     final_residual=st_am["final_residual"], energy=r_am.energy,
-    twolevel_newton_iters=st_mx["newton_iters"],
-    twolevel_cg_iters=st_mx["cg_iters"],
-    twolevel_total_cg_iters=st_mx["total_cg_iters"],
     levels=st_am["amg"]["levels"], setup_s=st_am["amg"]["setup_s"],
     hierarchy_device_bytes=st_am["amg"]["device_bytes"],
     phase_s=st_am["phase_s"], timings=r_am.timings,
@@ -3325,13 +3771,14 @@ amg_full = dict(
     seconds=secs_am, capped_seconds=secs_cap, peak_device_bytes=peak_am,
     capped_newton_steps=AMG_FULL_CAP, capped_run_bitwise_equal=True,
     launches=launches_am, cg_iteration_profile=prof_am)
-del r_am, eng_am, cc_am, hier_am, kept_hier, F32_am, bcs32_am
+del r_am, eng_am, cc_am, hier_am, kept_hier, F32_am, bcs32_am, mesh_amg
+del V_amg, plan_amg
 torch.cuda.empty_cache()
 secs_amg_b = time.perf_counter() - t_phase - secs_amg_a
 
-# (c) neohookean n = 64 with block Jacobi (blocks of 128), the reference's
-# settings capped at NH_FULL_STEPS Newton steps as in flat3d, twice on one
-# assembler (its pattern built once), bitwise equal
+# (c) neohookean n = NH_FULL with block Jacobi (blocks of 128), the
+# reference's settings capped at NH_FULL_STEPS Newton steps as in flat3d,
+# twice on one assembler (its pattern built once), bitwise equal
 cfg_bj = neohookean.NeoHookeanConfig(n=NH_FULL)
 cfg_bj.solver.preconditioner = "block_jacobi"
 cfg_bj.solver.newton_maxit = NH_FULL_STEPS
@@ -3413,7 +3860,7 @@ emit("amg", card_vs_cpu=amg_small, polycrystal_mixed_amg=amg_full,
      neohookean_block_jacobi=bj_full,
      tolerance="card against CPU (float64): same Newton count, |d total "
                "CG| <= Newton steps, u rel <= 1e-9; one V-cycle from one "
-               "host hierarchy rel <= 1e-12; full width: the capped run "
+               "host hierarchy rel <= 1e-12; n = 512: the capped run "
                "and the second block-Jacobi run bitwise equal",
      seconds_by_part=dict(card_vs_cpu=secs_amg_a, polycrystal=secs_amg_b,
                           neohookean_block_jacobi=time.perf_counter()
@@ -3427,6 +3874,7 @@ REPLACES = {
     "lane_scatter_cm": "tpufem/lane/kernels.py:258",
     "lane_pass_update": "tpufem/lane/kernels.py:356",
     "lane_fused_elem": "tpufem/lane/kernels.py:521",
+    "lane_fused_gen": "tpufem/lane/kernels.py:521",
     "lane_gather_weighted": "tpufem/lane/kernels.py:568",
     "lane_gather": "tpufem/lane/kernels.py:76",
     "lane_scatter": "tpufem/lane/kernels.py:138",
@@ -3442,15 +3890,21 @@ REPLACES = {
 MAIN_LAUNCHES = {**launches_tl, "lattice_residual":
                  launches_a["lattice_residual"], "lattice_tangent":
                  launches_a["lattice_tangent"], "lattice_matvec3d":
-                 launches_b["lattice_matvec3d"]}
+                 launches_b["lattice_matvec3d"],
+                 "lane_fused_gen": launches_gen["lane_fused_gen"]}
 PATHS = {**dict.fromkeys(LANE_PATH, "polycrystal.run defaults, n = 1024"),
          "lattice_residual": "path A", "lattice_tangent": "path A",
-         "lattice_matvec3d": "path B", "lane_gather": None,
+         "lattice_matvec3d": "path B",
+         "lane_fused_gen": "the polycrystal with the study's body load in "
+                           "the integrand, n = 1024, fused (generated), "
+                           "Jacobi (phase fused_gen)",
+         "lane_gather": None,
          "lane_scatter": None, "lane_scatter_weighted": None}
 summary = []
 for name, r in results.items():
     entry = dict(
-        name=name, route="cuda", source=f"tpufem_torch/csrc/{name}.cu",
+        name=name, route="cuda", source=f"tpufem_torch/csrc/{name}" + (
+            ".cuh" if name == "lane_fused_gen" else ".cu"),
         replaces=REPLACES[name], path=PATHS[name],
         launches=MAIN_LAUNCHES[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -3466,6 +3920,12 @@ for name, r in results.items():
                      launches_traction_fused_solve=launches_t["fused"][name],
                      launches_traction_staged_solve=launches_t["staged"][
                          name])
+    if name == "lane_fused_gen":
+        entry.update(
+            launches_3d_bar_fused_solve=gen_c["fused_gen"]["launches"][name],
+            launches_run_defaults=launches_tl[name],
+            generated_from="the integrand's AD graphs, traced and emitted "
+                           "as C (tpufem_torch/lane/fused_gen.py)")
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
@@ -3479,7 +3939,8 @@ for name, r in results.items():
               "q2hex_bound_ms", "q2hex_refresh_ms", "q2hex_refresh_ms_range",
               "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms",
               "q2hex_library_ms", "q2hex_library_dump_row_ms",
-              "q2hex_padding_share", "padding_share"):
+              "q2hex_padding_share", "padding_share", "jvp_geometry",
+              "geometry"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

@@ -292,7 +292,7 @@ def test_fused_solve_matches_reference_fused_solve(setup):
     assert _rel(ef.from_lane(ut), es.from_lane(us)) <= 1e-9
 
 
-# -- what the fused kernel has no law for raises -----------------------------------
+# -- what the fused kernel has no law for runs generated ---------------------------
 
 
 def _engine_for(integrand, *, degree=1, coefficients=()):
@@ -311,11 +311,12 @@ def _custom_energy(eps, Ey, nu):  # linear elasticity, but not a tagged law
         eps[0, 0] ** 2 + eps[1, 1] ** 2 + 2.0 * eps[0, 1] * eps[1, 0])
 
 
-_UNSUPPORTED = {
+# integrands no hand-written law takes: each once raised here, and now runs
+# on the generated route (tests/test_torch_fused_gen.py holds that route
+# against the reference)
+_NO_LAW = {
     "reads_x": dict(integrand=lambda qp: (1.0 + qp.x[0])
                     * t_forms.linear_elastic_psi(qp.eps, E, NU)),
-    "p2_space": dict(integrand=lambda qp: t_forms.linear_elastic_psi(
-        qp.eps, E, NU), degree=2),
     "untagged_energy": dict(integrand=lambda qp: _custom_energy(
         qp.eps, E, NU)),
     "scaled_law": dict(integrand=lambda qp: 2.0 * t_forms.asym_damage_psi(
@@ -327,13 +328,41 @@ _UNSUPPORTED = {
 }
 
 
+@pytest.mark.parametrize("case", sorted(_NO_LAW))
+def test_fused_generated_takes_what_no_law_does(case):
+    """No hand-written law, the physics generated from the integrand:
+    residual and tangent action equal the staged engine's (rel <=
+    1e-12); x rows streamed only where the integrand reads x."""
+    make = _engine_for(**_NO_LAW[case])
+    ef = make(fused=True)
+    es = make(fused=False, plan=ef.plan)
+    assert ef.fused_law is None and es.fused_law is None
+    assert ef.fused_geom.shape[1] == (9 if case == "reads_x" else 7)
+    rng = np.random.default_rng(13)
+    n = ef.space.n_dofs
+    coeffs = {c: rng.uniform(0.0, 1.0, ef.space.mesh.n_nodes)
+              for c in _NO_LAW[case].get("coefficients", ())}
+    ccf, ccs = ef.prepare_coeffs(coeffs), es.prepare_coeffs(coeffs)
+    u, v = ef.to_lane(1e-3 * rng.standard_normal(n)), ef.to_lane(
+        rng.standard_normal(n))
+    assert _rel(ef.residual(u, ccf), es.residual(u, ccs)) <= 1e-12
+    assert _rel(ef.tangent_action(u, ccf, v),
+                es.tangent_action(u, ccs, v)) <= 1e-12
+
+
+_UNSUPPORTED = {
+    "p2_space": dict(integrand=lambda qp: t_forms.linear_elastic_psi(
+        qp.eps, E, NU), degree=2),
+}
+
+
 @pytest.mark.parametrize("case", sorted(_UNSUPPORTED))
 def test_fused_raises_for_unsupported_integrand(case):
+    """The multi-quadrature-point path runs staged: fused=True names its
+    ROADMAP item (6.5b)."""
     make = _engine_for(**_UNSUPPORTED[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Q1 item 6.5b"):
         make(fused=True)
-    if case != "p2_space":  # the staged engine serves all P1 integrands
-        assert make(fused=False).fused_law is None
 
 
 def test_fused_engine_refuses_foreign_coefficients(setup):

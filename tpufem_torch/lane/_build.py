@@ -8,18 +8,24 @@ objects are linked into one shared library under ``tpufem_torch/build/``
 that is loaded with ``ctypes``. The build runs at first use and again
 whenever a source is newer than the library. A failed build raises: no
 caller gets a substitute for a kernel that did not build.
+
+The fused kernel's generated route (``lane/fused_gen.py``) compiles one
+unit per generated source (:func:`load_unit`) into ``build/gen/``, named
+by a digest of the source, the headers, the flags and the compiler; such
+a unit never makes the main library stale.
 """
 
 from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -27,10 +33,22 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libtpufem_lane_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+GEN_DIR = os.path.join(BUILD_DIR, "gen")
+# -fmad=false: products and sums round separately, as they do in the plain
+# PyTorch versions the kernels are held against, so the kernels that
+# multiply and add (K4, K6, K7, K8) are bit-equal to them; K6 / K7 / K8 pay
+# for it in instructions (their notes in csrc/ count them)
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+              "-Xcompiler", "-fPIC"]
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # None: loaded an up-to-date library
 build_log: str = ""
+_units: Dict[str, ctypes.CDLL] = {}
+_unit_locks: Dict[str, threading.Lock] = {}
+unit_logs: Dict[str, str] = {}  # generated units' compiler output (ptxas)
+_nvcc_version: Optional[str] = None
 
 
 def sources():
@@ -70,12 +88,7 @@ def build(verbose: bool = False) -> float:
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    # -fmad=false: products and sums round separately, as they do in the
-    # plain PyTorch versions the kernels are held against, so the kernels
-    # that multiply and add (K4, K6, K7, K8) are bit-equal to them; K6 /
-    # K7 / K8 pay for it in instructions (their notes in csrc/ count them)
-    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
-              "-Xcompiler", "-fPIC"]
+    common = [nvcc, *NVCC_FLAGS]
     if verbose:
         common += ["-Xptxas", "-v"]
     procs = []
@@ -168,3 +181,71 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                                          ci, vp]
         _lib = lib
         return _lib
+
+
+# -- generated units (the fused kernel's generated route) ----------------------
+
+
+def _nvcc_id(nvcc: str) -> str:
+    global _nvcc_version
+    if _nvcc_version is None:
+        _nvcc_version = subprocess.run(
+            [nvcc, "--version"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True).stdout
+    return _nvcc_version
+
+
+def unit_key(source: str, nvcc: Optional[str] = None) -> str:
+    """sha256 of a generated unit's source, the headers of ``csrc/`` it
+    includes, the flags and the compiler's version."""
+    h = hashlib.sha256(source.encode())
+    for hdr in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(hdr, "rb") as f:
+            h.update(f.read())
+    h.update(repr(NVCC_FLAGS).encode())
+    h.update(_nvcc_id(nvcc or _find_nvcc()).encode())
+    return h.hexdigest()
+
+
+def load_unit(source: str) -> ctypes.CDLL:
+    """A generated CUDA unit (source text that includes headers of
+    ``csrc/``) as a loaded library: built at first use with the library's
+    flags into ``build/gen/<sha256>.so`` and kept there, so that a later
+    process loads it; a failed build raises with the compiler's log. The
+    main library is not touched (its staleness test reads ``csrc/`` only).
+    Thread-safe: units may be built in parallel from threads."""
+    nvcc = _find_nvcc()
+    key = unit_key(source, nvcc)
+    with _lock:
+        if key in _units:
+            return _units[key]
+        klock = _unit_locks.setdefault(key, threading.Lock())
+    with klock:
+        if key in _units:
+            return _units[key]
+        so = os.path.join(GEN_DIR, key + ".so")
+        if not os.path.exists(so):
+            os.makedirs(GEN_DIR, exist_ok=True)
+            src = os.path.join(GEN_DIR, key + ".cu")
+            with open(src, "w") as f:
+                f.write(source)
+            tmp = so + f".tmp{os.getpid()}.{threading.get_ident()}"
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC_DIR,
+                 "-shared", src, "-o", tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for the generated unit {src}:\n"
+                    + proc.stdout)
+            os.replace(tmp, so)
+            unit_logs[key] = proc.stdout
+        lib = ctypes.CDLL(so)
+        vp = ctypes.c_void_p
+        ci = ctypes.c_int
+        for fn in (lib.lane_fused_gen_launch1, lib.lane_fused_gen_launch2):
+            fn.restype = ci
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                           ctypes.c_longlong, vp]
+        _units[key] = lib
+        return lib

@@ -22,15 +22,21 @@ This is the staged P1 path of ``tpufem.lane.engine``.
 ``fused=True`` replaces gather -> physics -> scatter by ONE kernel,
 
   u [, v] (bs, R, 128) + geometry rows + coefficient rows
-    -> lane_fused_elem (element gradient / Hessian-vector product)  [CUDA]
+    -> lane_fused_elem / lane_fused_gen (element gradient /
+       Hessian-vector product)                                      [CUDA]
     -> lane_pass_update head=True, head=False                       [CUDA]
 
 for the residual and for J(u) v alike: the tangent action recomputes the
 stress derivative from the frozen ``u`` in every application and no
-per-cell Hessian is stored. The kernel's physics is written by hand
-(``lane.kernels.FusedLaw``); the engine finds out which law an integrand
-evaluates, proves the match on probe cells at construction, and raises
-``NotImplementedError`` for anything the kernel has no law for.
+per-cell Hessian is stored. Two routes serve the P1 single-point path.
+Where the integrand is one of the kernel's hand-written laws
+(``lane.kernels.FusedLaw``: found by the laws' tags and proved on probe
+cells at construction), ``lane_fused_elem`` runs it. Every other
+integrand that path takes -- triangles or tetrahedra, 1-3 components,
+x-using or not -- gets physics generated from the integrand
+(``lane.fused_gen``: its AD graphs traced and emitted as C), run by
+``lane_fused_gen``; an operation the emitter has no C form for raises
+``NotImplementedError``.
 
 The physics is specialized on the host in one of three ways. A single
 degree-1 cell term on P1 simplices takes the P1 path: one quadrature
@@ -45,8 +51,8 @@ around it. Everything else -- cell terms of several quadrature degrees
 term -- takes the generic element path (``lane.generic``): AD of the
 scalarized element energy over the gathered cells, the element matrices
 stored once per Newton step. The multi-qp and generic paths run staged
-only: ``fused=True`` on them raises ``NotImplementedError`` (the
-reference runs such an engine staged without a word,
+only: ``fused=True`` on them raises ``NotImplementedError`` (ROADMAP.md
+Q1 item 6.5b; the reference runs such an engine staged without a word,
 ``tpufem/lane/engine.py:163``).
 
 Facet (ds-measure) terms ride every path (``_build_facet_data``): the
@@ -85,9 +91,11 @@ from tpufem_torch.forms.potentials import record_fused_laws
 from tpufem_torch.forms.smat import SMat, SVec
 from tpufem_torch.la.amg import vcycle
 from tpufem_torch.la.cg import pcg_chunk
+from tpufem_torch.lane.fused_gen import GenPhysics
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
-                                       lane_fused_elem, lane_gather_cm,
-                                       lane_pass_update, lane_scatter_cm)
+                                       lane_fused_elem, lane_fused_gen,
+                                       lane_gather_cm, lane_pass_update,
+                                       lane_scatter_cm)
 from tpufem_torch.lane.generic import GenericPhysics, x_lane_host
 from tpufem_torch.lane.multiqp import (MQ_CELLS, MultiQPPhysics,
                                        cells_leading, fold_terms,
@@ -275,26 +283,32 @@ class LaneEngine:
                 gen.residual, gen.energy, gen.linearize, gen.apply,
                 gen.diagonal)
 
-        # fused element kernel: which hand-written law the integrand is
-        # (proved on probe cells, or NotImplementedError -- never a quiet
-        # switch to the staged path), and the static geometry rows
-        # (G, 7, kc, 128) the kernel streams: dN[v][d] at row v*gd+d, then
-        # the weight. The quadrature-point rows are left out: no
-        # hand-written law reads qp.x.
+        # fused element kernel: the hand-written law the integrand is
+        # (proved on probe cells), else the physics generated from the
+        # integrand (traced now: an operation the emitter lacks raises
+        # NotImplementedError -- never a quiet switch to the staged path);
+        # and the static geometry rows (G, Dg, kc, 128) the kernel streams,
+        # the reference's layout: dN[v][d] at row v*gd+d, the weight, then
+        # the gd quadrature-point rows where the physics reads x
         self._fused = bool(fused)
         self.fused_law = self.fused_geom = None
+        self._gen_phys = {}  # dtype -> lane.fused_gen.GenPhysics
         if self._fused and self.path != "p1":
             raise NotImplementedError(
-                "LaneEngine(fused=True): lane_fused_elem has hand-written "
-                "physics for the P1 triangle only; a functional on the "
-                f"{self.path} path runs staged (fused=False) until the "
-                "kernel's source is generated (ROADMAP.md: K4, kernel "
-                "source generated from the elementwise energy)")
+                "LaneEngine(fused=True): the fused kernel takes the P1 "
+                "single-point path only (a hand-written law, or K4, kernel "
+                "source generated from the elementwise energy); a functional "
+                f"on the {self.path} path runs staged (fused=False) until "
+                "the multi-quadrature-point variant is ported (ROADMAP.md Q1 "
+                "item 6.5b; the reference runs such an engine staged without "
+                "a word, tpufem/lane/engine.py:163)")
         if self._fused:
             self.fused_law = self._resolve_fused_law()
-            dN_h, w_h = self._geom_host
-            rows = np.concatenate(
-                [dN_h.reshape(-1, dN_h.shape[-1]), w_h[None, :]], axis=0)
+            dN_h, w_h, xq_h = self._geom_host
+            parts = [dN_h.reshape(-1, dN_h.shape[-1]), w_h[None, :]]
+            if self.fused_law is None and self.fused_gen(self.dtype).x_rows:
+                parts.append(xq_h)
+            rows = np.concatenate(parts, axis=0)
             self.fused_geom = self._store(np.ascontiguousarray(
                 rows.reshape(rows.shape[0], p.G, p.kc, N_LANES)
                 .transpose(1, 0, 2, 3)))
@@ -629,7 +643,7 @@ class LaneEngine:
         self.geom_dN = self._store(dN_t)
         self.geom_w = self._store(w)
         self.geom_xq = self._store(xq_t)
-        self._geom_host = (dN_t, w)  # for the fused kernel's geometry rows
+        self._geom_host = (dN_t, w, xq_t)  # for the fused kernel's rows
         return True
 
     def _multiqp_takes(self) -> Optional[str]:
@@ -839,9 +853,9 @@ class LaneEngine:
             return True
         return False
 
-    def _resolve_fused_law(self) -> FusedLaw:
+    def _resolve_fused_law(self) -> Optional[FusedLaw]:
         """The hand-written law of the fused kernel that this engine's
-        integrand evaluates, or ``NotImplementedError``.
+        integrand evaluates, or None (the generated physics then serves).
 
         The energies of ``forms.potentials`` that the kernel has a law
         for are tagged: one evaluation of the integrand under
@@ -849,30 +863,18 @@ class LaneEngine:
         the damage, the modulus and the Poisson ratio (a coefficient, by
         identity with the probe's value, or a constant). That is only a
         claim; :meth:`_prove_fused_law` holds it against AD of the
-        integrand itself."""
+        integrand itself. The laws are written for the P1 triangle with
+        two components and read no qp.x."""
         mesh = self.space.mesh
         if (mesh.cell_type != CellType.triangle or mesh.gdim != 2
-                or self.bs != 2):
-            raise NotImplementedError(
-                "LaneEngine(fused=True): lane_fused_elem has hand-written "
-                "physics for the P1 triangle with two displacement "
-                "components only (ROADMAP.md: K4, kernel source generated "
-                "from the elementwise energy)")
-        if self._integrand_uses_x():
-            raise NotImplementedError(
-                "LaneEngine(fused=True): the integrand reads qp.x, which no "
-                "hand-written law of lane_fused_elem does (ROADMAP.md: an "
-                "x-using integrand on the fused path)")
-        qp, cvals = self._probe_qp(None)
+                or self.bs != 2 or self._integrand_uses_x()):
+            return None
+        qp, cvals = self._probe_qp(SVec([torch.zeros((), dtype=torch.float64)
+                                         for _ in range(mesh.gdim)]))
         with record_fused_laws() as calls:
             self.functional.terms[0].integrand(qp)
         if len(calls) != 1:
-            raise NotImplementedError(
-                "LaneEngine(fused=True): the integrand evaluates "
-                f"{len(calls)} energies that lane_fused_elem has a "
-                "hand-written law for (asym_damage_psi, linear_elastic_psi); "
-                "it needs exactly one (ROADMAP.md: K4, kernel source "
-                "generated from the elementwise energy)")
+            return None
         name, args = calls[0]
         rows, off = {}, 0  # coefficient name -> (first row, rows) of _cd
         for c in self.functional.coefficients:
@@ -893,18 +895,17 @@ class LaneEngine:
         else:
             _eps, E, nu = args
             law = FusedLaw(name, float(nu), E=source(E))
-        self._prove_fused_law(law, off)
-        return law
+        return law if self._prove_fused_law(law, off) else None
 
     def _prove_fused_law(self, law: FusedLaw, n_coeff_rows: int,
-                         n_probe: int = 384, rtol: float = 1e-9):
+                         n_probe: int = 384, rtol: float = 1e-9) -> bool:
         """Hold the hand-written physics of ``law`` against AD of the
         actual integrand (``torch.func.grad`` / ``jvp`` through the
         staged element functions) on random probe cells in float64,
         including zero strain, spherical strain (``delta == 0``), both
-        signs of the eigenvalues, and damage 0 and 1. Raises
-        ``NotImplementedError`` on disagreement: the integrand is then
-        not the law it names (scaled, shifted, other arguments)."""
+        signs of the eigenvalues, and damage 0 and 1. False on
+        disagreement: the integrand is then not the law it names (scaled,
+        shifted, other arguments)."""
         M = n_probe
         rng = np.random.default_rng(20240229)
         dN = 10.0 * rng.standard_normal((3, 2, M))
@@ -949,17 +950,27 @@ class LaneEngine:
                 fused_elem_vectors(law, (u_t, v_t), cds),
                 self._red_apply(H, v_t, dN_t)),
         }
-        for what, (hand, ad) in pairs.items():
+        for hand, ad in pairs.values():
             err = float((hand - ad).abs().max())
-            scale = float(ad.abs().max())
-            if not (np.isfinite(err) and err <= rtol * scale):
-                raise NotImplementedError(
-                    f"LaneEngine(fused=True): the element {what} of the "
-                    f"integrand is not that of {law} (max abs difference "
-                    f"{err:.3e} against {scale:.3e} on {M} probe cells): "
-                    "lane_fused_elem has no hand-written law for this "
-                    "integrand (ROADMAP.md: K4, kernel source generated "
-                    "from the elementwise energy)")
+            if not (np.isfinite(err)
+                    and err <= rtol * float(ad.abs().max())):
+                return False
+        return True
+
+    def fused_gen(self, dtype) -> GenPhysics:
+        """The fused kernel's physics generated from the integrand at
+        ``dtype`` (``lane.fused_gen.GenPhysics``), traced at the first call
+        for that dtype."""
+        if dtype not in self._gen_phys:
+            coeff_meta = []
+            for c in self.functional.coefficients:
+                n = self._coeff_dofmaps[c.name].shape[1]
+                coeff_meta.append((c.name, n // c.space.bs, c.space.bs))
+            self._gen_phys[dtype] = GenPhysics(
+                self.functional.terms[0].integrand, bs=self.bs,
+                gd=self.space.mesh.gdim, nv=self.plan.nv,
+                coeff_meta=coeff_meta, dtype=dtype)
+        return self._gen_phys[dtype]
 
     def _fused_cds(self, coeff_cells, dtype):
         cds = (self.fused_geom.to(dtype),)
@@ -973,15 +984,21 @@ class LaneEngine:
 
     def _fused_apply(self, states, coeff_cells):
         """Element gradient (one state) or Hessian-vector product (u, v)
-        through the fused kernel, then owner-sum and refresh. The kernel
-        stores its (G, bs, wg, 128) result channel-leading, so the
+        through the fused kernel (the hand-written law, or the physics
+        generated at the states' dtype), then owner-sum and refresh. The
+        kernel stores its (G, bs, wg, 128) result channel-leading, so the
         transpose to (bs, G, wg, 128) is a view."""
         p = self.plan
-        part = lane_fused_elem(
-            states, self.gather_starts, self.gather_idx,
-            self._fused_cds(coeff_cells, states[0].dtype), self.fused_law,
-            wr=p.wg, nv=p.nv,
-        )
+        dt = states[0].dtype
+        cds = self._fused_cds(coeff_cells, dt)
+        if self.fused_law is not None:
+            part = lane_fused_elem(states, self.gather_starts,
+                                   self.gather_idx, cds, self.fused_law,
+                                   wr=p.wg, nv=p.nv)
+        else:
+            part = lane_fused_gen(states, self.gather_starts,
+                                  self.gather_idx, cds, self.fused_gen(dt),
+                                  wr=p.wg, nv=p.nv)
         return self._owner_refresh(part.permute(1, 0, 2, 3))
 
     # -- layout ---------------------------------------------------------------

@@ -12,6 +12,8 @@ preconditioner's coarse lattice:
 - :func:`lane_pass_update` -- all owner-sum / refresh passes + bin-block update
 - :func:`lane_fused_elem`  -- gather -> element gradient / Hessian-vector
   product of a hand-written law (:class:`FusedLaw`) -> scatter, in one pass
+- :func:`lane_fused_gen`   -- the same with the physics generated from the
+  integrand (``lane.fused_gen.GenPhysics``), one built unit per physics
 - :func:`lane_gather_weighted` -- out[t,c,k,j] = sum_v wts[t,v,k,j] *
   values[c, starts[t]+idx[t,v,k,j], j]
 
@@ -29,9 +31,12 @@ its counterpart:
   transpose of :func:`lane_gather_weighted`
 
 Each wrapper takes the same arguments as its counterpart in
-``tpufem/lane/kernels.py``. For a CUDA tensor it launches the kernel
-built from ``tpufem_torch/csrc/<name>.cu`` (on PyTorch's current stream,
-outputs allocated here with ``torch.empty``) or raises; it adds one to
+``tpufem/lane/kernels.py`` (the fused kernels a law or a physics object
+where the reference takes a traced ``elem_fn``). For a CUDA tensor it
+launches the kernel built from ``tpufem_torch/csrc/<name>.cu`` (the
+generated route: ``csrc/lane_fused_gen.cuh`` with the emitted physics)
+on PyTorch's current stream, outputs allocated here with
+``torch.empty``, or raises; it adds one to
 its ``launches`` attribute exactly where it launches. For a CPU tensor --
 and only because the tensor lies on the CPU -- it runs the plain version
 (``<name>_plain``), which is also what the kernels are held against on
@@ -96,8 +101,8 @@ def _raise_on(code: int, name: str):
 
 def _wrappers():
     return (lane_gather_cm, lane_scatter_cm, lane_pass_update,
-            lane_fused_elem, lane_gather_weighted, lane_gather, lane_scatter,
-            lane_scatter_weighted)
+            lane_fused_elem, lane_fused_gen, lane_gather_weighted,
+            lane_gather, lane_scatter, lane_scatter_weighted)
 
 
 def reset_launch_counts() -> None:
@@ -638,17 +643,23 @@ def _check_fused_shapes(values, idx, cell_data, law, nv):
 def lane_fused_elem_plain(values, starts, idx, cell_data, law: FusedLaw, *,
                           wr: int, nv: int):
     """Plain version of :func:`lane_fused_elem`: the plain gather, the
-    physics of :func:`fused_elem_vectors`, and one ``scatter_add_`` per
-    (k, v), k-outer and v-inner -- every call has at most one source per
-    destination, so the sum order is exactly the kernel's."""
+    physics of :func:`fused_elem_vectors`, and :func:`_bin_scatter_plain`."""
     values, cell_data = tuple(values), tuple(cell_data)
     C, _R, T, K, _Dc = _check_fused_shapes(values, idx, cell_data, law, nv)
-    L = N_LANES
     u_blocks = tuple(
         lane_gather_cm_plain(v, starts, idx, wr=wr, n_ch=C * nv)
         for v in values)  # each (nv*C, T, K, L)
     ev = fused_elem_vectors(
         law, u_blocks, tuple(cd.permute(1, 0, 2, 3) for cd in cell_data))
+    return _bin_scatter_plain(ev, idx, wr=wr, C=C, nv=nv)
+
+
+def _bin_scatter_plain(ev, idx, *, wr: int, C: int, nv: int):
+    """The fused kernels' scatter of element vectors ``ev`` (nv*C, T, K,
+    128) into (T, C, wr, 128) bin partials: one ``scatter_add_`` per (k,
+    v), k-outer and v-inner -- every call has at most one source per
+    destination, so the sum order is exactly the kernels'."""
+    T, _V, K, L = idx.shape
     ii = idx.to(torch.int64)
     ii = torch.where((ii >= 0) & (ii < wr), ii,
                      torch.full_like(ii, wr))  # dump row
@@ -766,6 +777,176 @@ def lane_fused_elem(values, starts, idx, cell_data, law: FusedLaw, *,
     )
     _raise_on(code, "lane_fused_elem")
     lane_fused_elem.launches += 1
+    return out.permute(1, 0, 2, 3)
+
+
+# -- K4, generated route: fused gather -> generated physics -> scatter ---------
+
+# block layouts of csrc/lane_fused_gen.cuh, (lane columns, thread rows =
+# cells of a round, ring depth in rounds, state windows staged in shared
+# memory), in order of preference: a layout that stages the windows is
+# taken only where two of its blocks fit an SM, one that reads them from
+# global memory wherever one block fits
+GEN_CONFIGS = ((32, 4, 3, True), (16, 4, 3, True), (32, 4, 3, False),
+               (16, 4, 3, False))
+
+
+def gen_layout_bytes(lb, ky, stages, n_states, win, wr, nv, C, nval, vbytes,
+                     ibytes):
+    """Shared memory of one block of the generated kernel, the layout of
+    csrc/lane_fused_gen.cuh:gen_layout: for its ``lb`` columns the (C, wr)
+    accumulator and, where ``win``, the states' (C, wr) windows;
+    ``stages`` rounds of cell data (``nv`` index and ``nval`` geometry and
+    coefficient rows of ``ky`` cells); two rounds of staged element vectors
+    (nv * C values) and window rows (nv, int16)."""
+    return (_pad16(C * wr * lb * vbytes)
+            + (_pad16(n_states * C * wr * lb * vbytes) if win else 0)
+            + _pad16(stages * nval * ky * lb * vbytes)
+            + _pad16(stages * nv * ky * lb * ibytes)
+            + _pad16(2 * ky * nv * C * lb * vbytes)
+            + _pad16(2 * ky * nv * lb * 2))
+
+
+@functools.lru_cache(maxsize=256)
+def fused_gen_geometry(n_states: int, wr: int, nv: int, C: int, nval: int,
+                       vbytes: int, ibytes: int) -> dict:
+    """Launch geometry of :func:`lane_fused_gen`'s kernel for ``n_states``
+    states, a window of ``wr`` rows, ``nv`` vertices and ``C`` components
+    a cell, ``nval`` staged geometry and coefficient rows, and the value /
+    index element sizes in bytes: the first of ``GEN_CONFIGS`` whose
+    :func:`gen_layout_bytes` fits -- two blocks to an SM where the windows
+    are staged, one block (227 KB) where they are read from global memory.
+    ``ValueError`` where none does."""
+    if wr < 1 or wr > 32767 or n_states not in (1, 2):
+        raise ValueError(f"lane_fused_gen: wr = {wr}, {n_states} states")
+    for lb, ky, stages, win in GEN_CONFIGS:
+        smem = gen_layout_bytes(lb, ky, stages, n_states, win, wr, nv, C,
+                                nval, vbytes, ibytes)
+        room = ((SMEM_PER_SM // 2 - SMEM_RESERVED) if win
+                else SMEM_PER_BLOCK)
+        if smem <= room:
+            return dict(lb=lb, ky=ky, stages=stages, win=win, smem=smem,
+                        grid_y=N_LANES // lb, threads=ky * lb)
+    raise ValueError(
+        f"lane_fused_gen: a window of {wr} rows with {C} components and "
+        f"{n_states} state(s) does not fit the shared memory of any block "
+        f"layout of {GEN_CONFIGS}")
+
+
+def _gen_layouts(phys, itype: torch.dtype, wr: int):
+    """The block layouts of :func:`lane_fused_gen`'s two kernels (one
+    state, two) for the physics ``phys``, index type ``itype`` and a window
+    of ``wr`` rows, and their geometries."""
+    vbytes = torch.empty((), dtype=phys.dtype).element_size()
+    ibytes = torch.empty((), dtype=itype).element_size()
+    geos = tuple(fused_gen_geometry(ns, wr, phys.nv, phys.bs,
+                                    phys.dg + phys.n_coeff_rows, vbytes,
+                                    ibytes) for ns in (1, 2))
+    return tuple((g["lb"], g["ky"], g["stages"], g["win"])
+                 for g in geos), geos
+
+
+def fused_gen_source(phys, itype: torch.dtype, wr: int) -> str:
+    """The CUDA unit :func:`lane_fused_gen` builds for the physics
+    ``phys``, index type ``itype`` and a window of ``wr`` rows
+    (``_build.load_unit`` of several of them from threads builds them in
+    parallel)."""
+    return phys.cuda_source(itype, _gen_layouts(phys, itype, wr)[0])
+
+
+def _check_gen_shapes(values, idx, cell_data, phys, nv):
+    C, R, L = values[0].shape
+    T, V, K, L2 = idx.shape
+    if len(values) not in (1, 2) or any(v.shape != values[0].shape
+                                        for v in values):
+        raise ValueError("lane_fused_gen: one or two states of one shape")
+    if C != phys.bs or V != phys.nv or nv != phys.nv or L != N_LANES \
+            or L2 != N_LANES:
+        raise ValueError(
+            f"lane_fused_gen: states of {C} components and {V} vertices a "
+            f"cell, the physics has {phys.bs} and {phys.nv}")
+    n_cd = 2 if phys.n_coeff_rows else 1
+    if len(cell_data) != n_cd or tuple(cell_data[0].shape) != (
+            T, phys.dg, K, L):
+        raise ValueError(
+            f"lane_fused_gen: cell_data must be the (T, {phys.dg}, K, 128) "
+            "geometry rows" + (" and the coefficient rows" if n_cd == 2
+                               else "") + f", T={T}, K={K}")
+    if n_cd == 2 and tuple(cell_data[1].shape) != (
+            T, phys.n_coeff_rows, K, L):
+        raise ValueError(
+            f"lane_fused_gen: cell_data[1] must be (T, {phys.n_coeff_rows}, "
+            "K, 128) coefficient rows")
+    return C, R, T, K
+
+
+def lane_fused_gen_plain(values, starts, idx, cell_data, phys, *, wr: int,
+                         nv: int):
+    """Plain version of :func:`lane_fused_gen`: the plain gather, the
+    traced graphs run as ``GraphModule``s between separate multiplies and
+    adds (``phys.elem_vectors``), and :func:`_bin_scatter_plain`."""
+    values, cell_data = tuple(values), tuple(cell_data)
+    C, _R, _T, _K = _check_gen_shapes(values, idx, cell_data, phys, nv)
+    u_blocks = tuple(
+        lane_gather_cm_plain(v, starts, idx, wr=wr, n_ch=C * nv)
+        for v in values)  # each (nv*C, T, K, L)
+    ev = phys.elem_vectors(
+        u_blocks, tuple(cd.permute(1, 0, 2, 3) for cd in cell_data))
+    return _bin_scatter_plain(ev, idx, wr=wr, C=C, nv=nv)
+
+
+def lane_fused_gen(values, starts, idx, cell_data, phys, *, wr: int,
+                   nv: int):
+    """:func:`lane_fused_elem` with the element physics generated from the
+    integrand (``phys``, a ``lane.fused_gen.GenPhysics``) instead of a
+    hand-written law: gather -> element gradient (one state) or
+    Hessian-vector product (two) -> bin scatter, in one kernel; one unit
+    built per physics, index type and pair of block layouts
+    (``_build.load_unit``, at the first launch), kept in ``phys.units``.
+
+    cell_data: ``(geometry,)`` or ``(geometry, coefficients)``: the (T,
+      dg, K, 128) rows dN[v][d] at v*gd+d, the weight, then the gd
+      quadrature-point rows where the physics reads x, and the (T, Dc, K,
+      128) coefficient rows of the functional's coefficients in order.
+
+    Returns the (T, C, wr, 128) bin partials as a view of channel-leading
+    (C, T, wr, 128) storage, as :func:`lane_fused_elem` does.
+    """
+    values, cell_data = tuple(values), tuple(cell_data)
+    if values[0].device.type != "cuda":
+        return lane_fused_gen_plain(values, starts, idx, cell_data, phys,
+                                    wr=wr, nv=nv)
+    dev = values[0].device
+    vdt = values[0].dtype
+    if vdt != phys.dtype:
+        raise TypeError(f"lane_fused_gen: states of {vdt}, the physics was "
+                        f"traced in {phys.dtype}")
+    for i, v in enumerate(values):
+        _check(f"values[{i}]", v, device=dev, dtypes=(vdt,))
+    _check("idx", idx, device=dev, dtypes=_IT)
+    for i, cd in enumerate(cell_data):
+        _check(f"cell_data[{i}]", cd, device=dev, dtypes=(vdt,))
+    C, R, T, K = _check_gen_shapes(values, idx, cell_data, phys, nv)
+    _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
+    _check_aligned("lane_fused_gen", *values, idx, *cell_data)
+    layouts, geos = _gen_layouts(phys, idx.dtype, int(wr))
+    g = geos[len(values) - 1]
+    key = (idx.dtype, layouts)
+    lib = phys.units.get(key)
+    if lib is None:
+        lib = phys.units[key] = _build.load_unit(
+            phys.cuda_source(idx.dtype, layouts))
+    out = torch.empty((C, T, wr, N_LANES), dtype=vdt, device=dev)
+    launch = (lib.lane_fused_gen_launch1 if len(values) == 1
+              else lib.lane_fused_gen_launch2)
+    code = launch(
+        values[0].data_ptr(),
+        values[1].data_ptr() if len(values) == 2 else None,
+        starts.data_ptr(), idx.data_ptr(), cell_data[0].data_ptr(),
+        cell_data[1].data_ptr() if len(cell_data) == 2 else None,
+        out.data_ptr(), R, T, K, int(wr), g["smem"], _stream(dev))
+    _raise_on(code, "lane_fused_gen")
+    lane_fused_gen.launches += 1
     return out.permute(1, 0, 2, 3)
 
 

@@ -12,7 +12,8 @@ preconditioner and the CG vector updates ``--iters`` times under
 clock around a synchronize), the device-busy time per iteration (sum of
 kernel times from the profiler), the idle share, the number of kernel
 launches per iteration, the kernels that take the most device time, and
-the device time of the fine tangent's kernels K4 (``lane_fused_elem``) and
+the device time of the fine tangent's kernels K4 (``lane_fused_elem``, or
+``lane_fused_gen`` where the physics is generated from the integrand) and
 K3 (``lane_pass_update``) per iteration. Under two-level it also splits an iteration into its parts, each run
 alone (wall and device time, launches) and multiplied by its count per
 iteration: the fine Chebyshev tangents, the lattice V-cycle, K5
@@ -40,6 +41,8 @@ from tpufem_torch.lane import LaneEngine
 from tpufem_torch.lane import kernels as K
 from tpufem_torch.spaces import DirichletBC, FunctionSpace
 from tpufem_torch.spaces.bc import locate_dofs_geometrical
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def case_inputs(mesh):
@@ -110,7 +113,8 @@ def _part(fn, reps):
 def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
                          amg=None) -> dict:
     """Time and profile ``iters`` CG iterations of ``eng`` (staged or
-    fused) at the Dirichlet-lifted zero state: wall ms, device-busy ms,
+    fused, on a hand-written law or on the generated physics) at the
+    Dirichlet-lifted zero state: wall ms, device-busy ms,
     idle share and kernel launches per iteration, the lane kernels' own
     launch counts, and the kernels with the most device time.
     ``twolevel``: ``(static, geo)`` of ``lane.twolevel.build_twolevel_geo``
@@ -126,7 +130,9 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
     K1 gather, the element-matrix product, K2 scatter and K3. With facet
     terms, ``facet_part`` is the facet Hessians' application alone (the
     state at the facet dofs, the per-facet products, the fixed-order
-    gather-sum into the owner and copy slots), once per iteration."""
+    gather-sum into the owner and copy slots), once per iteration. On
+    the generated fused route ``parts`` splits the tangent into K4-gen
+    and K3, beside K4-gen's byte bound."""
     from tpufem_torch.lane import twolevel as tl
     from tpufem_torch.structured import mg2d
 
@@ -186,7 +192,9 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
     busy, n_kernels, rows = _device_profile(step, iters)
     rows.sort(key=lambda r: -r[1])
     out = dict(
-        fused=eng.fused_law is not None,
+        fused=eng._fused,
+        fused_route=(None if not eng._fused else "generated"
+                     if eng.fused_law is None else "hand-written"),
         preconditioner=("amg" if amg is not None else "jacobi"
                         if twolevel is None else "twolevel"),
         iters=iters,
@@ -207,6 +215,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
                       if any(f"{s}_kernel" in k for s in symbols)) / iters
             for name, symbols in (
                 ("lane_fused_elem", ("lane_fused_elem",)),
+                ("lane_fused_gen", ("lane_fused_gen",)),
                 ("lane_pass_update", ("lane_pass_update",
                                       "lane_owner_sum")))}
         if rows else "not measured",
@@ -217,6 +226,35 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         y = eng.residual(u, cc)
         out["facet_part"] = _part(lambda: eng._facet_apply(y, facets, r), 20)
         out["facet_part"]["n_facets"] = [int(H.shape[0]) for H in facets]
+    if eng._fused and eng.fused_law is None:
+        # the generated-fused tangent in its parts, once each per
+        # iteration: K4-gen (gather, the generated physics, bin scatter)
+        # and K3 owner-sum and refresh (the tail included); "rest" is the
+        # facet part, the CG vector work and the Jacobi scaling. Beside
+        # them K4-gen's byte bound: index, geometry and coefficient rows
+        # and both states read once, the bin partials written once
+        p = eng.plan
+        r = state[0][1]
+        cds = eng._fused_cds(cc, r.dtype)
+        phys = eng.fused_gen(r.dtype)
+
+        def k4_gen():
+            return K.lane_fused_gen((u, r), eng.gather_starts,
+                                    eng.gather_idx, cds, phys, wr=p.wg,
+                                    nv=p.nv)
+
+        part = k4_gen().permute(1, 0, 2, 3)
+        parts = dict(
+            k4_gen=_part(k4_gen, 20),
+            # the tail owner-sum adds into its argument: timing only
+            owner_refresh=_part(lambda: eng._owner_refresh(part), 20),
+        )
+        out["parts"] = _per_iter(parts, dict.fromkeys(parts, 1), busy,
+                                 n_kernels, rows)
+        k4_bytes = sum(t.numel() * t.element_size()
+                       for t in (eng.gather_idx, *cds, u, r, part))
+        out["parts"].update(k4_gen_bound_bytes=k4_bytes,
+                            k4_gen_bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3)
     if eng._gen is not None and lin is not None:
         # the staged generic tangent in its four parts, once each per
         # iteration: K1 gather, the element-matrix product (one
