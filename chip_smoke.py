@@ -97,7 +97,25 @@ prints one JSON line per phase:
                    equal, K1-K3 launched in every CG iteration; set-up
                    seconds, the linearization and diagonal timed alone,
                    peak memory, one CG iteration split into its parts
-                   under the profiler beside a tangent's byte bound
+                   under the profiler beside a tangent's byte bound; and
+                   the multi-point generated K4 (``lane_fused_gen_mq``,
+                   ``csrc/lane_fused_gen_mq.cuh``): its units built in
+                   parallel (registers, spills, build seconds), exactly
+                   equal to its plain version in float32 / float64, int8 /
+                   int32, grad and JVP at the Q2 box(40) plan, at a Q2
+                   plan with 27 points a cell, at the P2 plan below and at
+                   edge shapes (tables with zero and unit weights, one
+                   bin, a window past the last row, a window read from
+                   global memory), timed beside its byte bound (all lane
+                   cells and the real cells) and the staged tangent
+                   application on the same inputs; Q2 box(40) fused
+                   against staged, one Newton step of at most 500 CG, and
+                   P2 triangles at unit_square(500) (2 004 002 dofs,
+                   damage with the study's body load in the integrand),
+                   2 steps of at most 300 CG, each route twice bitwise
+                   equal, same Newton count, CG +-1 a step, one CG
+                   iteration under the profiler; the float64 card against
+                   CPU runs again on fused engines
 11c. ``facets_generic`` facet (traction) terms and the lane engine's
                    generic element path (K1-K4 around PyTorch physics):
                    float64 card against CPU on the generic path (Q1
@@ -109,7 +127,7 @@ prints one JSON line per phase:
                    r = 7, 1 608 706 dofs) on the generic engine, float64:
                    residual, tangent and diagonal at u0 and at a random
                    state against the flat Assembler (rel <= 1e-12), a
-                   Jacobi solve capped at 2 Newton steps of 2 000 CG,
+                   Jacobi solve capped at 2 Newton steps of 1 000 CG,
                    twice, bitwise equal, set-up seconds, one CG iteration
                    under the profiler split into K1, the element-matrix
                    product, K2 and K3 beside its byte bound; the
@@ -175,7 +193,7 @@ prints one JSON line per phase:
                    V-cycle from one host hierarchy on both devices (rel
                    <= 1e-12), the aggregates that differ between the
                    card's matrix and the CPU's (printed);
-                   ``polycrystal.run(mixed=True)`` under AMG at n = 512
+                   ``polycrystal.run(mixed=True)`` under AMG at n = 256
                    to convergence, and again capped at 2 Newton steps
                    with a fresh hierarchy (bitwise equal trajectory), its
                    levels, set-up split, hierarchy bytes, peak memory and
@@ -230,7 +248,7 @@ from tpufem_torch.nls import (make_chunked_solver,  # noqa: E402
                               make_newton_solver)
 from tpufem_torch.nls.newton_jit import ELEMENT_BATCH  # noqa: E402
 from tpufem_torch.lane import kernels as K  # noqa: E402
-from tpufem_torch.lane.fused_gen import GenPhysics  # noqa: E402
+from tpufem_torch.lane.fused_gen import GenPhysics, GenPhysicsMQ  # noqa: E402
 from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
@@ -2357,19 +2375,110 @@ torch.cuda.empty_cache()
 # at most 2 000 CG, twice, bitwise equal, K1-K3 in every CG iteration; the
 # linearization and the diagonal timed alone; one CG iteration split into
 # its parts under the profiler beside its byte bound
+def body_load_x(x):
+    """cases/mechanic2d.py:volumetric_load's x-component (doc.tex:226-232)
+    in torch operations on the quadrature point's coordinates."""
+    r = x[0] - 0.5
+    y = x[1] - 0.5
+    return (1600.0 * y * y - 500.0) * (-100000.0 * r * r * r)
+
+
+def gen_prebuild(items):
+    """Build the generated units of ``items`` (unit source -> what it
+    serves), all compilers started together (the wrapper would build them
+    one by one at first launch); each unit's build seconds, registers and
+    spill bytes (ptxas, both kernels of the unit)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(src_):
+        t_ = time.perf_counter()
+        _build.load_unit(src_)
+        return time.perf_counter() - t_
+
+    srcs = sorted(items)
+    t_ = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        secs = list(ex.map(one, srcs))
+    units = []
+    for src_, sec in zip(srcs, secs):
+        log = _build.unit_logs.get(_build.unit_key(src_), "")
+        units.append(dict(
+            serves=items[src_], build_seconds=sec,
+            registers=[int(ln.split("Used ")[1].split(" registers")[0])
+                       for ln in log.splitlines() if "registers" in ln],
+            spill_store_bytes=[
+                int(ln.split(" bytes spill stores")[0].split(",")[-1])
+                for ln in log.splitlines() if "spill stores" in ln],
+            spill_load_bytes=[
+                int(ln.split(" bytes spill loads")[0].split(",")[-1])
+                for ln in log.splitlines() if "spill loads" in ln]))
+    return dict(units=units, n_units=len(units),
+                seconds=time.perf_counter() - t_)
+
+
+def gen_check(tag, phys, st, ix, cds, R_, wr_, idts, timed=None):
+    """K4-gen (K4-gen-mq for a multi-point physics) exactly equal to its
+    plain version, in both dtypes (``phys`` and ``cds``: dtype -> physics
+    / cell data), with the index types ``idts``, grad and JVP. ``timed``:
+    the (dtype, index type) whose grad and JVP are timed beside the plain
+    version and their bounds."""
+    out_t = {}
+    for vdt in (torch.float32, torch.float64):
+        C_ = phys[vdt].bs
+        u_ = 1e-3 * torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
+                                generator=gen)
+        v_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV, generator=gen)
+        for idt in idts:
+            for states in ((u_,), (u_, v_)):
+                a = (states, st, ix.to(idt), cds[vdt], phys[vdt])
+                kw = dict(wr=wr_, nv=phys[vdt].nv)
+                out = K.lane_fused_gen(*a, **kw)
+                torch.cuda.synchronize()
+                ref = K.lane_fused_gen_plain(*a, **kw)
+                err = float((out - ref).abs().max())
+                check(bool(torch.isfinite(ref).all()),
+                      f"lane_fused_gen {tag}: non-finite plain output")
+                check(torch.equal(out, ref), f"lane_fused_gen {tag} "
+                      f"{len(states)} state(s) {vdt} {idt}: {err}")
+                if timed != (vdt, idt):
+                    continue
+                ms_r = median_ms(lambda: K.lane_fused_gen(*a, **kw), 10)
+                b = nbytes(*states, st, ix.to(idt), *cds[vdt], out)
+                ops = phys[vdt].ops_per_cell(len(states)) * int(
+                    ix.shape[0] * ix.shape[2] * 128)
+                bms, by = bound_of(b, ops)
+                out_t["jvp" if len(states) == 2 else "grad"] = dict(
+                    ms=ms_r[0], ms_range=ms_r,
+                    plain_ms=time_ms(lambda: K.lane_fused_gen_plain(
+                        *a, **kw), 1),
+                    bound_ms=bms, bound_by=by, bound_bytes=b, ops=ops,
+                    geometry=K._gen_layouts(phys[vdt], idt, wr_)[1][
+                        len(states) - 1])
+                del out, ref
+        del u_, v_
+    return out_t
+
+
 MQ_SOLVER = dict(cg_rtol=1e-12, newton_rtol=1e-10, cg_maxit=3000,
                  newton_maxit=20, preconditioner="jacobi")
 
 
-def damage_p2(n, device):
+def damage_p2(n, device, dtype=torch.float64, loaded=False):
+    """tests/test_torch_multiqp.py's P2 damage problem at unit_square(n);
+    ``loaded``: with the study's body load (:func:`body_load_x`) in the
+    integrand, as ``loaded_damage_psi`` has it (x-using)."""
     mesh = unit_square(n)
     V2 = FunctionSpace.create(mesh, 2, bs=2)
     DS2 = FunctionSpace.create(mesh, 1, bs=1)
     d2 = np.zeros(DS2.n_dofs)
     d2[(DS2.dof_coords[:, 1] > 0.3) & (DS2.dof_coords[:, 1] < 0.7)] = 0.8
-    F2 = EnergyFunctional(V2, [Term(lambda qp: asym_damage_psi(
-        qp.eps, qp.coeff("d"), 1.0e6, NU), 2)], [Coefficient("d", DS2)],
-        device=device, dtype=torch.float64)
+
+    def psi(qp):
+        e = asym_damage_psi(qp.eps, qp.coeff("d"), 1.0e6, NU)
+        return e - body_load_x(qp.x) * qp.u[0] if loaded else e
+
+    F2 = EnergyFunctional(V2, [Term(psi, 2)], [Coefficient("d", DS2)],
+                          device=device, dtype=dtype)
     left2 = locate_dofs_geometrical(V2, lambda x: np.abs(x[:, 0]) < 1e-12)
     right2 = locate_dofs_geometrical(
         V2, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
@@ -2382,34 +2491,63 @@ MQ_SMALL = {
         box(4, 4, 4), 2, 3, torch.float64, dev)[:2] + ({},),
     "P2 triangles unit_square(16)": lambda dev: damage_p2(16, dev),
 }
-mq_small = {}
-for tag, make in MQ_SMALL.items():
-    runs = []  # the card's run, then the CPU's
-    for dev in (DEV, torch.device("cpu")):
-        F_s, bcs_s, c_s = make(dev)
-        t0 = time.perf_counter()
-        eng_s = LaneEngine(F_s, bcs_s, wg_own=32, device=dev,
-                           dtype=torch.float64)
-        check(eng_s._mq is not None, f"{tag}: not on the multi-qp path")
-        u_s, st_s = eng_s.make_solver(SolverConfig(**MQ_SOLVER), cg_chunk=50)(
-            torch.zeros_like(eng_s.bc_lane), eng_s.prepare_coeffs(c_s))
-        runs.append((eng_s.from_lane(u_s), st_s, time.perf_counter() - t0))
-        n_dofs_s = F_s.space.n_dofs
-        del eng_s, F_s, bcs_s
-    (u_g, st_g, s_g), (u_c, st_c, s_c) = runs
-    u_rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
-    mq_small[tag] = dict(
-        n_dofs=n_dofs_s, newton_card=st_g["newton_iters"],
-        newton_cpu=st_c["newton_iters"], cg_card=st_g["cg_iters"],
-        cg_cpu=st_c["cg_iters"], u_rel=u_rel, seconds_card=s_g,
-        seconds_cpu=s_c)
-    check(st_g["converged"] and st_c["converged"]
-          and st_g["newton_iters"] == st_c["newton_iters"]
-          and len(st_g["cg_iters"]) == len(st_c["cg_iters"])
-          and all(abs(a - b) <= 1
-                  for a, b in zip(st_g["cg_iters"], st_c["cg_iters"]))
-          and u_rel <= 1e-9, f"multiqp {tag}: card against CPU "
-          f"{mq_small[tag]}")
+mq_small, mq_cpu, mq_u_staged = {}, {}, {}
+# staged on the card and on the CPU; then fused on the card (K4-gen-mq),
+# held against the staged runs of both (the fused route's plain version
+# on the CPU is held by tests/test_torch_fused_mq.py)
+for fused_s in (False, True):
+    for tag, make in MQ_SMALL.items():
+        runs = []  # the card's run, then the CPU's
+        for dev in (DEV,) if fused_s else (DEV, torch.device("cpu")):
+            F_s, bcs_s, c_s = make(dev)
+            t0 = time.perf_counter()
+            eng_s = LaneEngine(F_s, bcs_s, wg_own=32, fused=fused_s,
+                               device=dev, dtype=torch.float64)
+            check(eng_s._mq is not None, f"{tag}: not on the multi-qp path")
+            K.reset_launch_counts()
+            u_s, st_s = eng_s.make_solver(SolverConfig(**MQ_SOLVER),
+                                          cg_chunk=50)(
+                torch.zeros_like(eng_s.bc_lane), eng_s.prepare_coeffs(c_s))
+            runs.append((eng_s.from_lane(u_s), st_s,
+                         time.perf_counter() - t0, K.launch_counts()))
+            n_dofs_s = F_s.space.n_dofs
+            del eng_s, F_s, bcs_s
+        u_g, st_g, s_g, l_g = runs[0]
+        if not fused_s:
+            mq_cpu[tag] = runs[1]
+        u_c, st_c, s_c, _ = mq_cpu[tag]
+        u_rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
+        key = tag + (" fused" if fused_s else "")
+        mq_small[key] = dict(
+            n_dofs=n_dofs_s, newton_card=st_g["newton_iters"],
+            newton_cpu=st_c["newton_iters"], cg_card=st_g["cg_iters"],
+            cg_cpu=st_c["cg_iters"], u_rel=u_rel, seconds_card=s_g,
+            seconds_cpu=None if fused_s else s_c)
+        check(st_g["converged"] and st_c["converged"]
+              and st_g["newton_iters"] == st_c["newton_iters"]
+              and len(st_g["cg_iters"]) == len(st_c["cg_iters"])
+              and all(abs(a - b) <= 1
+                      for a, b in zip(st_g["cg_iters"], st_c["cg_iters"]))
+              and u_rel <= 1e-9, f"multiqp {key}: card against CPU "
+              f"(staged) {mq_small[key]}")
+        if fused_s:
+            # the fused card run against the staged one on the card: the
+            # same Newton count, CG within 1 a step, K4-gen-mq in every CG
+            # iteration
+            st0 = mq_small[tag]
+            mq_small[key].update(card_launches=l_g, u_rel_vs_staged=float(
+                np.abs(u_g - mq_u_staged[tag]).max()
+                / np.abs(mq_u_staged[tag]).max()))
+            check(st_g["newton_iters"] == st0["newton_card"]
+                  and all(abs(a - b) <= 1 for a, b in zip(
+                      st_g["cg_iters"], st0["cg_card"]))
+                  and l_g["lane_fused_gen_mq"] >= sum(st_g["cg_iters"])
+                  and mq_small[key]["u_rel_vs_staged"] <= 1e-9,
+                  f"multiqp {key}: fused against staged on the card "
+                  f"{mq_small[key]}, staged {st0}")
+        else:
+            mq_u_staged[tag] = u_g
+del mq_cpu, mq_u_staged
 
 # (b) full width: Q2 hexes at box(40), float32, staged, Jacobi
 cc_q2 = eng_q2.prepare_coeffs({})
@@ -2475,6 +2613,335 @@ real_share = mesh_q2.n_cells / M_q2
 q2_bound_real_ms = (q2_bound_ms - q2_bytes["state"] / HBM_BYTES_PER_S * 1e3
                     ) * real_share + q2_bytes["state"] / HBM_BYTES_PER_S * 1e3
 prof_q2 = cg_profile.profile_cg_iteration(eng_q2, cc_q2, 20)
+# (e) the multi-point generated K4 (K4-gen-mq: lane_fused_gen_mq,
+# csrc/lane_fused_gen_mq.cuh): (a) its units built in parallel, exactly
+# equal to its plain version at the Q2 box(40) plan, at Q2 hexahedra under
+# a degree-4 rule (27 points, 2 214 geometry rows a cell), at the P2 plan
+# of (c) and at edge shapes, timed beside its bounds and the staged tangent
+# application on the same inputs; (b) Q2 box(40) and (c) P2 triangles at
+# unit_square(N_P2) fused against staged
+N_Q2_27, N_P2 = 12, 500
+MQ_DTS = (torch.float32, torch.float64)
+t_mq = time.perf_counter()
+mq_setup, mq_secs = {}, {}
+t0 = time.perf_counter()
+eng_q2f = LaneEngine(F_q2, bcs_q2, plan=plan_q2, fused=True, device=DEV,
+                     dtype=torch.float32)
+cc_q2f = eng_q2f.prepare_coeffs({})
+torch.cuda.synchronize()
+mq_setup["q2_fused_engine_and_trace"] = time.perf_counter() - t0
+phys_q2 = {dt: eng_q2f.fused_gen(dt) for dt in MQ_DTS}
+check(phys_q2[torch.float32].MULTIQP and phys_q2[torch.float32].nq == mq.nq
+      and eng_q2f.fused_geom.shape[1] == phys_q2[torch.float32].dg,
+      f"Q2 box(40) fused: geometry {tuple(eng_q2f.fused_geom.shape)}")
+t0 = time.perf_counter()
+F_27, bcs_27, _ = elastic3d(box(N_Q2_27, N_Q2_27, N_Q2_27), 2, 4,
+                            torch.float32)
+eng_27 = LaneEngine(F_27, bcs_27, wg_own=32, fused=True, device=DEV,
+                    dtype=torch.float32)
+mq_setup["q2_27_points_engine"] = time.perf_counter() - t0
+phys_27 = {dt: eng_27.fused_gen(dt) for dt in MQ_DTS}
+check(phys_27[torch.float32].nq == 27
+      and eng_27.fused_geom.shape[1] == 27 * 27 * 3 + 27,
+      f"Q2 under a degree-4 rule: {tuple(eng_27.fused_geom.shape)}")
+t0 = time.perf_counter()
+F_p2, bcs_p2, co_p2 = damage_p2(N_P2, DEV, torch.float32, loaded=True)
+V_p2 = F_p2.space
+mq_setup["p2_mesh_space"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+plan_p2 = build_lane_plan(V_p2.dof_coords, np.asarray(V_p2.dofmap),
+                          wg_own=32)
+mq_setup["p2_plan"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng_p2f = LaneEngine(F_p2, bcs_p2, plan=plan_p2, fused=True, device=DEV,
+                     dtype=torch.float32)
+cc_p2f = eng_p2f.prepare_coeffs(co_p2)
+torch.cuda.synchronize()
+mq_setup["p2_fused_engine_and_trace"] = time.perf_counter() - t0
+phys_p2 = {dt: eng_p2f.fused_gen(dt) for dt in MQ_DTS}
+check(phys_p2[torch.float32].x_rows and phys_p2[torch.float32].nq == 3
+      and eng_p2f.fused_geom.shape[1] == 3 * 6 * 2 + 3 + 3 * 2,
+      f"P2 loaded: x rows {phys_p2[torch.float32].x_rows}, geometry "
+      f"{tuple(eng_p2f.fused_geom.shape)}")
+# edge physics: basis tables with zero and unit weights (a point where
+# every value vanishes), a nodal and a P0 coefficient, x read
+MQ_EDGE_NF = np.array([[0.0, 1.0, 0.0], [0.25, 0.0, 0.75], [0.0, 0.0, 0.0],
+                       [1.0, 0.5, -0.5]])
+MQ_EDGE_NC = np.array([[1.0, 0.0], [0.0, 0.0], [0.5, 0.5], [0.0, 2.0]])
+
+
+def mq_edge_psi(qp):
+    g = qp.grad_u
+    return (0.5 * qp.coeff("k") * (g[0, 0] * g[0, 0] + g[0, 1] * g[0, 1])
+            + qp.coeff("c0") * qp.u * qp.u * qp.u - qp.u * qp.x[1]
+            + (qp.u * qp.u + 1.0) ** 0.5 / 0.52)
+
+
+phys_edge = {dt: GenPhysicsMQ(
+    mq_edge_psi, bs=1, gd=2, nv=3, coeff_meta=(("k", 2, 1), ("c0", 1, 1)),
+    dtype=dt, Nf=MQ_EDGE_NF, Nc={"k": MQ_EDGE_NC, "c0": None})
+    for dt in MQ_DTS}
+MQ_EDGES = {  # tag: (bins, K, wr, window to the last row, physics)
+    "K=13": (37, 13, 40, False, "tables"),
+    "one bin, K=1": (1, 1, 9, False, "tables"),
+    "window past the last row": (7, 16, 40, True, "tables"),
+    "int8 window of 126 rows": (4, 32, 126, False, "tables"),
+    "Q2 window of 300 rows, global memory": (3, 8, 300, True, "q2"),
+}
+MQ_EDGE_PHYS = {"tables": phys_edge, "q2": phys_q2}
+
+
+def mq_idts(wr_):
+    return (torch.int8, torch.int32) if wr_ < 127 else (torch.int32,)
+
+
+mq_items = {}  # unit source -> what it serves
+for dt in MQ_DTS:
+    for tag_u, ph_, wr_ in (("Q2 box(40)", phys_q2, plan_q2.wg),
+                            ("Q2 27 points", phys_27, eng_27.plan.wg),
+                            ("P2 loaded", phys_p2, plan_p2.wg),
+                            *((f"edge {t_}", MQ_EDGE_PHYS[e_[4]], e_[2])
+                              for t_, e_ in MQ_EDGES.items())):
+        for idt in mq_idts(wr_):
+            src_ = K.fused_gen_source(ph_[dt], idt, wr_)
+            mq_items.setdefault(src_, []).append(f"{tag_u} {dt} {idt}")
+
+
+mq_build = gen_prebuild(mq_items)
+mq_secs["setup"] = time.perf_counter() - t_mq
+
+
+def mq_real_bounds(out_t, eng_, cds_):
+    """Beside each timed mode of :func:`gen_check`'s ``out_t``, its bound
+    with the cell rows of the real cells only: the kernel reads nothing of
+    a lane cell whose every index is -1."""
+    p_ = eng_.plan
+    real = float(np.count_nonzero(np.asarray(p_.cell_valid))) / (
+        p_.G * p_.kc * 128)
+    cell = nbytes(eng_.gather_idx, *cds_)
+    for r_ in out_t.values():
+        b_real = r_["bound_bytes"] - cell + cell * real
+        r_["bound_ms_real_cells"], r_["bound_by_real_cells"] = bound_of(
+            b_real, r_["ops"] * real)
+        r_.update(bound_bytes_real_cells=b_real, real_cell_share=real)
+    return out_t
+
+
+t0 = time.perf_counter()
+k4mq = {}
+cds_q2f = {dt: eng_q2f._fused_cds(cc_q2f, dt) for dt in MQ_DTS}
+k4mq["q2_box40"] = mq_real_bounds(gen_check(
+    "Q2 box(40)", phys_q2, eng_q2f.gather_starts, eng_q2f.gather_idx,
+    cds_q2f, plan_q2.R, plan_q2.wg, mq_idts(plan_q2.wg),
+    timed=(torch.float32, eng_q2f.gather_idx.dtype)), eng_q2f,
+    cds_q2f[torch.float32])
+cds_27 = {dt: eng_27._fused_cds({}, dt) for dt in MQ_DTS}
+k4mq["q2_27_points"] = mq_real_bounds(gen_check(
+    "Q2 27 points", phys_27, eng_27.gather_starts, eng_27.gather_idx,
+    cds_27, eng_27.plan.R, eng_27.plan.wg, mq_idts(eng_27.plan.wg),
+    timed=(torch.float32, eng_27.gather_idx.dtype)), eng_27,
+    cds_27[torch.float32])
+del cds_27, eng_27, F_27, bcs_27
+cds_p2f = {dt: eng_p2f._fused_cds(cc_p2f, dt) for dt in MQ_DTS}
+k4mq["p2_loaded"] = mq_real_bounds(gen_check(
+    "P2 loaded", phys_p2, eng_p2f.gather_starts, eng_p2f.gather_idx,
+    cds_p2f, plan_p2.R, plan_p2.wg, mq_idts(plan_p2.wg),
+    timed=(torch.float32, eng_p2f.gather_idx.dtype)), eng_p2f,
+    cds_p2f[torch.float32])
+del cds_p2f
+mq_edges = {}
+for tag, (T_, K_, wr_, last, which) in MQ_EDGES.items():
+    ph = MQ_EDGE_PHYS[which][torch.float64]
+    R_ = T_ * wr_ + 5
+    st_ = edge_rng.integers(0, R_ - wr_ + 1, size=T_)
+    if last:
+        st_[-1] = R_ - wr_ // 2
+    ix_ = edge_rng.integers(-1, wr_ + 1, size=(T_, ph.nv, K_, 128))
+    geom_ = edge_rng.standard_normal((T_, ph.dg, K_, 128))
+    cds_e = [geom_]
+    if ph.n_coeff_rows:
+        cds_e.append(edge_rng.uniform(0.5, 2.0, (T_, ph.n_coeff_rows, K_,
+                                                 128)))
+    gen_check(f"K4-gen-mq {which} at {tag}", MQ_EDGE_PHYS[which],
+              on_card(st_, torch.int32), on_card(ix_.astype(np.int32)),
+              {dt: tuple(on_card(c_, dt) for c_ in cds_e) for dt in MQ_DTS},
+              R_, wr_, mq_idts(wr_))
+    mq_edges[tag] = dict(bins=T_, K=K_, wr=wr_, window_to_last_row=last,
+                         physics=which, geometry=[
+                             K._gen_layouts(MQ_EDGE_PHYS[which][dt], idt,
+                                            wr_)[1][ns]
+                             for dt in MQ_DTS for idt in mq_idts(wr_)
+                             for ns in (0, 1)])
+mq_secs["kernel_checks"] = time.perf_counter() - t0
+
+# the staged tangent application at the Q2 box(40) shapes on the inputs
+# of the fused one: K1 -> reduced arguments -> H apply -> chain back -> K2
+u_t = 1e-3 * torch.randn((3, plan_q2.R, 128), device=DEV, generator=gen)
+v_t = torch.randn((3, plan_q2.R, 128), device=DEV, generator=gen)
+H_t = eng_q2.linearize(u_t, cc_q2).cells
+D_t = eng_q2.geom_dN
+
+
+def staged_q2_apply():
+    vc = eng_q2._gather_cells(v_t)
+    ev = mq.chain_back(mq.hess_apply(H_t, mq.reduced_args(vc, D_t)), D_t)
+    return K.lane_scatter_cm(
+        ev.reshape(mq.nd, plan_q2.G, plan_q2.kc, 128).contiguous(),
+        eng_q2.gather_idx, k_out=plan_q2.wg, n_ch=3)
+
+
+def fused_q2_apply():
+    return K.lane_fused_gen((u_t, v_t), eng_q2f.gather_starts,
+                            eng_q2f.gather_idx, cds_q2f[torch.float32],
+                            phys_q2[torch.float32], wr=plan_q2.wg, nv=27)
+
+
+o_st = staged_q2_apply()
+o_fu = fused_q2_apply().permute(1, 0, 2, 3)
+q2_apply = dict(
+    staged_ms=median_ms(staged_q2_apply, 5),
+    fused_ms=median_ms(fused_q2_apply, 10),
+    rel=float((o_st - o_fu).abs().max() / o_st.abs().max()))
+# two orders of one float32 sum (2.2e-7 on the H100): the capped solves of
+# (b) cannot tell the routes apart, so this is the full-width check of the
+# fused operator
+check(q2_apply["rel"] <= 1e-5, f"staged against fused Q2 tangent {q2_apply}")
+del o_st, o_fu, H_t, u_t, v_t, cds_q2f
+torch.cuda.empty_cache()
+
+
+def mq_pair(tag, engs, ccs, cfg):
+    """Each route of ``engs`` ({"fused": ..., "staged": ...}, coefficient
+    blocks ``ccs``) solved twice from the lifted zero state under ``cfg``:
+    bitwise equal, the residual falls, the route's kernels in every CG
+    iteration (the fused one's K1 / K2 only in the Jacobi diagonal, once a
+    Newton step); then the same Newton count and CG +-1 a step across the
+    routes, and one CG iteration of each under the profiler."""
+    out_p, runs_p = {}, {}
+    for route, eng in engs.items():
+        rr = []
+        for _ in range(2):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_ = time.perf_counter()
+            u_, st_ = eng.make_solver(cfg)(torch.zeros_like(eng.bc_lane),
+                                           ccs[route])
+            torch.cuda.synchronize()
+            rr.append((u_, st_, time.perf_counter() - t_, K.launch_counts(),
+                       torch.cuda.max_memory_allocated()))
+        (u1, s1, t1, l1, m1), (u2, s2, t2, _, m2) = rr
+        check(torch.equal(u1, u2) and s1["residuals"] == s2["residuals"]
+              and s1["final_residual"] == s2["final_residual"]
+              and s1["cg_iters"] == s2["cg_iters"],
+              f"{tag} {route}: two runs differ ({s1['cg_iters']} / "
+              f"{s2['cg_iters']}, {s1['residuals']} / {s2['residuals']})")
+        check(bool(torch.isfinite(u1).all()), f"{tag} {route}: non-finite u")
+        check(s1["final_residual"] < s1["residuals"][0],
+              f"{tag} {route}: the residual did not fall: "
+              f"{s1['residuals']} -> {s1['final_residual']}")
+        enq_ = sum(s1["cg_enqueued"])
+        steps = s1["newton_iters"]
+        if route == "fused":
+            ok = (l1["lane_fused_gen_mq"] >= enq_
+                  and l1["lane_fused_gen"] == l1["lane_fused_elem"] == 0
+                  and l1["lane_gather_cm"] <= steps
+                  and l1["lane_scatter_cm"] <= steps)
+        else:
+            ok = (l1["lane_gather_cm"] >= enq_ and l1["lane_scatter_cm"]
+                  >= enq_ and l1["lane_fused_gen_mq"] == 0)
+        check(ok and enq_ > 0 and l1["lane_pass_update"] >= 2 * enq_,
+              f"{tag} {route}: launches {l1} for {enq_} CG iterations")
+        out_p[route] = dict(
+            newton_iters=steps, cg_iters=s1["cg_iters"],
+            cg_enqueued=s1["cg_enqueued"], residuals=s1["residuals"],
+            final_residual=s1["final_residual"], run_seconds=[t1, t2],
+            cg_seconds=s1["cg_seconds"],
+            ms_per_cg_iter=1e3 * s1["cg_seconds"] / max(enq_, 1),
+            peak_bytes=[m1, m2], launches=l1, bitwise_equal_twice=True,
+            cg_iteration=cg_profile.profile_cg_iteration(eng, ccs[route],
+                                                         20))
+        runs_p[route] = (u1, s1)
+    (uf, sf), (us, ss) = runs_p["fused"], runs_p["staged"]
+    check(sf["newton_iters"] == ss["newton_iters"]
+          and len(sf["cg_iters"]) == len(ss["cg_iters"])
+          and all(abs(a - b) <= 1 for a, b in zip(sf["cg_iters"],
+                                                  ss["cg_iters"])),
+          f"{tag}: fused {sf['newton_iters']} / {sf['cg_iters']}, staged "
+          f"{ss['newton_iters']} / {ss['cg_iters']}")
+    out_p["u_rel_fused_vs_staged"] = float((uf - us).abs().max()
+                                           / us.abs().max())
+    # both routes may stop at the cap: their final residuals within 2x
+    ratio = sf["final_residual"] / ss["final_residual"]
+    out_p["final_residual_ratio_fused_vs_staged"] = ratio
+    check(0.5 <= ratio <= 2.0, f"{tag}: final residual fused "
+          f"{sf['final_residual']} against staged {ss['final_residual']}")
+    return out_p
+
+
+# (b) Q2 box(40) fused against staged: one Newton step of at most 500 CG
+# (the staged route stalls at 800, so both reach the cap)
+t0 = time.perf_counter()
+MQ_CAP = SolverConfig(newton_maxit=1, cg_maxit=500, preconditioner="jacobi")
+q2_pair = mq_pair("Q2 box(40)", {"fused": eng_q2f, "staged": eng_q2},
+                  {"fused": cc_q2f, "staged": cc_q2}, MQ_CAP)
+launches_mq_gen = q2_pair["fused"]["launches"]
+mq_secs["q2_pair"] = time.perf_counter() - t0
+del eng_q2f, cc_q2f
+torch.cuda.empty_cache()
+# (c) the body-loaded P2 damage square fused against staged, 2 x <= 300 CG
+t0 = time.perf_counter()
+eng_p2s = LaneEngine(F_p2, bcs_p2, plan=plan_p2, device=DEV,
+                     dtype=torch.float32)
+cc_p2s = eng_p2s.prepare_coeffs(co_p2)
+torch.cuda.synchronize()
+mq_setup["p2_staged_engine"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+p2_pair = mq_pair(f"P2 loaded unit_square({N_P2})",
+                  {"fused": eng_p2f, "staged": eng_p2s},
+                  {"fused": cc_p2f, "staged": cc_p2s},
+                  SolverConfig(cg_rtol=1e-8, newton_rtol=1e-6,
+                               cg_maxit=FULL_CG_MAXIT,
+                               newton_maxit=FULL_NEWTON_MAXIT,
+                               preconditioner="jacobi"))
+p2_pair.update(n=N_P2, n_dofs=V_p2.n_dofs, n_cells=int(V_p2.mesh.n_cells),
+               lane_cells=plan_p2.G * plan_p2.kc * 128, G=plan_p2.G,
+               kc=plan_p2.kc, wg=plan_p2.wg,
+               index_type=str(eng_p2f.gather_idx.dtype))
+mq_secs["p2_pair"] = time.perf_counter() - t0
+del eng_p2f, eng_p2s, cc_p2f, cc_p2s, F_p2, bcs_p2, V_p2, plan_p2
+torch.cuda.empty_cache()
+# the kernels line: K4-gen-mq timed at the Q2 box(40) shapes (its bound
+# with the real cells' rows: the kernel skips padding lane cells), its
+# launches those of the first fused solve of (b)
+lq = k4mq["q2_box40"]
+record("lane_fused_gen_mq", 0.0, lq["grad"]["ms"], lq["grad"]["plain_ms"],
+       lq["grad"]["bound_bytes_real_cells"], None,
+       ms_range=lq["grad"]["ms_range"], jvp_ms=lq["jvp"]["ms"],
+       jvp_plain_ms=lq["jvp"]["plain_ms"],
+       jvp_bound_ms=lq["jvp"]["bound_ms_real_cells"],
+       bound_ms_all_lane_cells=lq["grad"]["bound_ms"],
+       jvp_bound_ms_all_lane_cells=lq["jvp"]["bound_ms"],
+       geometry=lq["grad"]["geometry"], jvp_geometry=lq["jvp"]["geometry"])
+results["lane_fused_gen_mq"].update(
+    bound_ms=lq["grad"]["bound_ms_real_cells"],
+    bound_by=lq["grad"]["bound_by_real_cells"])
+mq_gen = dict(
+    kernel=k4mq, edges=mq_edges, build=mq_build, setup_s=mq_setup,
+    staged_vs_fused_tangent_q2=q2_apply, q2_fused_vs_staged=q2_pair,
+    p2_fused_vs_staged=p2_pair, seconds_by_part=mq_secs,
+    op_histogram={"q2": phys_q2[torch.float32].histogram(),
+                  "p2_loaded": phys_p2[torch.float32].histogram()},
+    tolerance="K4-gen-mq against its plain version: exactly equal in every "
+              "dtype, index type and mode; the staged Q2 tangent against "
+              "the fused one (float32, two orders of one sum): rel <= "
+              "1e-5; fused against staged: same Newton count, CG +-1 a "
+              "step, final residuals within 2x, each twice bitwise "
+              "equal, the residual falls; card against CPU (float64, "
+              "converged; staged card and fused card against the staged "
+              "CPU run): same Newton count, CG +-1 a step, u rel <= 1e-9",
+    seconds=time.perf_counter() - t_mq)
+del phys_q2, phys_p2, phys_edge, MQ_EDGE_PHYS
 emit("multiqp", check_card_vs_cpu=mq_small, full=dict(
     problem="benchmarks/q2hex_bench.py, Q2 hexes box(40), float32, staged "
             "engine, Jacobi, 1 Newton step of at most 2000 CG",
@@ -2496,7 +2963,8 @@ emit("multiqp", check_card_vs_cpu=mq_small, full=dict(
     bitwise_equal_twice=True),
     cg_iteration=prof_q2, tangent_bound_bytes=q2_bytes,
     tangent_bound_ms=q2_bound_ms,
-    tangent_bound_ms_real_cells=q2_bound_real_ms, nvidia_smi=smi)
+    tangent_bound_ms_real_cells=q2_bound_real_ms, fused_gen_mq=mq_gen,
+    nvidia_smi=smi)
 del eng_q2, plan_q2, F_q2, bcs_q2, mq_u1, mq_u2, u0_q2, u_lin, mq
 torch.cuda.empty_cache()
 
@@ -2691,9 +3159,10 @@ for tag, uf in (("u0", u0_g), ("random", ur_g)):
     del got, ref, ul
 del ur_g, v_g
 torch.cuda.empty_cache()
-# the solve: Jacobi, capped like phase mechanic2d's r = 7 run (2 Newton
-# steps of at most 2 000 CG at the reference's rtol 1e-12), twice
-cfg_g = SolverConfig(newton_maxit=2, cg_maxit=2000)
+# the solve: Jacobi at the reference's rtol 1e-12, capped at 2 Newton
+# steps of at most 1 000 CG (2 000, phase mechanic2d's cap, until the
+# multi-point generated K4 took the script's time), twice
+cfg_g = SolverConfig(newton_maxit=2, cg_maxit=1000)
 torch.cuda.reset_peak_memory_stats()
 u_g, st_g, secs_g, launches_g = fg_twice(
     f"mechanic2d r = {FG_R} generic", eng_g, cc_g, cfg_g, STAGED_PATH)
@@ -2715,7 +3184,7 @@ prof_g.update(tangent_bound_bytes=g_bytes, tangent_bound_ms=sum(
 fg_generic = dict(
     problem=f"mechanic2d.setup(max_refine={FG_R}) (square.msh), its "
             "functional on LaneEngine: generic path, staged, float64, "
-            "Jacobi, 2 Newton steps of at most 2000 CG",
+            "Jacobi, 2 Newton steps of at most 1000 CG",
     n_dofs=V_g.n_dofs, n_cells=int(mesh_g.n_cells), lane_cells=M_g,
     G=plan_g.G, kc=plan_g.kc, wg=plan_g.wg,
     owner_passes=len(eng_g.owner_wrs), refresh_passes=len(eng_g.refresh_wrs),
@@ -2807,14 +3276,6 @@ GEN_N_SMALL, GEN_GRAINS_SMALL, GEN_N3_SMALL = 16, 6, 6
 GEN_PATH = ("lane_fused_gen", "lane_pass_update")
 
 
-def body_load_x(x):
-    """cases/mechanic2d.py:volumetric_load's x-component (doc.tex:226-232)
-    in torch operations on the quadrature point's coordinates."""
-    r = x[0] - 0.5
-    y = x[1] - 0.5
-    return (1600.0 * y * y - 500.0) * (-100000.0 * r * r * r)
-
-
 def loaded_damage_psi(qp):
     """The polycrystal's energy with the study's body load in the
     integrand: x-using, so no hand-written law takes it."""
@@ -2851,63 +3312,6 @@ def elastic_bar3d(n, device, dtype):
         V_3, lambda x: np.abs(x[:, 0] - 1) < 1e-12)
     return F_3, [DirichletBC(V_3, left_3, [0.0, 0.0, 0.0]),
                  DirichletBC(V_3, right_3, [0.01, 0.0, 0.0])], V_3
-
-
-def gen_prebuild(items):
-    """Build the generated units that ``items`` ((physics, index type,
-    window rows)) launch, all compilers started together (the wrapper
-    would build them one by one at first launch)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    srcs = sorted({K.fused_gen_source(*it) for it in items})
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as ex:
-        list(ex.map(_build.load_unit, srcs))
-    return dict(units=len(srcs), seconds=time.perf_counter() - t0)
-
-
-def gen_check(tag, phys, st, ix, cds, R_, wr_, idts, timed=None):
-    """K4-gen exactly equal to its plain version, in both dtypes (``phys``
-    and ``cds``: dtype -> physics / cell data), with the index types
-    ``idts``, grad and JVP. ``timed``: the (dtype, index type) whose grad
-    and JVP are timed beside the plain version and their bounds."""
-    out_t = {}
-    for vdt in (torch.float32, torch.float64):
-        C_ = phys[vdt].bs
-        u_ = 1e-3 * torch.randn((C_, R_, 128), dtype=vdt, device=DEV,
-                                generator=gen)
-        v_ = torch.randn((C_, R_, 128), dtype=vdt, device=DEV, generator=gen)
-        for idt in idts:
-            for states in ((u_,), (u_, v_)):
-                a = (states, st, ix.to(idt), cds[vdt], phys[vdt])
-                kw = dict(wr=wr_, nv=phys[vdt].nv)
-                out = K.lane_fused_gen(*a, **kw)
-                torch.cuda.synchronize()
-                ref = K.lane_fused_gen_plain(*a, **kw)
-                err = float((out - ref).abs().max())
-                check(bool(torch.isfinite(ref).all()),
-                      f"lane_fused_gen {tag}: non-finite plain output")
-                check(torch.equal(out, ref), f"lane_fused_gen {tag} "
-                      f"{len(states)} state(s) {vdt} {idt}: {err}")
-                if timed != (vdt, idt):
-                    continue
-                ms_r = median_ms(lambda: K.lane_fused_gen(*a, **kw), 10)
-                b = nbytes(*states, st, ix.to(idt), *cds[vdt], out)
-                ops = phys[vdt].ops_per_cell(len(states)) * int(
-                    ix.shape[0] * ix.shape[2] * 128)
-                bms, by = bound_of(b, ops)
-                out_t["jvp" if len(states) == 2 else "grad"] = dict(
-                    ms=ms_r[0], ms_range=ms_r,
-                    plain_ms=time_ms(lambda: K.lane_fused_gen_plain(
-                        *a, **kw), 1),
-                    bound_ms=bms, bound_by=by, bound_bytes=b, ops=ops,
-                    geometry=K.fused_gen_geometry(
-                        len(states), wr_, phys[vdt].nv, phys[vdt].bs,
-                        phys[vdt].dg + phys[vdt].n_coeff_rows,
-                        out.element_size(), ix.to(idt).element_size()))
-                del out, ref
-        del u_, v_
-    return out_t
 
 
 def gen_twice(tag, eng, cc, cfg):
@@ -3037,22 +3441,25 @@ K4G_EDGES = {  # tag: (bins, K, wr, window to the last row)
     "int8 window of 126 rows": (4, 32, 126, False),
     "3D window of 300 rows, global memory": (3, 8, 300, True),
 }
-items = []
+items = {}  # unit source -> what it serves
 for dt in (torch.float32, torch.float64):
     for idt in (torch.int8, torch.int32):
-        items += [(phys_law[dt], idt, p.wg), (phys_b[dt], idt, p.wg),
-                  (phys_3[dt], idt, P3.wg)]
-        items += [(ph[dt], idt, w) for _, _, w, _ in K4G_EDGES.values()
-                  for ph in (phys_ops, phys_3)
-                  if w < 127 or idt == torch.int32]
+        its = [("polycrystal law", phys_law, p.wg),
+               ("loaded polycrystal", phys_b, p.wg), ("3D bar", phys_3, P3.wg)]
+        its += [(f"{tag_u} edge {t_}", ph, w)
+                for t_, (_, _, w, _) in K4G_EDGES.items()
+                for tag_u, ph in (("op table", phys_ops), ("3D bar", phys_3))
+                if w < 127 or idt == torch.int32]
+        for tag_u, ph, w in its:
+            items.setdefault(K.fused_gen_source(ph[dt], idt, w), []).append(
+                f"{tag_u} {dt} {idt}")
 t0 = time.perf_counter()
 gen_build = gen_prebuild(items)
-logs = [_build.unit_logs[k] for k in _build.unit_logs]
 gen_build.update(
-    spill_units=sum(1 for lg in logs if " 0 bytes spill stores" not in lg),
-    registers=sorted({int(ln.split("Used ")[1].split(" registers")[0])
-                      for lg in logs for ln in lg.splitlines()
-                      if "registers" in ln}))
+    spill_units=sum(1 for u_ in gen_build["units"]
+                    if any(u_["spill_store_bytes"])),
+    registers=sorted({r_ for u_ in gen_build["units"]
+                      for r_ in u_["registers"]}))
 
 # (a) the kernel against its plain version on the card: three integrands at
 # their path shapes, every dtype, index type and mode, and at edge shapes
@@ -3570,10 +3977,11 @@ emit("flat3d", check_card_vs_cpu=flat_checks, elasticity3d=e_full,
 # neohookean n = NH_FULL with block Jacobi, capped as in flat3d
 AMG_N2D, AMG_COARSE_2D, AMG_COARSE_3D = 20, 64, 24
 AMG_FULL_CAP = 2  # Newton steps of the second run
-# the polycrystal under AMG at n = 512 (526 338 dofs), cut from n = 1024
-# by the script's 1 200 s: there its two runs took 117-134 s, 28-38 s of
-# each the host hierarchy, rebuilt by the second (PERF.md)
-N_AMG = 512
+# the polycrystal under AMG at n = 256 (132 098 dofs): cut from n = 1024
+# by the script's 1 200 s (there its two runs took 117-134 s, 28-38 s of
+# each the host hierarchy, rebuilt by the second; PERF.md), then from
+# n = 512 when phase multiqp grew
+N_AMG = 256
 
 
 def amg_damage_system(n, device):
@@ -3860,7 +4268,7 @@ emit("amg", card_vs_cpu=amg_small, polycrystal_mixed_amg=amg_full,
      neohookean_block_jacobi=bj_full,
      tolerance="card against CPU (float64): same Newton count, |d total "
                "CG| <= Newton steps, u rel <= 1e-9; one V-cycle from one "
-               "host hierarchy rel <= 1e-12; n = 512: the capped run "
+               "host hierarchy rel <= 1e-12; n = 256: the capped run "
                "and the second block-Jacobi run bitwise equal",
      seconds_by_part=dict(card_vs_cpu=secs_amg_a, polycrystal=secs_amg_b,
                           neohookean_block_jacobi=time.perf_counter()
@@ -3875,6 +4283,7 @@ REPLACES = {
     "lane_pass_update": "tpufem/lane/kernels.py:356",
     "lane_fused_elem": "tpufem/lane/kernels.py:521",
     "lane_fused_gen": "tpufem/lane/kernels.py:521",
+    "lane_fused_gen_mq": "tpufem/lane/kernels.py:521",
     "lane_gather_weighted": "tpufem/lane/kernels.py:568",
     "lane_gather": "tpufem/lane/kernels.py:76",
     "lane_scatter": "tpufem/lane/kernels.py:138",
@@ -3891,20 +4300,24 @@ MAIN_LAUNCHES = {**launches_tl, "lattice_residual":
                  launches_a["lattice_residual"], "lattice_tangent":
                  launches_a["lattice_tangent"], "lattice_matvec3d":
                  launches_b["lattice_matvec3d"],
-                 "lane_fused_gen": launches_gen["lane_fused_gen"]}
+                 "lane_fused_gen": launches_gen["lane_fused_gen"],
+                 "lane_fused_gen_mq": launches_mq_gen["lane_fused_gen_mq"]}
 PATHS = {**dict.fromkeys(LANE_PATH, "polycrystal.run defaults, n = 1024"),
          "lattice_residual": "path A", "lattice_tangent": "path A",
          "lattice_matvec3d": "path B",
          "lane_fused_gen": "the polycrystal with the study's body load in "
                            "the integrand, n = 1024, fused (generated), "
                            "Jacobi (phase fused_gen)",
+         "lane_fused_gen_mq": "Q2 hexes box(40) (benchmarks/q2hex_bench.py"
+                              "), fused (generated, multi-point), Jacobi, "
+                              "1 Newton step of <= 500 CG (phase multiqp)",
          "lane_gather": None,
          "lane_scatter": None, "lane_scatter_weighted": None}
 summary = []
 for name, r in results.items():
     entry = dict(
         name=name, route="cuda", source=f"tpufem_torch/csrc/{name}" + (
-            ".cuh" if name == "lane_fused_gen" else ".cu"),
+            ".cuh" if name.startswith("lane_fused_gen") else ".cu"),
         replaces=REPLACES[name], path=PATHS[name],
         launches=MAIN_LAUNCHES[name],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -3926,6 +4339,13 @@ for name, r in results.items():
             launches_run_defaults=launches_tl[name],
             generated_from="the integrand's AD graphs, traced and emitted "
                            "as C (tpufem_torch/lane/fused_gen.py)")
+    if name == "lane_fused_gen_mq":
+        entry.update(
+            launches_p2_fused_solve=p2_pair["fused"]["launches"][name],
+            launches_run_defaults=launches_tl[name],
+            generated_from="the folded integrand's point graphs, traced "
+                           "and emitted as C (tpufem_torch/lane/"
+                           "fused_gen.py:GenPhysicsMQ)")
     for k in ("refresh_ms", "refresh_plain_ms", "refresh_bound_ms",
               "jvp_ms", "jvp_plain_ms", "jvp_bound_ms", "shape",
               "prolong_ms", "prolong_plain_ms", "prolong_bound_ms",
@@ -3940,7 +4360,8 @@ for name, r in results.items():
               "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms",
               "q2hex_library_ms", "q2hex_library_dump_row_ms",
               "q2hex_padding_share", "padding_share", "jvp_geometry",
-              "geometry"):
+              "geometry", "bound_ms_all_lane_cells",
+              "jvp_bound_ms_all_lane_cells"):
         if k in r:
             entry[k] = r[k]
     summary.append(entry)

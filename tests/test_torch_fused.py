@@ -358,11 +358,23 @@ _UNSUPPORTED = {
 
 @pytest.mark.parametrize("case", sorted(_UNSUPPORTED))
 def test_fused_raises_for_unsupported_integrand(case):
-    """The multi-quadrature-point path runs staged: fused=True names its
-    ROADMAP item (6.5b)."""
+    """Once raised here (the multi-quadrature-point path ran staged only);
+    now the fused engine takes it on the generated multi-point route
+    (``lane_fused_gen_mq``): residual and tangent action equal the staged
+    engine's, rel <= 1e-12 (tests/test_torch_fused_mq.py holds that route
+    against the reference)."""
     make = _engine_for(**_UNSUPPORTED[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Q1 item 6.5b"):
-        make(fused=True)
+    ef = make(fused=True)
+    es = make(fused=False, plan=ef.plan)
+    assert ef.path == "multiqp" and ef.fused_gen(torch.float64).MULTIQP
+    rng = np.random.default_rng(14)
+    n = ef.space.n_dofs
+    cc = ef.prepare_coeffs({})
+    u, v = ef.to_lane(1e-3 * rng.standard_normal(n)), ef.to_lane(
+        rng.standard_normal(n))
+    assert _rel(ef.residual(u, cc), es.residual(u, cc)) <= 1e-12
+    assert _rel(ef.tangent_action(u, cc, v),
+                es.tangent_action(u, cc, v)) <= 1e-12
 
 
 def test_fused_engine_refuses_foreign_coefficients(setup):

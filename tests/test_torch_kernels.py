@@ -276,7 +276,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     assert out.shape == (2, 2, 8, L)
     assert tk.launch_counts() == {
         "lane_gather_cm": 0, "lane_scatter_cm": 0, "lane_pass_update": 0,
-        "lane_fused_elem": 0, "lane_fused_gen": 0,
+        "lane_fused_elem": 0, "lane_fused_gen": 0, "lane_fused_gen_mq": 0,
         "lane_gather_weighted": 0, "lane_gather": 0, "lane_scatter": 0,
         "lane_scatter_weighted": 0}
 

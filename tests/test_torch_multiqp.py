@@ -331,12 +331,25 @@ def test_native_planner_takes_cells_of_27_nodes(monkeypatch):
 
 
 def test_what_the_multiqp_path_does_not_take_raises(damage_p2):
-    """fused=True on a multi-qp engine: NotImplementedError naming a
-    ROADMAP.md heading, never a quiet switch of path. (Terms of two
-    quadrature degrees and terms that need coefficient gradients, once
-    raised here, now take the generic path: test_torch_generic.py's
+    """fused=True on a multi-qp engine once raised here; it now runs the
+    generated multi-point kernel's route (``lane_fused_gen_mq``, plain
+    version on the CPU) on the same plan: residual and tangent action
+    equal the staged engine's, rel <= 1e-12. (Terms of two quadrature
+    degrees and terms that need coefficient gradients, once raised here,
+    take the generic path: test_torch_generic.py's
     ``test_generic_path_matches_reference`` and
-    ``test_generic_takes_what_multiqp_does_not``.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLaneEngine(damage_p2["et"].functional, [], wg_own=8, fused=True,
-                    **F64)
+    ``test_generic_takes_what_multiqp_does_not``; fused=True there
+    raises.)"""
+    et = damage_p2["et"]
+    ef = TLaneEngine(et.functional, et.bcs, plan=et.plan, fused=True, **F64)
+    assert ef.path == "multiqp" and ef.fused_gen(torch.float64).MULTIQP
+    rng = np.random.default_rng(10)
+    n = damage_p2["n"]
+    u = ef.to_lane(1e-3 * rng.standard_normal(n))
+    v = ef.to_lane(rng.standard_normal(n))
+    cf = ef.prepare_coeffs({"d": damage_p2["d"]})
+    cs = et.prepare_coeffs({"d": damage_p2["d"]})
+    assert _rel(ef.residual(u, cf).numpy(), et.residual(u, cs).numpy()) \
+        <= 1e-12
+    assert _rel(ef.tangent_action(u, cf, v).numpy(),
+                et.tangent_action(u, cs, v).numpy()) <= 1e-12

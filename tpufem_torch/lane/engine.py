@@ -36,7 +36,11 @@ integrand that path takes -- triangles or tetrahedra, 1-3 components,
 x-using or not -- gets physics generated from the integrand
 (``lane.fused_gen``: its AD graphs traced and emitted as C), run by
 ``lane_fused_gen``; an operation the emitter has no C form for raises
-``NotImplementedError``.
+``NotImplementedError``. On the multi-quadrature-point path the folded
+integrand's point graphs are generated the same way
+(``lane.fused_gen.GenPhysicsMQ``) and ``lane_fused_gen_mq`` sums them
+over the points; the Jacobi diagonal still comes from the staged
+linearization, once a Newton step.
 
 The physics is specialized on the host in one of three ways. A single
 degree-1 cell term on P1 simplices takes the P1 path: one quadrature
@@ -50,10 +54,9 @@ around it. Everything else -- cell terms of several quadrature degrees
 (the reference study's own functional), coefficient gradients, no cell
 term -- takes the generic element path (``lane.generic``): AD of the
 scalarized element energy over the gathered cells, the element matrices
-stored once per Newton step. The multi-qp and generic paths run staged
-only: ``fused=True`` on them raises ``NotImplementedError`` (ROADMAP.md
-Q1 item 6.5b; the reference runs such an engine staged without a word,
-``tpufem/lane/engine.py:163``).
+stored once per Newton step. The generic path runs staged only:
+``fused=True`` on it raises ``NotImplementedError`` (the reference runs
+such an engine staged without a word, ``tpufem/lane/engine.py:163``).
 
 Facet (ds-measure) terms ride every path (``_build_facet_data``): the
 facet values are read at the owner slots of the facet dofs (or from the
@@ -91,7 +94,7 @@ from tpufem_torch.forms.potentials import record_fused_laws
 from tpufem_torch.forms.smat import SMat, SVec
 from tpufem_torch.la.amg import vcycle
 from tpufem_torch.la.cg import pcg_chunk
-from tpufem_torch.lane.fused_gen import GenPhysics
+from tpufem_torch.lane.fused_gen import GenPhysics, GenPhysicsMQ
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_fused_gen,
                                        lane_gather_cm, lane_pass_update,
@@ -283,35 +286,35 @@ class LaneEngine:
                 gen.residual, gen.energy, gen.linearize, gen.apply,
                 gen.diagonal)
 
-        # fused element kernel: the hand-written law the integrand is
-        # (proved on probe cells), else the physics generated from the
-        # integrand (traced now: an operation the emitter lacks raises
-        # NotImplementedError -- never a quiet switch to the staged path);
-        # and the static geometry rows (G, Dg, kc, 128) the kernel streams,
-        # the reference's layout: dN[v][d] at row v*gd+d, the weight, then
-        # the gd quadrature-point rows where the physics reads x
+        # fused element kernel: on the P1 path the hand-written law the
+        # integrand is (proved on probe cells), else -- there and on the
+        # multi-qp path -- the physics generated from the integrand (traced
+        # now: an operation the emitter lacks raises NotImplementedError,
+        # never a quiet switch to the staged path); and the static geometry
+        # rows (G, Dg, kc, 128) the kernel streams, the reference's layout:
+        # dN[q][v][d] at row (q*nv+v)*gd+d, the nq weights, then the nq*gd
+        # quadrature-point rows where the physics reads x (P1: nq = 1)
         self._fused = bool(fused)
         self.fused_law = self.fused_geom = None
         self._gen_phys = {}  # dtype -> lane.fused_gen.GenPhysics
-        if self._fused and self.path != "p1":
+        if self._fused and self.path == "generic":
             raise NotImplementedError(
                 "LaneEngine(fused=True): the fused kernel takes the P1 "
-                "single-point path only (a hand-written law, or K4, kernel "
-                "source generated from the elementwise energy); a functional "
-                f"on the {self.path} path runs staged (fused=False) until "
-                "the multi-quadrature-point variant is ported (ROADMAP.md Q1 "
-                "item 6.5b; the reference runs such an engine staged without "
-                "a word, tpufem/lane/engine.py:163)")
+                "single-point and the multi-quadrature-point paths (a "
+                "hand-written law, or K4, kernel source generated from the "
+                "elementwise energy); a functional on the generic element "
+                "path runs staged (fused=False) -- the reference runs such "
+                "an engine staged without a word, "
+                "tpufem/lane/engine.py:163")
         if self._fused:
-            self.fused_law = self._resolve_fused_law()
+            if self.path == "p1":
+                self.fused_law = self._resolve_fused_law()
             dN_h, w_h, xq_h = self._geom_host
-            parts = [dN_h.reshape(-1, dN_h.shape[-1]), w_h[None, :]]
+            M = dN_h.shape[-1]
+            parts = [dN_h.reshape(-1, M), w_h.reshape(-1, M)]
             if self.fused_law is None and self.fused_gen(self.dtype).x_rows:
-                parts.append(xq_h)
-            rows = np.concatenate(parts, axis=0)
-            self.fused_geom = self._store(np.ascontiguousarray(
-                rows.reshape(rows.shape[0], p.G, p.kc, N_LANES)
-                .transpose(1, 0, 2, 3)))
+                parts.append(xq_h.reshape(-1, M))
+            self.fused_geom = self._store(self._bin_rows(parts))
         self._geom_host = None
 
         # device plans; index streams in int8 when the window allows --
@@ -567,6 +570,20 @@ class LaneEngine:
             np.asarray(a), dtype=self.dtype, device=self.device
         )
 
+    def _bin_rows(self, parts) -> np.ndarray:
+        """The (n, M) host arrays ``parts`` stacked as rows and re-blocked
+        per bin, (G, rows, kc, 128): the fused kernel's cell-data layout,
+        written in one pass."""
+        p = self.plan
+        n = sum(a.shape[0] for a in parts)
+        out = np.empty((p.G, n, p.kc, N_LANES), dtype=parts[0].dtype)
+        o = 0
+        for a in parts:
+            out[:, o:o + a.shape[0]] = a.reshape(
+                a.shape[0], p.G, p.kc, N_LANES).transpose(1, 0, 2, 3)
+            o += a.shape[0]
+        return out
+
     def _try_specialize_p1(self):
         """If the functional is a single degree-1 cell term on a simplex
         with P1/P0 coefficients and no coefficient gradients, precompute
@@ -666,9 +683,11 @@ class LaneEngine:
         integrand, qdeg, _ = fold_terms(f)
         tabs = host_tables(self.space, self._safe_order, qdeg,
                            f.coefficients, self._coeff_dofmaps)
-        self.geom_dN = self._store(cells_leading(tabs.pop("dN")))
-        self.geom_w = self._store(tabs.pop("w"))
-        self.geom_xq = self._store(tabs.pop("xq"))
+        self.geom_dN = self._store(cells_leading(tabs["dN"]))
+        self.geom_w = self._store(tabs["w"])
+        self.geom_xq = self._store(tabs["xq"])
+        # (nq, nv, gd, M), (nq, M), (nq, gd, M): the fused kernel's rows
+        self._geom_host = (tabs.pop("dN"), tabs.pop("w"), tabs.pop("xq"))
         coeff_meta = []
         for c in f.coefficients:
             n = self._coeff_dofmaps[c.name].shape[1]
@@ -959,17 +978,26 @@ class LaneEngine:
 
     def fused_gen(self, dtype) -> GenPhysics:
         """The fused kernel's physics generated from the integrand at
-        ``dtype`` (``lane.fused_gen.GenPhysics``), traced at the first call
-        for that dtype."""
+        ``dtype``, traced at the first call for that dtype: a
+        ``lane.fused_gen.GenPhysics`` on the P1 path, a ``GenPhysicsMQ``
+        of the folded integrand and the element's basis values on the
+        multi-qp path."""
         if dtype not in self._gen_phys:
             coeff_meta = []
             for c in self.functional.coefficients:
                 n = self._coeff_dofmaps[c.name].shape[1]
                 coeff_meta.append((c.name, n // c.space.bs, c.space.bs))
-            self._gen_phys[dtype] = GenPhysics(
-                self.functional.terms[0].integrand, bs=self.bs,
-                gd=self.space.mesh.gdim, nv=self.plan.nv,
-                coeff_meta=coeff_meta, dtype=dtype)
+            kw = dict(bs=self.bs, gd=self.space.mesh.gdim, nv=self.plan.nv,
+                      coeff_meta=coeff_meta, dtype=dtype)
+            mq = self._mq
+            if mq is not None:
+                self._gen_phys[dtype] = GenPhysicsMQ(
+                    mq.integrand, Nf=mq._Nf.cpu().numpy(),
+                    Nc={k: None if v is None else v.cpu().numpy()
+                        for k, v in mq._Nc.items()}, **kw)
+            else:
+                self._gen_phys[dtype] = GenPhysics(
+                    self.functional.terms[0].integrand, **kw)
         return self._gen_phys[dtype]
 
     def _fused_cds(self, coeff_cells, dtype):

@@ -38,6 +38,17 @@ another path.
 The quadrature-point rows of the kernel's geometry are streamed only
 where an ``x`` input of either graph has a user after dead-code
 elimination -- what the reference decides with a poison probe.
+
+:class:`GenPhysicsMQ` is the multi-quadrature-point variant (P2, Q1, Q2,
+P1 under a higher rule, folded terms; the reference's
+``_make_block_fns_mq``, ``tpufem/lane/engine.py:1247-1329``). The traced
+graphs are the same -- the integrand at one point is a function of that
+point's reduced variables, weight, coordinates and coefficient
+components -- and what changes is around them: the reduced variables and
+the coefficient components at each point go through the element's basis
+values ``Nf`` / ``Nc`` (zero weights skipped, unit weights not
+multiplied), and the chain back sums the points in order. Its kernel
+template is ``csrc/lane_fused_gen_mq.cuh``.
 """
 
 from __future__ import annotations
@@ -341,6 +352,8 @@ class GenPhysics:
     in the order of the functional (its rows in the coefficient block:
     dof-major, component inner)."""
 
+    MULTIQP = False  # lane.kernels.lane_fused_gen dispatches on it
+
     def __init__(self, integrand, *, bs: int, gd: int, nv: int,
                  coeff_meta: Sequence[Tuple[str, int, int]],
                  dtype: torch.dtype):
@@ -556,6 +569,307 @@ class GenPhysics:
         return f"""// generated: the element physics of one integrand, traced
 // (tpufem_torch/lane/fused_gen.py), in the fused kernel's template
 #include "lane_fused_gen.cuh"
+{self._c_cuda}
+{entries}
+"""
+
+
+class GenPhysicsMQ(GenPhysics):
+    """The generated element physics of one multi-quadrature-point
+    integrand at one dtype (the cell terms folded into one, ``lane.multiqp
+    .fold_terms``): the point graphs of :class:`GenPhysics` and the
+    element's basis values at the points, ``Nf`` (nq, nv) and, per nodal
+    coefficient, ``Nc[name]`` (nq, dofs a cell; None for a P0 coefficient,
+    whose one value is used as it is), both rounded to ``dtype``.
+
+    Geometry rows of a cell (the reference's ``fused_geom``): dN at row
+    (q * nv + v) * gd + d, then the nq weights, then, where the graphs read
+    x, the nq * gd quadrature-point rows (q * gd + d). At point q:
+
+    - ``a[c*gd+d] = sum_v u[v*bs+c] * dN[q][v][d]`` (v ascending, the
+      first product starting the sum), ``a[nG+c] = sum_v Nf[q,v] *
+      u[v*bs+c]`` and the coefficient components ``sum_i Nc[q,i] *
+      cd[i*cb+j]``, zero weights skipped and unit weights not multiplied;
+    - the graph's gradient ``g`` at the point;
+    - ``e[v*bs+c] = sum_d g[c*gd+d] * dN[q][v][d] (+ Nf[q,v] * g[nG+c])``,
+      added to the element vector, points in order (the first point's
+      ``e`` starts it)."""
+
+    MULTIQP = True
+
+    def __init__(self, integrand, *, bs: int, gd: int, nv: int,
+                 coeff_meta: Sequence[Tuple[str, int, int]],
+                 dtype: torch.dtype, Nf: np.ndarray,
+                 Nc: Dict[str, np.ndarray]):
+        super().__init__(integrand, bs=bs, gd=gd, nv=nv,
+                         coeff_meta=coeff_meta, dtype=dtype)
+        work = np.float32 if dtype == torch.float32 else np.float64
+        Nf = np.asarray(Nf, np.float64)
+        if Nf.ndim != 2 or Nf.shape[1] != nv:
+            raise ValueError(f"Nf of shape {Nf.shape}, expected (nq, {nv})")
+        self.nq = Nf.shape[0]
+        # the tables' values in the working type, as Python floats
+        self.Nf = Nf.astype(work).astype(np.float64)
+        self.Nc = {}
+        for name, n, _cb in self.coeff_meta:
+            tab = Nc.get(name)
+            if n == 1:
+                self.Nc[name] = None
+                continue
+            tab = np.asarray(tab, np.float64)
+            if tab.shape != (self.nq, n):
+                raise ValueError(f"Nc[{name!r}] of shape {tab.shape}, "
+                                 f"expected ({self.nq}, {n})")
+            self.Nc[name] = tab.astype(work).astype(np.float64)
+        nq = self.nq
+        self.dg = nq * nv * gd + nq + (nq * gd if self.x_rows else 0)
+
+    # -- the plain version --------------------------------------------------
+
+    def ops_per_cell(self, n_states: int) -> int:
+        """Floating-point operations of one cell's element vector: at every
+        point the graph's arithmetic nodes, the reduced variables of each
+        state, the coefficient components and the chain back, plus the sum
+        over the points."""
+        gm = self.grad_gm if n_states == 1 else self.jvp_gm
+        free = {aten.full_like.default, aten._to_copy.default,
+                aten.where.self, *_COMPARE}
+        graph = sum(1 for n in gm.graph.nodes
+                    if n.op == "call_function" and n.target not in free)
+
+        def lin_ops(w):  # products (non-unit weights) and adds of one sum
+            nz = w[w != 0.0]
+            return int((nz != 1.0).sum()) + max(len(nz) - 1, 0)
+
+        bs, gd, nv = self.bs, self.gd, self.nv
+        total = 0
+        for q in range(self.nq):
+            red = bs * gd * (2 * nv - 1) + bs * lin_ops(self.Nf[q])
+            coef = sum(cb * lin_ops(self.Nc[name][q]) for name, n, cb
+                       in self.coeff_meta if n > 1)
+            chain = nv * bs * (2 * gd - 1) + bs * sum(
+                1 + int(w != 1.0) for w in self.Nf[q] if w != 0.0)
+            total += graph + n_states * red + coef + chain
+        return total + (self.nq - 1) * nv * bs
+
+    @staticmethod
+    def _lin(get, weights: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """sum_k weights[q, k] * get(k) at every point q at once, (nq,
+        *like.shape): zero weights skipped, unit weights not multiplied,
+        the first term starting the sum, zero where no weight is nonzero --
+        per point, what the kernel's loop computes (a product with 1 is
+        exact, and a skipped term is left out by selection)."""
+        nq = weights.shape[0]
+        view = (nq,) + (1,) * like.dim()
+        acc = None
+        have = np.zeros(nq, bool)
+        for k in range(weights.shape[1]):
+            wk = weights[:, k]
+            nz = wk != 0.0
+            if not nz.any():
+                continue
+            x = get(k).unsqueeze(0)
+            t = x.expand(view[:1] + x.shape[1:]) if (wk[nz] == 1.0).all() \
+                else x * torch.as_tensor(wk, dtype=x.dtype,
+                                         device=x.device).view(view)
+            if not have.any():
+                s = t
+            elif have.all():
+                s = acc + t
+            else:
+                s = torch.where(torch.as_tensor(have, device=x.device).view(
+                    view), acc + t, t)
+            if acc is None:
+                acc = torch.zeros(view[:1] + like.shape, dtype=like.dtype,
+                                  device=like.device)
+            acc = s if nz.all() else torch.where(
+                torch.as_tensor(nz, device=x.device).view(view), s, acc)
+            have |= nz
+        if acc is None:
+            acc = torch.zeros(view[:1] + like.shape, dtype=like.dtype,
+                              device=like.device)
+        return acc
+
+    def reduced(self, u, dN):
+        """The reduced variables of the dof rows ``u`` (row v*bs+c) at
+        every point at once, each (nq, ...): ``dN[v][d]`` the (nq, ...)
+        rows of dN[q][v][d]."""
+        bs, gd, nv = self.bs, self.gd, self.nv
+        a = []
+        for c in range(bs):
+            for d in range(gd):
+                acc = u[c] * dN[0][d]
+                for v in range(1, nv):
+                    acc = acc + u[v * bs + c] * dN[v][d]
+                a.append(acc)
+        for c in range(bs):
+            a.append(self._lin(lambda v: u[v * bs + c], self.Nf, u[0]))
+        return a
+
+    def coeff_inputs(self, cd):
+        """The coefficient components at every point, each (nq, ...), from
+        the rows ``cd``."""
+        comps, off = [], 0
+        nq = self.nq
+        for name, n, cb in self.coeff_meta:
+            for j in range(cb):
+                if n == 1:
+                    c1 = cd[off + j]
+                    comps.append(c1.unsqueeze(0).expand((nq,) + c1.shape))
+                else:
+                    comps.append(self._lin(
+                        lambda i: cd[off + i * cb + j], self.Nc[name],
+                        cd[0]))
+            off += n * cb
+        return comps
+
+    def elem_vectors(self, u_blocks, cds):
+        """The element gradient (one state) or Hessian-vector product
+        (two) on tensors: ``u_blocks`` one or two (nv*bs, ...) dof blocks,
+        ``cds`` = (geometry rows (dg, ...), [coefficient rows (Dc, ...)]).
+        The points are stacked on a leading axis, so that each operation of
+        the kernel's per-point loop runs once for all of them (elementwise:
+        every point's values are the kernel's), and the element vector is
+        their sum in point order. Returns (nv*bs, ...) -- what the kernel
+        computes, in its order."""
+        bs, gd, nv, nG, nq = self.bs, self.gd, self.nv, self.nG, self.nq
+        geom = cds[0]
+        w0, x0 = nq * nv * gd, nq * nv * gd + nq
+        dNq = geom[:w0].unflatten(0, (nq, nv, gd))
+        dN = [[dNq[:, v, d] for d in range(gd)] for v in range(nv)]
+        w = geom[w0:w0 + nq]
+        if self.x_rows:
+            xq = geom[x0:x0 + nq * gd].unflatten(0, (nq, gd))
+            x = [xq[:, d] for d in range(gd)]
+        else:
+            x = [torch.zeros_like(w)] * gd
+        cin = self.coeff_inputs(cds[1]) if self.n_comp else []
+        ins = [*self.reduced(u_blocks[0], dN), w, *x, *cin]
+        if len(u_blocks) == 1:
+            g = self.grad_gm(*ins)
+        else:
+            g = self.jvp_gm(*ins, *self.reduced(u_blocks[1], dN))
+        shape = w.shape
+        rows = []
+        for v in range(nv):
+            wv = self.Nf[:, v]
+            nz = wv != 0.0
+            for c in range(bs):
+                e = g[c * gd] * dN[v][0]
+                for d in range(1, gd):
+                    e = e + g[c * gd + d] * dN[v][d]
+                e = e.expand(shape)
+                if nz.any():
+                    gv = g[nG + c].expand(shape)
+                    t = gv if (wv[nz] == 1.0).all() else gv * torch.as_tensor(
+                        wv, dtype=gv.dtype, device=gv.device).view(
+                        (nq,) + (1,) * (gv.dim() - 1))
+                    e = e + t if nz.all() else torch.where(
+                        torch.as_tensor(nz, device=gv.device).view(
+                            (nq,) + (1,) * (gv.dim() - 1)), e + t, e)
+                acc = e[0]
+                for q in range(1, nq):
+                    acc = acc + e[q]
+                rows.append(acc)
+        return torch.stack(rows)
+
+    # -- the C form ----------------------------------------------------------
+
+    def c_struct(self, target: str = "cuda", name: str = "GenPhys") -> str:
+        """The physics as C++ for ``csrc/lane_fused_gen_mq.cuh``: the basis
+        value tables (``GEN_TABLE`` arrays: constant memory on the card)
+        and a struct of its sizes and four functions, ``nf(q, v)``,
+        ``coeffs`` (point q, staged coefficient rows with row stride
+        ``rs`` -> components at q), ``grad`` and ``jvp`` (the point
+        graphs, as in :meth:`GenPhysics.c_struct`)."""
+        dt = self.dtype
+        ctype = "float" if dt == torch.float32 else "double"
+        nR, gd = self.nR, self.gd
+
+        def table(tname, tab):
+            vals = ", ".join(_lit(float(x), dt) for x in tab.reshape(-1))
+            return f"GEN_TABLE {ctype} {tname}[{tab.size}] = {{{vals}}};"
+
+        tables = [table(f"{name}_nf", self.Nf)]
+        cl, off, k = [], 0, 0
+        for ci, (cname, n, cb) in enumerate(self.coeff_meta):
+            if n > 1:
+                tables.append(table(f"{name}_nc{ci}", self.Nc[cname]))
+            for j in range(cb):
+                if n == 1:
+                    cl.append(f"cin[{k}] = rows[{off + j}LL * rs];")
+                else:
+                    cl += [
+                        "{",
+                        "  GT acc = (GT)0;",
+                        "  bool have = false;",
+                        "#pragma unroll",
+                        f"  for (int i = 0; i < {n}; ++i) {{",
+                        f"    const GT w = {name}_nc{ci}[q * {n} + i];",
+                        "    if (w == (GT)0) continue;",
+                        f"    const GT r = rows[({off + j} + i * {cb}) * "
+                        "(long long)rs];",
+                        "    const GT t = w == (GT)1 ? r : r * w;",
+                        "    acc = have ? acc + t : t;",
+                        "    have = true;",
+                        "  }",
+                        f"  cin[{k}] = acc;",
+                        "}",
+                    ]
+                k += 1
+            off += n * cb
+        ins = [f"in[{i}]" for i in range(self.n_in)]
+        body = {
+            "grad": emit(self.grad_gm, ins, "out", dt, target),
+            "jvp": emit(self.jvp_gm, ins + [f"din[{i}]" for i in range(nR)],
+                        "out", dt, target),
+        }
+
+        def block(lines):
+            return "\n".join("    " + s for s in lines)
+
+        nl = "\n"
+        return f"""{nl.join(tables)}
+struct {name} {{
+  typedef {ctype} GT;
+  static constexpr int NV = {self.nv}, C = {self.bs}, GD = {gd};
+  static constexpr int NQ = {self.nq}, XR = {int(self.x_rows)};
+  static constexpr int DG = {self.dg}, DC = {self.n_coeff_rows};
+  static constexpr int NCOMP = {self.n_comp}, NR = {nR}, NIN = {self.n_in};
+  GEN_HD static GT nf(int q, int v) {{ return {name}_nf[q * NV + v]; }}
+  GEN_HD static void coeffs(int q, const GT* __restrict__ rows, long long rs,
+                            GT* __restrict__ cin) {{
+    (void)q; (void)rows; (void)rs; (void)cin;
+{block(cl)}
+  }}
+  GEN_HD static void grad(const GT* __restrict__ in, GT* __restrict__ out) {{
+{block(body['grad'])}
+  }}
+  GEN_HD static void jvp(const GT* __restrict__ in,
+                         const GT* __restrict__ din, GT* __restrict__ out) {{
+    (void)din;
+{block(body['jvp'])}
+  }}
+}};
+"""
+
+    def cuda_source(self, itype: torch.dtype,
+                    layouts: Tuple[Tuple[int, int, bool], ...]) -> str:
+        """The CUDA unit of the physics for index type ``itype``: the
+        launchers ``lane_fused_gen_launch1`` (gradient) and ``..._launch2``
+        (Hessian-vector product) of csrc/lane_fused_gen_mq.cuh, each with
+        its block layout ``(lb, ky, window staged)`` of ``layouts``."""
+        if self._c_cuda is None:
+            self._c_cuda = self.c_struct("cuda")
+        ity = {torch.int8: "int8_t", torch.int32: "int32_t"}[itype]
+        entries = "\n".join(
+            f"LANE_FUSED_GEN_MQ_ENTRY(GenPhys, {ity}, {ns}, {lb}, {ky}, "
+            f"{str(bool(win)).lower()})"
+            for ns, (lb, ky, win) in enumerate(layouts, start=1))
+        return f"""// generated: the element physics of one multi-quadrature-point
+// integrand, traced (tpufem_torch/lane/fused_gen.py), in the fused
+// kernel's multi-point template
+#include "lane_fused_gen_mq.cuh"
 {self._c_cuda}
 {entries}
 """

@@ -13,7 +13,9 @@ preconditioner's coarse lattice:
 - :func:`lane_fused_elem`  -- gather -> element gradient / Hessian-vector
   product of a hand-written law (:class:`FusedLaw`) -> scatter, in one pass
 - :func:`lane_fused_gen`   -- the same with the physics generated from the
-  integrand (``lane.fused_gen.GenPhysics``), one built unit per physics
+  integrand (``lane.fused_gen.GenPhysics``), one built unit per physics;
+  a multi-quadrature-point physics (``GenPhysicsMQ``) goes to
+  :func:`lane_fused_gen_mq`, the variant that sums over the points
 - :func:`lane_gather_weighted` -- out[t,c,k,j] = sum_v wts[t,v,k,j] *
   values[c, starts[t]+idx[t,v,k,j], j]
 
@@ -34,7 +36,8 @@ Each wrapper takes the same arguments as its counterpart in
 ``tpufem/lane/kernels.py`` (the fused kernels a law or a physics object
 where the reference takes a traced ``elem_fn``). For a CUDA tensor it
 launches the kernel built from ``tpufem_torch/csrc/<name>.cu`` (the
-generated route: ``csrc/lane_fused_gen.cuh`` with the emitted physics)
+generated route: ``csrc/lane_fused_gen.cuh`` or, on the multi-point path,
+``csrc/lane_fused_gen_mq.cuh``, with the emitted physics)
 on PyTorch's current stream, outputs allocated here with
 ``torch.empty``, or raises; it adds one to
 its ``launches`` attribute exactly where it launches. For a CPU tensor --
@@ -101,8 +104,9 @@ def _raise_on(code: int, name: str):
 
 def _wrappers():
     return (lane_gather_cm, lane_scatter_cm, lane_pass_update,
-            lane_fused_elem, lane_fused_gen, lane_gather_weighted,
-            lane_gather, lane_scatter, lane_scatter_weighted)
+            lane_fused_elem, lane_fused_gen, lane_fused_gen_mq,
+            lane_gather_weighted, lane_gather, lane_scatter,
+            lane_scatter_weighted)
 
 
 def reset_launch_counts() -> None:
@@ -833,12 +837,70 @@ def fused_gen_geometry(n_states: int, wr: int, nv: int, C: int, nval: int,
         f"layout of {GEN_CONFIGS}")
 
 
+# block layouts of csrc/lane_fused_gen_mq.cuh, (lane columns, thread rows =
+# cells of a round, state windows staged in shared memory), in order of
+# preference, taken by the rule of GEN_CONFIGS
+GEN_MQ_CONFIGS = ((32, 4, True), (16, 4, True), (32, 4, False),
+                  (16, 4, False), (8, 4, False), (8, 2, False))
+
+
+def gen_mq_layout_bytes(lb, ky, n_states, win, wr, nv, C, dc, vbytes):
+    """Shared memory of one block of the multi-point generated kernel, the
+    layout of csrc/lane_fused_gen_mq.cuh:gen_mq_layout: for its ``lb``
+    columns the (C, wr) accumulator and, where ``win``, the states'
+    (C, wr) windows; for each of its ``lb * ky`` threads (one cell each)
+    the gathered dofs of every state (nv * C values each), the element
+    vector (nv * C), the ``dc`` coefficient rows and the nv window rows
+    (int16)."""
+    nt = lb * ky
+    return (_pad16(C * wr * lb * vbytes)
+            + (_pad16(n_states * C * wr * lb * vbytes) if win else 0)
+            + _pad16(n_states * nv * C * nt * vbytes)
+            + _pad16(nv * C * nt * vbytes)
+            + _pad16(dc * nt * vbytes)
+            + _pad16(nv * nt * 2))
+
+
+@functools.lru_cache(maxsize=256)
+def fused_gen_mq_geometry(n_states: int, wr: int, nv: int, C: int, dc: int,
+                          vbytes: int) -> dict:
+    """Launch geometry of :func:`lane_fused_gen_mq`'s kernel for
+    ``n_states`` states, a window of ``wr`` rows, ``nv`` vertices and
+    ``C`` components a cell, ``dc`` coefficient rows and values of
+    ``vbytes`` bytes: the first of ``GEN_MQ_CONFIGS`` whose
+    :func:`gen_mq_layout_bytes` fits -- two blocks to an SM where the
+    windows are staged, one block (227 KB) where they are read from global
+    memory. The geometry rows are read from global memory a point at a
+    time, so their count does not enter. ``ValueError`` where no layout
+    fits; nothing runs staged instead."""
+    if wr < 1 or wr > 32767 or n_states not in (1, 2):
+        raise ValueError(f"lane_fused_gen_mq: wr = {wr}, {n_states} states")
+    for lb, ky, win in GEN_MQ_CONFIGS:
+        smem = gen_mq_layout_bytes(lb, ky, n_states, win, wr, nv, C, dc,
+                                   vbytes)
+        room = ((SMEM_PER_SM // 2 - SMEM_RESERVED) if win
+                else SMEM_PER_BLOCK)
+        if smem <= room:
+            return dict(lb=lb, ky=ky, win=win, smem=smem,
+                        grid_y=N_LANES // lb, threads=ky * lb)
+    raise ValueError(
+        f"lane_fused_gen_mq: a window of {wr} rows with {C} components, "
+        f"{nv} vertices a cell and {n_states} state(s) does not fit the "
+        f"shared memory of any block layout of {GEN_MQ_CONFIGS}")
+
+
 def _gen_layouts(phys, itype: torch.dtype, wr: int):
-    """The block layouts of :func:`lane_fused_gen`'s two kernels (one
+    """The block layouts of :func:`lane_fused_gen`'s (or, for a
+    multi-point physics, :func:`lane_fused_gen_mq`'s) two kernels (one
     state, two) for the physics ``phys``, index type ``itype`` and a window
     of ``wr`` rows, and their geometries."""
     vbytes = torch.empty((), dtype=phys.dtype).element_size()
     ibytes = torch.empty((), dtype=itype).element_size()
+    if phys.MULTIQP:
+        geos = tuple(fused_gen_mq_geometry(ns, wr, phys.nv, phys.bs,
+                                           phys.n_coeff_rows, vbytes)
+                     for ns in (1, 2))
+        return tuple((g["lb"], g["ky"], g["win"]) for g in geos), geos
     geos = tuple(fused_gen_geometry(ns, wr, phys.nv, phys.bs,
                                     phys.dg + phys.n_coeff_rows, vbytes,
                                     ibytes) for ns in (1, 2))
@@ -847,7 +909,8 @@ def _gen_layouts(phys, itype: torch.dtype, wr: int):
 
 
 def fused_gen_source(phys, itype: torch.dtype, wr: int) -> str:
-    """The CUDA unit :func:`lane_fused_gen` builds for the physics
+    """The CUDA unit :func:`lane_fused_gen` (:func:`lane_fused_gen_mq`)
+    builds for the physics
     ``phys``, index type ``itype`` and a window of ``wr`` rows
     (``_build.load_unit`` of several of them from threads builds them in
     parallel)."""
@@ -903,6 +966,8 @@ def lane_fused_gen(values, starts, idx, cell_data, phys, *, wr: int,
     Hessian-vector product (two) -> bin scatter, in one kernel; one unit
     built per physics, index type and pair of block layouts
     (``_build.load_unit``, at the first launch), kept in ``phys.units``.
+    A multi-quadrature-point physics (``GenPhysicsMQ``) is passed on to
+    :func:`lane_fused_gen_mq`, which counts its own launches.
 
     cell_data: ``(geometry,)`` or ``(geometry, coefficients)``: the (T,
       dg, K, 128) rows dN[v][d] at v*gd+d, the weight, then the gd
@@ -912,15 +977,55 @@ def lane_fused_gen(values, starts, idx, cell_data, phys, *, wr: int,
     Returns the (T, C, wr, 128) bin partials as a view of channel-leading
     (C, T, wr, 128) storage, as :func:`lane_fused_elem` does.
     """
+    if phys.MULTIQP:
+        return lane_fused_gen_mq(values, starts, idx, cell_data, phys,
+                                 wr=wr, nv=nv)
     values, cell_data = tuple(values), tuple(cell_data)
     if values[0].device.type != "cuda":
         return lane_fused_gen_plain(values, starts, idx, cell_data, phys,
                                     wr=wr, nv=nv)
+    out = _launch_gen("lane_fused_gen", values, starts, idx, cell_data, phys,
+                      wr, nv)
+    lane_fused_gen.launches += 1
+    return out
+
+
+def lane_fused_gen_mq(values, starts, idx, cell_data, phys, *, wr: int,
+                      nv: int):
+    """:func:`lane_fused_gen` for a multi-quadrature-point physics
+    (``lane.fused_gen.GenPhysicsMQ``: P2, Q1, Q2, P1 under a higher rule,
+    folded terms): gather -> the point graphs at every quadrature point,
+    chained back and summed over the points -> bin scatter, in one kernel
+    (``csrc/lane_fused_gen_mq.cuh``). For a CPU tensor its plain version is
+    :func:`lane_fused_gen_plain` with the physics' own ``elem_vectors``.
+
+    cell_data: ``(geometry,)`` or ``(geometry, coefficients)``: the (T,
+      dg, K, 128) rows dN[q][v][d] at (q*nv+v)*gd+d, the nq weights, then
+      the nq*gd quadrature-point rows where the physics reads x (the
+      reference's ``fused_geom``), and the (T, Dc, K, 128) coefficient
+      rows.
+    """
+    if not phys.MULTIQP:
+        raise TypeError("lane_fused_gen_mq: a multi-point physics "
+                        "(GenPhysicsMQ) is needed")
+    values, cell_data = tuple(values), tuple(cell_data)
+    if values[0].device.type != "cuda":
+        return lane_fused_gen_plain(values, starts, idx, cell_data, phys,
+                                    wr=wr, nv=nv)
+    out = _launch_gen("lane_fused_gen_mq", values, starts, idx, cell_data,
+                      phys, wr, nv)
+    lane_fused_gen_mq.launches += 1
+    return out
+
+
+def _launch_gen(name, values, starts, idx, cell_data, phys, wr, nv):
+    """Check the CUDA inputs of a generated unit, load (build) it and
+    launch its one- or two-state kernel."""
     dev = values[0].device
     vdt = values[0].dtype
     if vdt != phys.dtype:
-        raise TypeError(f"lane_fused_gen: states of {vdt}, the physics was "
-                        f"traced in {phys.dtype}")
+        raise TypeError(f"{name}: states of {vdt}, the physics was traced "
+                        f"in {phys.dtype}")
     for i, v in enumerate(values):
         _check(f"values[{i}]", v, device=dev, dtypes=(vdt,))
     _check("idx", idx, device=dev, dtypes=_IT)
@@ -928,7 +1033,7 @@ def lane_fused_gen(values, starts, idx, cell_data, phys, *, wr: int,
         _check(f"cell_data[{i}]", cd, device=dev, dtypes=(vdt,))
     C, R, T, K = _check_gen_shapes(values, idx, cell_data, phys, nv)
     _check("starts", starts, device=dev, dtypes=(torch.int32,), shape=(T,))
-    _check_aligned("lane_fused_gen", *values, idx, *cell_data)
+    _check_aligned(name, *values, idx, *cell_data)
     layouts, geos = _gen_layouts(phys, idx.dtype, int(wr))
     g = geos[len(values) - 1]
     key = (idx.dtype, layouts)
@@ -945,8 +1050,7 @@ def lane_fused_gen(values, starts, idx, cell_data, phys, *, wr: int,
         starts.data_ptr(), idx.data_ptr(), cell_data[0].data_ptr(),
         cell_data[1].data_ptr() if len(cell_data) == 2 else None,
         out.data_ptr(), R, T, K, int(wr), g["smem"], _stream(dev))
-    _raise_on(code, "lane_fused_gen")
-    lane_fused_gen.launches += 1
+    _raise_on(code, name)
     return out.permute(1, 0, 2, 3)
 
 

@@ -13,8 +13,9 @@ clock around a synchronize), the device-busy time per iteration (sum of
 kernel times from the profiler), the idle share, the number of kernel
 launches per iteration, the kernels that take the most device time, and
 the device time of the fine tangent's kernels K4 (``lane_fused_elem``, or
-``lane_fused_gen`` where the physics is generated from the integrand) and
-K3 (``lane_pass_update``) per iteration. Under two-level it also splits an iteration into its parts, each run
+``lane_fused_gen`` where the physics is generated from the integrand,
+``lane_fused_gen_mq`` on the multi-quadrature-point path) and K3
+(``lane_pass_update``) per iteration. Under two-level it also splits an iteration into its parts, each run
 alone (wall and device time, launches) and multiplied by its count per
 iteration: the fine Chebyshev tangents, the lattice V-cycle, K5
 restriction and prolongation (with the selector products), and the rest
@@ -132,7 +133,8 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
     state at the facet dofs, the per-facet products, the fixed-order
     gather-sum into the owner and copy slots), once per iteration. On
     the generated fused route ``parts`` splits the tangent into K4-gen
-    and K3, beside K4-gen's byte bound."""
+    (K4-gen-mq on the multi-qp path) and K3, beside K4-gen's byte bound,
+    reckoned for all lane cells and for the real cells only."""
     from tpufem_torch.lane import twolevel as tl
     from tpufem_torch.structured import mg2d
 
@@ -216,6 +218,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
             for name, symbols in (
                 ("lane_fused_elem", ("lane_fused_elem",)),
                 ("lane_fused_gen", ("lane_fused_gen",)),
+                ("lane_fused_gen_mq", ("lane_fused_gen_mq",)),
                 ("lane_pass_update", ("lane_pass_update",
                                       "lane_owner_sum")))}
         if rows else "not measured",
@@ -228,11 +231,14 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         out["facet_part"]["n_facets"] = [int(H.shape[0]) for H in facets]
     if eng._fused and eng.fused_law is None:
         # the generated-fused tangent in its parts, once each per
-        # iteration: K4-gen (gather, the generated physics, bin scatter)
-        # and K3 owner-sum and refresh (the tail included); "rest" is the
-        # facet part, the CG vector work and the Jacobi scaling. Beside
-        # them K4-gen's byte bound: index, geometry and coefficient rows
-        # and both states read once, the bin partials written once
+        # iteration: K4-gen (gather, the generated physics, bin scatter;
+        # on the multi-qp path summed over the points) and K3 owner-sum and
+        # refresh (the tail included); "rest" is the facet part, the CG
+        # vector work and the Jacobi scaling. Beside them K4-gen's byte
+        # bound: index, geometry and coefficient rows and both states read
+        # once, the bin partials written once -- for every lane cell, and
+        # with the cell rows of the real cells only (padding lane cells
+        # need not be read)
         p = eng.plan
         r = state[0][1]
         cds = eng._fused_cds(cc, r.dtype)
@@ -251,10 +257,21 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         )
         out["parts"] = _per_iter(parts, dict.fromkeys(parts, 1), busy,
                                  n_kernels, rows)
-        k4_bytes = sum(t.numel() * t.element_size()
-                       for t in (eng.gather_idx, *cds, u, r, part))
-        out["parts"].update(k4_gen_bound_bytes=k4_bytes,
-                            k4_gen_bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3)
+
+        def size(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        cell_bytes = size(eng.gather_idx, *cds)
+        k4_bytes = cell_bytes + size(u, r, part)
+        real = float(np.count_nonzero(np.asarray(p.cell_valid))) / (
+            p.G * p.kc * 128)
+        k4_real = cell_bytes * real + size(u, r, part)
+        out["parts"].update(
+            k4_gen_route="multiqp" if phys.MULTIQP else "p1",
+            k4_gen_bound_bytes=k4_bytes,
+            k4_gen_bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3,
+            real_cell_share=real, k4_gen_bound_bytes_real_cells=k4_real,
+            k4_gen_bound_ms_real_cells=k4_real / HBM_BYTES_PER_S * 1e3)
     if eng._gen is not None and lin is not None:
         # the staged generic tangent in its four parts, once each per
         # iteration: K1 gather, the element-matrix product (one
@@ -279,7 +296,7 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         )
         out["parts"] = _per_iter(parts, dict.fromkeys(parts, 1), busy,
                                  n_kernels, rows)
-    if eng._mq is not None:
+    if eng._mq is not None and lin is not None:
         # the staged multi-qp tangent application in its six parts, once
         # each per iteration: K1 gather, reduced arguments (a batched
         # product with dN and the value products), the stored per-point
