@@ -24,7 +24,9 @@ prints one JSON line per phase:
                    tables in both modes, K10 lane_scatter at their
                    transpose, K11 lane_scatter_weighted as the adjoint of
                    the prolongation, checked as such against K5 in
-                   float64), with times, the bound and a yardstick; K1 /
+                   float64), with times, the bound and a yardstick; K2
+                   walking the engine's inverse table (its bytes and host
+                   seconds printed; a call without it refused); K1 / K2 /
                    K3 / K4 / K5 / K9 / K11 also at edge shapes; for K1 / K5
                    the mean number of 128-byte lines a warp's direct
                    gather touches; K1 / K2 / K3 also at 3D lane plans
@@ -125,7 +127,10 @@ prints one JSON line per phase:
                    (same Newton count, CG +-1 a step, u rel <= 1e-9); the
                    reference study's functional (``mechanic2d.setup`` at
                    r = 7, 1 608 706 dofs) on the generic engine, float64:
-                   residual, tangent and diagonal at u0 and at a random
+                   K2 exactly equal to its plain version at its plan (both
+                   dtypes and index types), timed beside its bound and
+                   ``index_add_``; residual, tangent and diagonal at u0
+                   and at a random
                    state against the flat Assembler (rel <= 1e-12), a
                    Jacobi solve capped at 2 Newton steps of 1 000 CG,
                    twice, bitwise equal, set-up seconds, one CG iteration
@@ -253,6 +258,7 @@ from tpufem_torch.lane import twolevel as TL  # noqa: E402
 from tpufem_torch.perf import cg_profile  # noqa: E402
 from tpufem_torch.perf import lane_gather_bench as GB  # noqa: E402
 from tpufem_torch.perf import lattice_bench as LB  # noqa: E402
+from tpufem_torch.perf import scatter_cm_bench as SB  # noqa: E402
 from tpufem_torch.mesh import box, unit_square  # noqa: E402
 from tpufem_torch.mesh.topology import locate_entities_boundary  # noqa: E402
 from tpufem_torch.spaces import DirichletBC, FunctionSpace  # noqa: E402
@@ -348,13 +354,13 @@ for ln in _build.build_log.splitlines():
         ptxas.setdefault(entry, {})["spill_bytes"] = sum(
             int(part.split(" bytes")[0].split()[-1])
             for part in ln.split(",")[1:])
-# K1 / K3 / K4 / K5 / K9 / K11 run with no register cap, and K6 / K7 / K8
-# keep their sums and carried stresses in registers: ptxas must report no
-# spill in any of their instances
+# K1 / K2 / K3 / K4 / K5 / K9 / K11 run with no register cap, and K6 / K7 /
+# K8 keep their sums and carried stresses in registers: ptxas must report
+# no spill in any of their instances
 REDESIGNED = ("lane_pass_update_kernel", "lane_owner_sum_kernel",
               "lane_fused_elem_kernel", "lane_gather_cm_kernel",
               "lane_gather_weighted_kernel", "lane_gather_kernel",
-              "lane_scatter_weighted_kernel")
+              "lane_scatter_weighted_kernel", "lane_scatter_cm_kernel")
 LATTICE = ("lattice2d_kernel", "lattice_matvec3d_kernel")
 redesigned = {k: v for k, v in ptxas.items()
               if any(name in k for name in REDESIGNED)}
@@ -362,13 +368,15 @@ lattice_ptxas = {k: v for k, v in ptxas.items()
                  if any(name in k for name in LATTICE)}
 spills = {k: v for k, v in {**redesigned, **lattice_ptxas}.items()
           if v.get("spill_bytes", 0)}
-# K1: 4 staged and 4 reading global memory; K3: 4 + 4; K4: 16 per block
+# K1: 4 staged and 4 reading global memory; K2: 2 value types x 3 channel
+# blocks x (2 table types staged + int16 read through L1); K3: 4 + 4; K4:
+# 16 per block
 # layout; K5: 4 with its tables staged and 4 with them in registers; K9: 4
 # staged and 4 reading global memory; K11: 4 with its tables staged and 4
 # without
-check(len(redesigned) == 8 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8 + 8 + 8
-      and len(lattice_ptxas) == 3 and not spills,
-      f"ptxas: {len(redesigned)} K1 / K3 / K4 / K5 / K9 / K11 and "
+check(len(redesigned) == 8 + 18 + 4 + 4 + 16 * len(K.FUSED_CONFIGS) + 8 + 8
+      + 8 and len(lattice_ptxas) == 3 and not spills,
+      f"ptxas: {len(redesigned)} K1 / K2 / K3 / K4 / K5 / K9 / K11 and "
       f"{len(lattice_ptxas)} K6 / K7 / K8 instances, spills: {spills}")
 # the SASS of K6 / K7 / K8: instructions of the main loop, one cell or one
 # interior node a thread per pass, and the floor they give over every
@@ -470,37 +478,6 @@ def record(name, err, ms, plain_ms, bound_bytes, library_ms, **extra):
                  bound_bytes=bound_bytes, **extra)
 
 
-def index_add_yardstick_ms(src, ix, ref, dump_row=False):
-    """K2's library yardstick at a plan's shapes: one ``index_add_`` (float
-    atomics, so checked close to K2's plain version ``ref`` (C, G, wg,
-    128), not equal) over int64 global indices. The padding entries (ix
-    -1) are left out: the plain version adds each into a row of its own
-    (bin, lane), so they cost it no collisions. With ``dump_row`` they all
-    go to one appended row instead, where their atomics collide on C
-    addresses, to show what such a yardstick would have counted against
-    the kernel."""
-    C2, G2, wg2 = ref.shape[0], ref.shape[1], ref.shape[2]
-    V2 = ix.shape[1]
-    ii = ix.to(torch.int64)
-    lane = torch.arange(128, device=DEV)
-    tt = torch.arange(G2, device=DEV).view(G2, 1, 1, 1)
-    dest = ((tt * wg2 + ii) * 128 + lane).permute(1, 0, 2, 3).reshape(-1)
-    real = (ii >= 0).expand(-1, -1, -1, 128).permute(1, 0, 2, 3).reshape(-1)
-    s2 = src.reshape(V2, C2, -1).permute(0, 2, 1).reshape(-1, C2)
-    n_out = G2 * wg2 * 128
-    if dump_row:
-        dest = torch.where(real, dest, torch.full_like(dest, n_out))
-        s2 = s2.contiguous()
-    else:
-        dest, s2 = dest[real], s2[real].contiguous()
-    acc = torch.zeros((n_out + 1, C2), dtype=src.dtype, device=DEV)
-    acc.index_add_(0, dest, s2)
-    lib = acc[:-1].T.reshape(ref.shape)
-    check(float((lib - ref).abs().max()) <= 1e-4 * float(ref.abs().max()),
-          "index_add_ yardstick disagrees")
-    return time_ms(lambda: acc.index_add_(0, dest, s2), 10)
-
-
 # K4's arithmetic per cell slot, counted by hand from the kernel source
 # (strain, Lame factors, stress or its directional derivative, six element
 # vector rows, six accumulator adds): far below what its bytes cost
@@ -555,23 +532,48 @@ for vdt in (torch.float32, torch.float64):
         else:
             record("lane_gather_cm", err, None, None, None, None)
 
-        # K2 lane_scatter_cm: the kernel keeps the plain version's order of
-        # additions (v-outer, k-inner), so the tolerance is 0: exactly equal
+        # K2 lane_scatter_cm: the kernel walks the engine's inverse table
+        # and adds a row's sources in the plain version's order (v-outer,
+        # k-inner), so the tolerance is 0: exactly equal
         src = torch.randn((V_ * C, G, kc, 128), dtype=vdt, device=DEV,
                           generator=gen)
-        out = K.lane_scatter_cm(src, gidx, k_out=wg, n_ch=C)
+        # a table is tied to the tensor it was built from: the engine's
+        # serves its own idx, the other index type gets one of its own
+        tab = (eng_full.scatter_table if gidx is eng_full.gather_idx
+               else K.scatter_cm_table(gidx, wg))
+        k2 = dict(k_out=wg, n_ch=C, table=tab)
+        out = K.lane_scatter_cm(src, gidx, **k2)
         torch.cuda.synchronize()
         ref = K.lane_scatter_cm_plain(src, gidx, k_out=wg, n_ch=C)
         err = float((out - ref).abs().max())
         check(torch.equal(out, ref), f"lane_scatter_cm {vdt} {idt}: {err}")
         if main:
-            ms = time_ms(lambda: K.lane_scatter_cm(
-                src, gidx, k_out=wg, n_ch=C), 20)
+            ms_r = median_ms(lambda: K.lane_scatter_cm(src, gidx, **k2), 20)
             pms = time_ms(lambda: K.lane_scatter_cm_plain(
                 src, gidx, k_out=wg, n_ch=C), 2)
-            lms = index_add_yardstick_ms(src, gidx, ref)
-            record("lane_scatter_cm", err, ms, pms, nbytes(src, gidx, out),
-                   lms, padding_share=float((gidx < 0).float().mean()))
+            lms = time_ms(SB.index_add_yardstick(src, gidx, ref), 10)
+            # the table's set-up, as LaneEngine builds it (from the card)
+            t0 = time.perf_counter()
+            K.scatter_cm_table(eng_full.gather_idx, wg)
+            rb = SB.real_entry_bytes(src, gidx, tab, out)
+            record("lane_scatter_cm", err, ms_r[0], pms,
+                   nbytes(src, gidx, out), lms, ms_range=ms_r,
+                   padding_share=float((gidx < 0).float().mean()),
+                   table_bytes=tab.nbytes,
+                   table_host_seconds=time.perf_counter() - t0,
+                   real_bound_bytes=rb,
+                   real_bound_ms=rb / HBM_BYTES_PER_S * 1e3,
+                   geometry=K.scatter_cm_geometry(wg, C, V_, kc, 4))
+            # a CUDA call without the table, or with a table built from
+            # another tensor (here an equal copy), is refused
+            for bad in (None, K.scatter_cm_table(gidx.clone(), wg)):
+                try:
+                    K.lane_scatter_cm(src, gidx, k_out=wg, n_ch=C, table=bad)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check(refused, "lane_scatter_cm ran on the card without "
+                      "its own table")
         else:
             record("lane_scatter_cm", err, None, None, None, None)
         del src
@@ -1210,11 +1212,78 @@ g11 = K.scatter_weighted_geometry(C, p_ix.shape[1], wg, WRP, 8, 4)
 k11_paths.add((g11["tiles"], g11["chunks"] > 1, g11["groups"] > 1))
 check(k9_paths == {True, False} and len(k11_paths) >= 4,
       f"K9 / K11 edge shapes: {k9_paths} / {k11_paths}: not every path")
+# K2 at edge shapes, both dtypes and index types (int8 tables clamped at
+# 127, so entries past k_out are dropped): heavy padding, an all-padding
+# bin, one output row, a row of 23 sources (a P1-tet plan's most), int16
+# slots (V * K > 127), a channel count the kernel takes in channel blocks,
+# one channel, k_out = 700 rows (the first design's bands), and the shapes
+# that launch the rest of K2's instances: 1, 2 and 3 channels a block with
+# int16 slots, the tile staged and read through L1, in both dtypes
+K2_EDGES = {  # tag: (bins, V, K, k_out, C, padding share)
+    "heavy padding": (5, 3, 16, 24, 2, 0.85),
+    "all-padding bin": (3, 4, 8, 20, 3, 0.3),
+    "k_out 1": (3, 3, 8, 1, 2, 0.4),
+    "row of 23": (2, 4, 24, 30, 3, 0.3),
+    "int16 slots": (3, 27, 8, 176, 3, 0.5),
+    "5 channels": (4, 3, 8, 12, 5, 0.3),
+    "1 channel": (4, 3, 32, 40, 1, 0.1),
+    "700 rows": (2, 4, 96, 700, 3, 0.2),
+    "4 channels": (3, 3, 8, 12, 4, 0.3),
+    "6 channels, L1": (1, 8, 96, 50, 6, 0.3),
+    "2 channels, int16": (2, 8, 32, 40, 2, 0.3),
+    "2 channels, L1": (1, 8, 128, 60, 2, 0.3),
+    "1 channel, int16": (2, 8, 32, 40, 1, 0.3),
+    "1 channel, L1": (1, 16, 128, 40, 1, 0.3),
+}
+k2_edge_geo = {}
+k2_instances = set()  # (value type, slot type, channels a block, staged)
+# their own random streams, so that every later input is the same as
+# without them
+k2_rng = np.random.default_rng(18)
+k2_gen = torch.Generator(device=DEV)
+k2_gen.manual_seed(18)
+for tag, (T_, V2_, K2_, ko_, C_, pm_) in K2_EDGES.items():
+    ix_ = k2_rng.integers(0, ko_ + 2, size=(T_, V2_, K2_, 128))
+    ix_[k2_rng.random(ix_.shape) < pm_] = -1
+    if tag == "all-padding bin":
+        ix_[1] = -1
+    if tag == "row of 23":
+        ix_[1, :, :, 5] = k2_rng.integers(1, ko_, size=(V2_, K2_))
+        ix_[1, 0, :23, 5] = 0
+    for idt in (torch.int8, torch.int32):
+        ix_t = on_card((np.minimum(ix_, 127) if idt == torch.int8
+                        else ix_).astype(IDX_NP[idt]))
+        tab_ = K.scatter_cm_table(ix_t, ko_)
+        for vdt in (torch.float32, torch.float64):
+            src_ = torch.randn((V2_ * C_, T_, K2_, 128), dtype=vdt,
+                               device=DEV, generator=k2_gen)
+            out = K.lane_scatter_cm(src_, ix_t, k_out=ko_, n_ch=C_,
+                                    table=tab_)
+            torch.cuda.synchronize()
+            ref = K.lane_scatter_cm_plain(src_, ix_t, k_out=ko_, n_ch=C_)
+            check(out.shape == ref.shape and torch.equal(out, ref),
+                  f"lane_scatter_cm {tag} {vdt} {idt}: "
+                  f"{float((out - ref).abs().max())}")
+            g2_ = K.scatter_cm_geometry(ko_, C_, V2_, K2_,
+                                        src_.element_size())
+            k2_instances.add((str(vdt), str(tab_.slots.dtype), g2_["cb"],
+                              g2_["staged"]))
+            k2_edge_geo[tag] = dict(
+                K.scatter_cm_geometry(ko_, C_, V2_, K2_, 8),
+                slots=str(tab_.slots.dtype), E=int(tab_.slots.shape[1]))
+    if tag == "row of 23":
+        cnt = tab_.off[:, 1:].long() - tab_.off[:, :-1].long()
+        check(int(cnt.max()) == 23, f"K2 edge {tag}: {int(cnt.max())}")
+# every K2 instance ptxas reported was launched and held equal above
+k2_ptxas = [k for k in ptxas if "lane_scatter_cm_kernel" in k]
+check(len(k2_instances) == len(k2_ptxas) == 18,
+      f"K2: {len(k2_instances)} instances launched at the edge shapes, "
+      f"{len(k2_ptxas)} built: {sorted(k2_instances)}")
 # K1 / K2 / K3 at the shapes of 3D lane plans (bs = 3 channels, int32
 # indices), exactly equal to their plain versions in float32 and float64:
 # P1 tetrahedra at box(16) (80 owner and refresh passes: more than the
 # first K3 took), P1 tetrahedra at box(48) (a window of wg = 272 rows: in
-# float64 K1 reads global memory and K2 keeps its rows in two bands) and
+# float64 K1 reads global memory, and K2's tile does not fit a block) and
 # the Q2 hexahedra at box(40) of the multi-qp phase (C = 3, V = 27), whose
 # engine is built here and serves that phase; at those shapes, float32,
 # K1-K3 are also timed beside their bounds
@@ -1275,16 +1344,16 @@ def lane_edges_3d(tag, eng3, timed):
               f"{float((out - ref).abs().max())}")
         src = torch.randn((p3.nv * C3, p3.G, p3.kc, 128), dtype=vdt,
                           device=DEV, generator=gen)
-        k2 = dict(k_out=p3.wg, n_ch=C3)
+        k2 = dict(k_out=p3.wg, n_ch=C3, table=eng3.scatter_table)
         out2 = K.lane_scatter_cm(src, ix, **k2)
         torch.cuda.synchronize()
-        ref2 = K.lane_scatter_cm_plain(src, ix, **k2)
+        ref2 = K.lane_scatter_cm_plain(src, ix, k_out=p3.wg, n_ch=C3)
         check(torch.equal(out2, ref2), f"lane_scatter_cm {tag} {vdt}: "
               f"{float((out2 - ref2).abs().max())}")
         vb = vals.element_size()
         info["routes"][str(vdt)] = dict(
             k1_staged=K.check_gather_cm(vals, st, ix, **k1)["tiles"],
-            k2_bands=K.scatter_cm_geometry(p3.wg, vb)["bands"])
+            k2=K.scatter_cm_geometry(p3.wg, C3, p3.nv, p3.kc, vb))
         if timed and vdt == torch.float32:
             times["lane_gather_cm"] = (
                 median_ms(lambda: K.lane_gather_cm(vals, st, ix, **k1), 20),
@@ -1293,12 +1362,21 @@ def lane_edges_3d(tag, eng3, timed):
                 gather_yardstick_ms(vals, st, ix, ref))
             times["lane_scatter_cm"] = (
                 median_ms(lambda: K.lane_scatter_cm(src, ix, **k2), 20),
-                time_ms(lambda: K.lane_scatter_cm_plain(src, ix, **k2), 1),
-                nbytes(src, ix, out2), index_add_yardstick_ms(src, ix, ref2))
+                time_ms(lambda: K.lane_scatter_cm_plain(
+                    src, ix, k_out=p3.wg, n_ch=C3), 1),
+                nbytes(src, ix, out2),
+                time_ms(SB.index_add_yardstick(src, ix, ref2), 10))
+            t0 = time.perf_counter()
+            K.scatter_cm_table(ix, p3.wg)
+            rb = SB.real_entry_bytes(src, ix, eng3.scatter_table, out2)
             results["lane_scatter_cm"].update(
-                q2hex_library_dump_row_ms=index_add_yardstick_ms(
-                    src, ix, ref2, dump_row=True),
-                q2hex_padding_share=float((ix < 0).float().mean()))
+                q2hex_real_bound_bytes=rb,
+                q2hex_real_bound_ms=rb / HBM_BYTES_PER_S * 1e3,
+                q2hex_library_dump_row_ms=time_ms(SB.index_add_yardstick(
+                    src, ix, ref2, dump_row=True), 10),
+                q2hex_padding_share=float((ix < 0).float().mean()),
+                q2hex_table_bytes=eng3.scatter_table.nbytes,
+                q2hex_table_host_seconds=time.perf_counter() - t0)
         del out, ref, src, out2, ref2
         for head, st3, ix3, wrs3, sh3 in k3_tabs:
             kw = dict(wrs=wrs3, wg=p3.wg, shifts=sh3, head=head)
@@ -1339,11 +1417,12 @@ for tag, (n3, cell3) in {"P1 tets box(16)": (16, "tetra"),
     eng3 = LaneEngine(F3, bcs3, wg_own=32, device=DEV, dtype=torch.float32)
     edges_3d[tag] = lane_edges_3d(tag, eng3, False)
     del eng3, F3, bcs3
+# box(48)'s wg rows in float64 exceed one block's shared memory: the
+# first K2 design split them into bands
 check(edges_3d["P1 tets box(16)"]["owner_passes"] > 64
       and not edges_3d["P1 tets box(48)"]["routes"]["torch.float64"][
           "k1_staged"]
-      and edges_3d["P1 tets box(48)"]["routes"]["torch.float64"][
-          "k2_bands"] > 1,
+      and edges_3d["P1 tets box(48)"]["wg"] * 128 * 8 > K.SMEM_PER_BLOCK,
       f"the 3D edge plans miss a repaired shape: {edges_3d}")
 # the full-width Q2-hex problem (benchmarks/q2hex_bench.py): the engine's
 # set-up split into the mesh and space, the lane plan, and the tables
@@ -1368,6 +1447,7 @@ shapes.update(k3_edges=dict(K3_EDGES, n256=dict(
     refresh=list(eng_256._refresh_idx.shape))),
     k4_edges=dict(K4_EDGES, n256=list(eng_256.gather_idx.shape)),
     k1_k5_edges=GATHER_EDGES, k5_edge_paths=k5_paths, k9_edges=K9_EDGES,
+    k2_edges=K2_EDGES, k2_edge_geometry=k2_edge_geo,
     k11_edges=K11_EDGES,
     k11_edge_paths=[dict(zip(("tiles", "chunks", "groups"), p_))
                     for p_ in sorted(k11_paths)],
@@ -1376,8 +1456,8 @@ del eng_256, F_256, cd_256
 
 emit("kernels", shapes=shapes, kernels=results, lane_fused_elem_rel_err=k4_rel,
      k11_adjoint_of_k5_rel=adjoint_rel,
-     tolerance="exactly equal (0) for every kernel, K1, K3, K4, K5, K9 "
-               "and K11 also at the edge shapes, K1-K3 also at 3D plans; "
+     tolerance="exactly equal (0) for every kernel, K1, K2, K3, K4, K5, "
+               "K9 and K11 also at the edge shapes, K1-K3 also at 3D plans; "
                "K11 adjoint of K5 rel "
                "<= 1e-12 "
                "(float64)")
@@ -2787,7 +2867,8 @@ def staged_q2_apply():
     ev = mq.chain_back(mq.hess_apply(H_t, mq.reduced_args(vc, D_t)), D_t)
     return K.lane_scatter_cm(
         ev.reshape(mq.nd, plan_q2.G, plan_q2.kc, 128).contiguous(),
-        eng_q2.gather_idx, k_out=plan_q2.wg, n_ch=3)
+        eng_q2.gather_idx, k_out=plan_q2.wg, n_ch=3,
+        table=eng_q2.scatter_table)
 
 
 def fused_q2_apply():
@@ -3124,6 +3205,44 @@ torch.cuda.synchronize()
 g_setup["engine_tables_x_lane"] = time.perf_counter() - t0
 check(eng_g.path == "generic", f"mechanic2d r = {FG_R}: on the "
       f"{eng_g.path} path, not the generic one")
+# K2 at this plan (the engine's table), both dtypes and index types,
+# exactly equal to its plain version; in float64, the path's type, timed
+# beside its bound and the index_add_ yardstick
+kw_g = dict(k_out=plan_g.wg, n_ch=eng_g.bs)
+# (a stream of its own, not fg_gen's: every later input stays the same)
+fg_k2_gen = torch.Generator(device=DEV)
+fg_k2_gen.manual_seed(19)
+for vdt in (torch.float64, torch.float32):
+    src = torch.randn((plan_g.nv * eng_g.bs, plan_g.G, plan_g.kc, 128),
+                      dtype=vdt, device=DEV, generator=fg_k2_gen)
+    for idt in (torch.int8, torch.int32):
+        ix = eng_g.gather_idx.to(idt)
+        tab = (eng_g.scatter_table if ix is eng_g.gather_idx
+               else K.scatter_cm_table(ix, plan_g.wg))
+        out = K.lane_scatter_cm(src, ix, table=tab, **kw_g)
+        torch.cuda.synchronize()
+        ref = K.lane_scatter_cm_plain(src, ix, **kw_g)
+        check(torch.equal(out, ref), f"lane_scatter_cm generic r = {FG_R} "
+              f"{vdt} {idt}: {float((out - ref).abs().max())}")
+    if vdt == torch.float64:
+        ix = eng_g.gather_idx
+        ms_r = median_ms(lambda: K.lane_scatter_cm(
+            src, ix, table=eng_g.scatter_table, **kw_g), 20)
+        t0 = time.perf_counter()
+        K.scatter_cm_table(ix, plan_g.wg)
+        rb = SB.real_entry_bytes(src, ix, eng_g.scatter_table, out)
+        k2_generic = dict(
+            ms=ms_r[0], ms_range=ms_r, table_host_seconds=(
+                time.perf_counter() - t0),
+            plain_ms=time_ms(lambda: K.lane_scatter_cm_plain(
+                src, ix, **kw_g), 1),
+            bound_ms=nbytes(src, ix, out) / HBM_BYTES_PER_S * 1e3,
+            real_bound_ms=rb / HBM_BYTES_PER_S * 1e3,
+            library_ms=time_ms(SB.index_add_yardstick(src, ix, ref), 10),
+            table_bytes=eng_g.scatter_table.nbytes,
+            geometry=K.scatter_cm_geometry(plan_g.wg, eng_g.bs, plan_g.nv,
+                                           plan_g.kc, 8))
+    del src, out, ref
 t0 = time.perf_counter()
 cc_g = eng_g.prepare_coeffs(c_g)
 torch.cuda.synchronize()
@@ -3195,7 +3314,7 @@ fg_generic = dict(
     run_seconds=secs_g, ms_per_cg_iter=1e3 * st_g["cg_seconds"] / max(
         sum(st_g["cg_enqueued"]), 1),
     peak_bytes=peak_g, launches=launches_g, bitwise_equal_twice=True,
-    cg_iteration=prof_g)
+    cg_iteration=prof_g, k2_float64=k2_generic)
 del eng_g, asm_g, c_g, cc_g, plan_g, u_g, u0_g, free_g, mesh_g, V_g
 torch.cuda.empty_cache()
 
@@ -4313,6 +4432,8 @@ PATHS = {**dict.fromkeys(LANE_PATH, "polycrystal.run defaults, n = 1024"),
                               "1 Newton step of <= 500 CG (phase multiqp)",
          "lane_gather": None,
          "lane_scatter": None, "lane_scatter_weighted": None}
+results["lane_scatter_cm"].update(
+    {"generic_" + k: v for k, v in k2_generic.items()})
 summary = []
 for name, r in results.items():
     entry = dict(
@@ -4360,6 +4481,13 @@ for name, r in results.items():
               "q2hex_refresh_plain_ms", "q2hex_refresh_bound_ms",
               "q2hex_library_ms", "q2hex_library_dump_row_ms",
               "q2hex_padding_share", "padding_share", "jvp_geometry",
+              "table_bytes", "table_host_seconds", "q2hex_table_bytes",
+              "q2hex_table_host_seconds", "generic_ms", "generic_ms_range",
+              "generic_plain_ms", "generic_bound_ms", "generic_library_ms",
+              "generic_table_bytes", "generic_table_host_seconds",
+              "generic_geometry", "real_bound_bytes", "real_bound_ms",
+              "q2hex_real_bound_bytes", "q2hex_real_bound_ms",
+              "generic_real_bound_ms",
               "geometry", "bound_ms_all_lane_cells",
               "jvp_bound_ms_all_lane_cells"):
         if k in r:

@@ -239,25 +239,6 @@ def test_pass_update_geometry_of_2d_plans_is_unchanged():
             assert g["smem"] == _pass_layout(C, K, max(wrs), vb, ib)
 
 
-@pytest.mark.parametrize("k_out,vbytes,bands", [
-    (40, 4, 1), (176, 4, 1), (176, 8, 1), (227, 8, 1), (228, 8, 2),
-    (272, 8, 2), (272, 4, 1), (700, 8, 4)])
-def test_scatter_cm_geometry_splits_rows_that_do_not_fit(k_out, vbytes,
-                                                         bands):
-    """K2 keeps a band of output rows in shared memory: all k_out rows
-    where k_out x 128 values fit a block (the n = 1024 plan's 40 rows, the
-    Q2-hex plan's 176), else bands as even as whole rows allow (a P1-tet
-    plan's 272 rows in float64: two of 136); every output row written by
-    exactly one band."""
-    g = tk.scatter_cm_geometry(k_out, vbytes)
-    assert g["bands"] == bands
-    assert g["smem"] == g["rows"] * 128 * vbytes <= tk.SMEM_PER_BLOCK
-    assert (bands - 1) * g["rows"] < k_out <= bands * g["rows"]
-    assert (tk.scatter_cm_cover(g, k_out) == 1).all()
-    with pytest.raises(ValueError):
-        tk.scatter_cm_geometry(0, vbytes)
-
-
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     rng = np.random.default_rng(5)
     tk.reset_launch_counts()

@@ -141,7 +141,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cll, vp]
         lib.lane_scatter_cm.restype = ci
         lib.lane_scatter_cm.argtypes = [
-            ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.lane_pass_update.restype = ci
         lib.lane_pass_update.argtypes = [
             ci, ci, vp, vp, vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, ci, ci,

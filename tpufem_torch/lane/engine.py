@@ -98,7 +98,7 @@ from tpufem_torch.lane.fused_gen import GenPhysics, GenPhysicsMQ
 from tpufem_torch.lane.kernels import (FusedLaw, fused_elem_vectors,
                                        lane_fused_elem, lane_fused_gen,
                                        lane_gather_cm, lane_pass_update,
-                                       lane_scatter_cm)
+                                       lane_scatter_cm, scatter_cm_table)
 from tpufem_torch.lane.generic import GenericPhysics, x_lane_host
 from tpufem_torch.lane.multiqp import (MQ_CELLS, MultiQPPhysics,
                                        cells_leading, fold_terms,
@@ -324,6 +324,8 @@ class LaneEngine:
         self.gather_idx = torch.as_tensor(
             np.ascontiguousarray(p.gather_idx.astype(idt)), device=dev
         )  # (G, nv, kc, 128)
+        # its inverse, which K2 walks on the card (one thread per output row)
+        self.scatter_table = scatter_cm_table(self.gather_idx, p.wg)
         self.gather_starts = torch.as_tensor(
             np.asarray(p.gather_starts, dtype=np.int32), device=dev
         )
@@ -1124,6 +1126,7 @@ class LaneEngine:
         src = ev.reshape(p.nv * bs, p.G, p.kc, N_LANES).contiguous()
         part = lane_scatter_cm(
             src, self.gather_idx, k_out=p.wg, n_ch=bs,
+            table=self.scatter_table,
         )  # (bs, G, wg, 128)
         return self._owner_refresh(part)
 

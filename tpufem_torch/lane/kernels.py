@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -318,39 +318,163 @@ def lane_scatter_cm_plain(src, idx, *, k_out: int, n_ch: int):
     return out[:, :, :k_out, :].contiguous()
 
 
-@functools.lru_cache(maxsize=64)
-def scatter_cm_geometry(k_out: int, vbytes: int) -> dict:
-    """Launch geometry of :func:`lane_scatter_cm`'s kernel for ``k_out``
-    output rows of ``vbytes``-byte values. A block (128 threads, one per
-    lane column) serves one (bin, channel) and keeps the output rows of one
-    band in shared memory: all ``k_out`` rows where they fit a block
-    (``bands`` 1), else ``bands`` bands of at most ``rows`` rows each, as
-    even as whole rows allow (grid z). Every block walks all (v, k) in the
-    same order, so the bands change no sum. ``smem``: a band's bytes."""
-    if k_out < 1 or vbytes not in (4, 8):
-        raise ValueError(f"lane_scatter_cm: k_out = {k_out} (>= 1), "
-                         f"{vbytes}-byte values")
-    fit = SMEM_PER_BLOCK // (N_LANES * vbytes)
-    bands = -(-k_out // fit)
-    rows = -(-k_out // bands)
-    return dict(rows=rows, bands=bands, smem=rows * N_LANES * vbytes)
+SCATTER_SLAB = 32  # lane columns of a block (csrc/lane_scatter_cm.cu)
+SCATTER_RY = 32  # row threads of a block at most ...
+SCATTER_RY_MIN = 8  # ... and at least, where the block stages its tile
+SM_THREADS = 2048  # resident threads an SM holds
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScatterTable:
+    """The inverse of a (T, V, K, 128) lane table for :func:`lane_scatter_cm`
+    (:func:`scatter_cm_table`): for bin t and lane column j, the slots
+    ``e = v * K + k`` of its real entries sorted by destination row,
+    ``slots[t, off[t, r, j]:off[t, r + 1, j], j]`` the sources of row r in
+    ascending e. ``slots`` (T, E, 128) with E the most real entries of one
+    (t, j) (at least 1; the rest of a column is 0 and never read),
+    ``off`` (T, k_out + 1, 128); both int8 where V * K <= 127, else
+    int16. ``idx``: the tensor it was built from (None for an array), the
+    only one a call on the card takes it with."""
+    slots: torch.Tensor
+    off: torch.Tensor
+    V: int
+    K: int
+    k_out: int
+    idx: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                    repr=False)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.slots, self.off))
+
+
+def scatter_cm_table(idx, k_out: int) -> ScatterTable:
+    """The inverse table of ``idx`` (T, V, K, 128), a tensor or an array,
+    for :func:`lane_scatter_cm` with ``k_out`` output rows: host NumPy, once
+    a plan (the plan is static), on the device of a tensor ``idx``. Entries
+    outside [0, k_out) are dropped. The sort by row is stable, so the
+    sources of a row keep ascending ``e = v * K + k``, the plain version's
+    order of additions. ``ValueError`` where V * K or k_out exceeds 32767
+    (int16 slots and sort keys)."""
+    ii = idx.cpu().numpy() if isinstance(idx, torch.Tensor) else \
+        np.asarray(idx)
+    T, V, K, L = ii.shape
+    n = V * K
+    if L != N_LANES or not 1 <= k_out <= 32767 or not 1 <= n <= 32767:
+        raise ValueError(f"scatter_cm_table: V * K = {n} entries and k_out "
+                         f"= {k_out} rows (each 1 to 32767), {L} lanes")
+    sdt = np.int8 if n <= 127 else np.int16
+    key = ii.reshape(T, n, L).transpose(0, 2, 1).astype(np.int64)
+    key = np.where((key >= 0) & (key < k_out), key, k_out)  # dump key
+    order = np.argsort(key.astype(np.int16), axis=-1, kind="stable")
+    flat = (np.arange(T * L).reshape(T, L, 1) * (k_out + 1) + key)
+    counts = np.bincount(flat.reshape(-1), minlength=T * L * (k_out + 1)) \
+        .reshape(T, L, k_out + 1)
+    off = np.zeros((T, L, k_out + 1), np.int64)
+    np.cumsum(counts[:, :, :k_out], axis=-1, out=off[:, :, 1:])
+    real = off[:, :, k_out]  # (T, L)
+    E = max(int(real.max()), 1)
+    slots = np.where(np.arange(E) < real[:, :, None], order[:, :, :E], 0)
+    tensor = isinstance(idx, torch.Tensor)
+    dev = idx.device if tensor else "cpu"
+    return ScatterTable(
+        slots=torch.from_numpy(np.ascontiguousarray(
+            slots.transpose(0, 2, 1).astype(sdt))).to(dev),
+        off=torch.from_numpy(np.ascontiguousarray(
+            off.transpose(0, 2, 1).astype(sdt))).to(dev),
+        V=V, K=K, k_out=int(k_out), idx=idx if tensor else None)
+
+
+def scatter_cm_table_walk_plain(src, table: ScatterTable, *, n_ch: int):
+    """The walk of :func:`lane_scatter_cm`'s kernel in plain PyTorch: each
+    (t, r, j) adds its table's sources in their order to a zero, the s-th
+    source of every row at step s. Equal to :func:`lane_scatter_cm_plain`
+    (tests/test_torch_scatter_table.py holds it so)."""
+    ND, T, K, L = src.shape
+    C = n_ch
+    k_out = table.k_out
+    dev = src.device
+    off = table.off.to(dev, torch.int64)  # (T, k_out + 1, L)
+    slots = table.slots.to(dev, torch.int64)  # (T, E, L)
+    a, cnt = off[:, :-1], off[:, 1:] - off[:, :-1]  # (T, k_out, L)
+    sv = src.reshape(ND // C, C, T, K, L).permute(1, 2, 0, 3, 4) \
+        .reshape(C, T, ND // C * K, L)  # (C, T, e, L)
+    acc = torch.zeros((C, T, k_out, L), dtype=src.dtype, device=dev)
+    for s in range(int(cnt.max()) if cnt.numel() else 0):
+        has = cnt > s
+        e = torch.gather(slots, 1, torch.where(has, a + s, 0))
+        val = torch.gather(sv, 2, e.unsqueeze(0).expand(C, -1, -1, -1))
+        acc = torch.where(has, acc + val, acc)
+    return acc
+
+
+def _even_rows(k_out: int, ry: int) -> int:
+    """At most ``ry`` thread rows, spread evenly over k_out output rows."""
+    return -(-k_out // -(-k_out // ry))
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_cm_geometry(k_out: int, C: int, V: int, K: int,
+                        vbytes: int) -> dict:
+    """Launch geometry of :func:`lane_scatter_cm`'s kernel. A block serves
+    one bin, one slab of SCATTER_SLAB lane columns and ``cb`` channels (C
+    where C <= 3, else the largest of 3, 2, 1 that divides C; grid y
+    C / cb), with ``block`` = (SCATTER_SLAB, ``ry``) threads: thread (x, y)
+    writes rows y, y + ry, ... of the k_out output rows, the thread rows
+    spread evenly over them. ``staged``: the block copies its slab's src
+    tile, ``smem`` = V * cb * K * SCATTER_SLAB values, into shared memory
+    first, where that fits a block (SMEM_PER_BLOCK; always where V * K <=
+    127, the int8 tables: 97 536 bytes at most); it then has about enough
+    thread rows (between SCATTER_RY_MIN and SCATTER_RY) for the blocks
+    whose tiles share an SM to fill its SM_THREADS. A block that does not
+    stage reads its tile through L1 with up to SCATTER_RY thread rows.
+    (The rule follows the launch geometries timed by
+    ``perf/scatter_cm_bench.py --sweep``.)"""
+    if k_out < 1 or C < 1 or V * K < 1 or vbytes not in (4, 8):
+        raise ValueError(f"lane_scatter_cm: k_out = {k_out}, C = {C}, "
+                         f"V * K = {V * K} (each >= 1), {vbytes}-byte "
+                         "values")
+    cb = C if C <= 3 else next(b for b in (3, 2, 1) if C % b == 0)
+    tile = V * cb * K * SCATTER_SLAB * vbytes
+    staged = tile <= SMEM_PER_BLOCK
+    ry = SCATTER_RY
+    if staged:
+        blocks = SMEM_PER_SM // (tile + SMEM_RESERVED)
+        ry = min(max(SM_THREADS // (SCATTER_SLAB * blocks), SCATTER_RY_MIN),
+                 SCATTER_RY)
+    ry = _even_rows(k_out, ry)
+    return dict(block=(SCATTER_SLAB, ry), ry=ry, cb=cb,
+                channel_blocks=C // cb, slabs=N_LANES // SCATTER_SLAB,
+                staged=staged, smem=tile if staged else 0)
 
 
 def scatter_cm_cover(geo: dict, k_out: int) -> np.ndarray:
     """How many times the kernel of ``geo`` (:func:`scatter_cm_geometry`)
-    writes each of the ``k_out`` output rows of a (bin, channel): band b
-    writes rows [b * rows, min((b + 1) * rows, k_out))."""
-    counts = np.zeros(k_out, np.int64)
-    for b in range(geo["bands"]):
-        counts[b * geo["rows"]:min((b + 1) * geo["rows"], k_out)] += 1
+    writes each (output row, lane column) of one bin and channel block:
+    block s (slab), thread (x, y) writes column s * SCATTER_SLAB + x of
+    rows y, y + ry, ... below k_out."""
+    counts = np.zeros((k_out, N_LANES), np.int64)
+    lb, ry = geo["block"]
+    for s in range(geo["slabs"]):
+        for y in range(ry):
+            counts[y:k_out:ry, s * lb:(s + 1) * lb] += 1
     return counts
 
 
-def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int):
+_ST = {torch.int8: 0, torch.int16: 1}
+
+
+def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int,
+                    table: ScatterTable = None):
     """Cells-minor bin scatter: src (V*C, T, K, 128) element vectors (dof
     row v*C+c), idx = the SAME (T, V, K, 128) gather table. Returns bin
-    partials (C, T, k_out, 128), channel-leading. The launch geometry is
-    :func:`scatter_cm_geometry`'s."""
+    partials (C, T, k_out, 128), channel-leading. On the card the kernel
+    walks ``table``, the inverse that :func:`scatter_cm_table` built from
+    this very ``idx`` tensor, once a plan (``ValueError`` without it or
+    with another tensor's); the launch geometry is
+    :func:`scatter_cm_geometry`'s. A CPU tensor takes the plain version,
+    with or without a table."""
     if src.device.type != "cuda":
         return lane_scatter_cm_plain(src, idx, k_out=k_out, n_ch=n_ch)
     dev = src.device
@@ -361,13 +485,39 @@ def lane_scatter_cm(src, idx, *, k_out: int, n_ch: int):
     if (L != N_LANES or L2 != N_LANES or T2 != T or K2 != K
             or ND != V * n_ch):
         raise ValueError("lane_scatter_cm: src/idx shapes do not match")
-    C = n_ch
-    geo = scatter_cm_geometry(int(k_out), src.element_size())
-    out = torch.empty((C, T, k_out, L), dtype=src.dtype, device=dev)
+    if table is None:
+        raise ValueError("lane_scatter_cm: a CUDA call needs the plan's "
+                         "table (scatter_cm_table(idx, k_out))")
+    if table.idx is not idx or table.k_out != k_out:
+        raise ValueError("lane_scatter_cm: the table was not built from "
+                         f"this idx tensor with k_out = {k_out}")
+    E = table.slots.shape[1]
+    _check("table.slots", table.slots, device=dev, dtypes=_ST,
+           shape=(T, E, N_LANES))
+    _check("table.off", table.off, device=dev, dtypes=(table.slots.dtype,),
+           shape=(T, k_out + 1, N_LANES))
+    geo = scatter_cm_geometry(int(k_out), n_ch, V, K, src.element_size())
+    return _scatter_cm_launch(src, table, n_ch, geo["cb"], geo["ry"],
+                              geo["staged"])
+
+
+def _scatter_cm_launch(src, table: ScatterTable, n_ch: int, cb: int,
+                       ry: int, staged: bool):
+    """Launch K2's kernel on a checked ``src`` and ``table`` with ``cb``
+    channels and ``ry`` thread rows a block, the slab's tile ``staged`` or
+    read through L1: :func:`lane_scatter_cm`'s geometry, or another that
+    ``perf/scatter_cm_bench.py --sweep`` times."""
+    _, T, _, L = src.shape
+    if staged:
+        _check_aligned("lane_scatter_cm", src)
+    out = torch.empty((n_ch, T, table.k_out, L), dtype=src.dtype,
+                      device=src.device)
     lib = _build.load()
     code = lib.lane_scatter_cm(
-        _VT[src.dtype], _IT[idx.dtype], src.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), C, T, V, K, int(k_out), geo["rows"], _stream(dev),
+        _VT[src.dtype], _ST[table.slots.dtype], src.data_ptr(),
+        table.slots.data_ptr(), table.off.data_ptr(), out.data_ptr(), n_ch,
+        T, table.V, table.K, table.k_out, table.slots.shape[1], cb, ry,
+        int(staged), _stream(src.device),
     )
     _raise_on(code, "lane_scatter_cm")
     lane_scatter_cm.launches += 1

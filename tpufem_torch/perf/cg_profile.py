@@ -284,13 +284,14 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         ev = gen.apply(lin.cells, vc)
         src = ev.reshape(p.nv * eng.bs, p.G, p.kc, 128).contiguous()
         part = K.lane_scatter_cm(src, eng.gather_idx, k_out=p.wg,
-                                 n_ch=eng.bs)
+                                 n_ch=eng.bs, table=eng.scatter_table)
         parts = dict(
             gather=_part(lambda: eng._gather_cells(r), 20),
             element_matrix_product=_part(lambda: gen.apply(lin.cells, vc),
                                          20),
             scatter=_part(lambda: K.lane_scatter_cm(
-                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs), 20),
+                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs,
+                table=eng.scatter_table), 20),
             # the tail owner-sum adds into its argument: timing only
             owner_refresh=_part(lambda: eng._owner_refresh(part), 20),
         )
@@ -312,14 +313,15 @@ def profile_cg_iteration(eng, cc, iters: int, twolevel=None,
         ev = mq.chain_back(dg, D)
         src = ev.reshape(p.nv * eng.bs, p.G, p.kc, 128).contiguous()
         part = K.lane_scatter_cm(src, eng.gather_idx, k_out=p.wg,
-                                 n_ch=eng.bs)
+                                 n_ch=eng.bs, table=eng.scatter_table)
         parts = dict(
             gather=_part(lambda: eng._gather_cells(r), 20),
             reduced_args=_part(lambda: mq.reduced_args(vc, D), 20),
             hess_apply=_part(lambda: mq.hess_apply(lin.cells, a), 20),
             chain_back=_part(lambda: mq.chain_back(dg, D), 20),
             scatter=_part(lambda: K.lane_scatter_cm(
-                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs), 20),
+                src, eng.gather_idx, k_out=p.wg, n_ch=eng.bs,
+                table=eng.scatter_table), 20),
             # the tail owner-sum adds into its argument: timing only
             owner_refresh=_part(lambda: eng._owner_refresh(part), 20),
         )

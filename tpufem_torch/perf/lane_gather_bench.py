@@ -1,10 +1,10 @@
 """The windowed gathers and scatters of the lane layout alone on the card,
 at the tables of the n = 1024 polycrystal plan: K1 ``lane_gather_cm`` and
 K5 ``lane_gather_weighted`` (the two-level restriction and prolongation),
-K9 ``lane_gather`` (per v and summed over v) at K1's tables, K2
-``lane_scatter_cm`` at K1's tables, K10 ``lane_scatter`` at their transpose
-and K11 ``lane_scatter_weighted`` at the prolongation's tables in the
-adjoint direction.
+K9 ``lane_gather`` (per v and summed over v) at K1's tables, K10
+``lane_scatter`` at their transpose and K11 ``lane_scatter_weighted`` at
+the prolongation's tables in the adjoint direction. K2 ``lane_scatter_cm``
+has a bench of its own, ``perf/scatter_cm_bench.py``.
 
     python -m tpufem_torch.perf.lane_gather_bench [--tables FILE]
     PYTHONPATH=<other tree> python <this file> [--tables FILE]
@@ -48,7 +48,6 @@ WARP = 32
 ENTRIES = {"lane_gather_cm": "lane_gather_cm_kernel",
            "lane_gather_weighted": "lane_gather_weighted_kernel",
            "lane_gather": "lane_gather_kernel",
-           "lane_scatter_cm": "lane_scatter_cm_kernel",
            "lane_scatter": "lane_scatter_kernel",
            "lane_scatter_weighted": "lane_scatter_weighted_kernel"}
 
@@ -155,9 +154,6 @@ def cases(tabs: dict, dev) -> dict:
         "lane_gather/sum_v": (
             K.lane_gather, K.lane_gather_plain, (C, R, 128), (g_st, g_ix),
             dict(wr=wg, sum_v=True), None, 1),
-        "lane_scatter_cm": (
-            K.lane_scatter_cm, K.lane_scatter_cm_plain, (V * C, T, kc, 128),
-            (g_ix,), dict(k_out=wg, n_ch=C), None, 1),
         "lane_scatter": (
             K.lane_scatter, K.lane_scatter_plain, (C, T * sk10, 128),
             (on(torch.arange(T, dtype=torch.int32) * sk10),
